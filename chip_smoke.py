@@ -1,0 +1,458 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (lang2seg_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (nothing is caught):
+  1. environment: device, `nvidia-smi` name and power limit, TF32 flags
+     (both set off, so f32 matmuls and convolutions run in full f32);
+  2. build both CUDA kernels from lang2seg_tpu_torch/csrc with nvcc for
+     sm_90a, in parallel;
+  3. NMS kernel against its plain version on the card, bit for bit:
+     (16, 6000) -> 300 and (16, 12000) -> 2000 on RPN draws, uniform
+     boxes, a dense cluster, a spread grid and jittered twins;
+  4. fused gate kernel against its plain version on the card at the
+     flagship shape (16, 40, 64, 1024) bf16 through a stride-0 broadcast
+     map, K=7 sigmoid normalized and K=1 multiply: response within 1e-3
+     of max|response|, gated within 1 bf16 ulp;
+  5. the serving path at full width (ResNet-101-C4 `response` variant,
+     random weights from a seed, 640x1024 canvas): 3 requests of 4, 8
+     and 16 expressions through Inference.predict and
+     Evaluator.eval_image, with the kernel launch counts set to 0 before
+     and read after; every request must launch each kernel exactly once
+     per forward;
+  6. a small input (resnet26, 128x192, f32) served on the card and on
+     the CPU (plain versions) from the same weights must agree.
+Then one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
+line. Details go to chiprun_out/chip_smoke.json. Exits non-zero without a
+CUDA device or outside a checkout of the repository.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+from lang2seg_tpu_torch.config import Config, apply_variant, flagship_config  # noqa: E402
+from lang2seg_tpu_torch.data.synthetic import synthetic_eval_request  # noqa: E402
+from lang2seg_tpu_torch.engine.evaluator import Evaluator  # noqa: E402
+from lang2seg_tpu_torch.engine.inference import Inference  # noqa: E402
+from lang2seg_tpu_torch.models.network import build_model  # noqa: E402
+from lang2seg_tpu_torch.ops import _build, fused_filter, nms_cuda  # noqa: E402
+from lang2seg_tpu_torch.ops.anchors import shifted_anchors  # noqa: E402
+from lang2seg_tpu_torch.ops.boxes import clip_boxes, decode_boxes  # noqa: E402
+from lang2seg_tpu_torch.ops.fused_filter import fused_dynamic_filter_plain  # noqa: E402
+from lang2seg_tpu_torch.ops.nms import nms_padded  # noqa: E402
+from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator  # noqa: E402
+from lang2seg_tpu_torch.weights import init_params  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor)
+# FLOP/s; both kernels do their arithmetic in f32 on the CUDA cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# f32 operations of one +1-pixel IoU test (4 min/max, 4 sub/add for the
+# overlap, 2 clamps, 1 mul, 1 add + 1 sub for the union, 1 div, 1 compare;
+# box areas are per box, not per pair)
+NMS_OPS_PER_PAIR = 15
+OUT = os.path.join(REPO, "chiprun_out")
+record = {}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def check(ok, what="check failed"):
+    """A failed check ends the run (an exception, also under python -O)."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def time_ms(fn, reps, warmup=1):
+    """Mean device time of fn over `reps` back-to-back calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------- phase 1
+
+def environment():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    dev = torch.cuda.get_device_name(0)
+    log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {dev} count {torch.cuda.device_count()}")
+    log(f"[env] tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    log(smi)
+    record["env"] = {"torch": torch.__version__, "cuda": torch.version.cuda,
+                     "device": dev, "nvidia_smi": smi}
+    return smi
+
+
+# ---------------------------------------------------------------- phase 2
+
+def build():
+    t0 = time.perf_counter()
+    paths = _build.build_all()
+    log(f"[build] {sorted(paths)} in {time.perf_counter() - t0:.1f} s "
+        f"(per source: { {k: round(v, 1) for k, v in _build.build_seconds.items()} })")
+    for name, path in paths.items():
+        logf = path.with_name("build.log")
+        if logf.exists():
+            for line in logf.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"[build] {name}: {line.strip()}")
+    record["build_seconds"] = dict(_build.build_seconds)
+
+
+# ---------------------------------------------------------------- phase 3
+
+def rpn_draw(e, pre_n, seed, dev):
+    """Score-sorted proposal boxes as the proposal layer makes them: an
+    RPN draw over the 40x64x12 anchors of the 640x1024 canvas, decoded,
+    clipped, stably sorted, top pre_n."""
+    g = np.random.RandomState(seed)
+    anchors = shifted_anchors(40, 64, 16, (4, 8, 16, 32), (0.5, 1.0, 2.0),
+                              device=dev)
+    n = anchors.shape[0]
+    scores = torch.from_numpy(g.uniform(0, 1, (e, n)).astype(np.float32))
+    deltas = torch.from_numpy((g.randn(e, n, 4) * 0.2).astype(np.float32))
+    boxes = clip_boxes(decode_boxes(anchors, deltas.to(dev)),
+                       torch.tensor(600.0, device=dev),
+                       torch.tensor(1000.0, device=dev))
+    order = torch.sort(-scores.to(dev), dim=1, stable=True).indices[:, :pre_n]
+    return torch.gather(boxes, 1, order[..., None].expand(e, pre_n, 4)
+                        ).contiguous()
+
+
+def nms_cases(dev):
+    g = np.random.RandomState(0)
+
+    def rand(e, n, lim=100.0):
+        xy = g.uniform(0, lim, (e, n, 2))
+        wh = g.uniform(5, lim / 2, (e, n, 2))
+        return torch.from_numpy(np.concatenate([xy, xy + wh], -1)
+                                .astype(np.float32)).to(dev)
+
+    base = np.array([10.0, 10.0, 60.0, 60.0])
+    cluster = base + g.uniform(-8, 8, (2, 1024, 4))
+    cluster[..., 2:] = np.maximum(cluster[..., 2:], cluster[..., :2] + 1)
+    xs, ys = np.meshgrid(np.arange(32) * 20.0, np.arange(16) * 20.0)
+    grid = np.stack([xs.ravel(), ys.ravel(), xs.ravel() + 12,
+                     ys.ravel() + 12], 1)[None].astype(np.float32)
+    twins = np.empty((1, 1024, 4), np.float32)
+    twins[:, 0::2] = grid
+    twins[:, 1::2] = grid + g.uniform(-2, 2, grid.shape)
+    part = rand(3, 700)
+    pvalid = torch.ones((3, 700), dtype=torch.bool, device=dev)
+    pvalid[:, 500:] = False
+    pvalid[1, ::7] = False
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
+    ones = lambda b: torch.ones(b.shape[:2], dtype=torch.bool, device=dev)  # noqa: E731
+    return [
+        ("rpn_16x6000_300", rpn_draw(16, 6000, 1, dev), None, 0.7, 300),
+        ("uniform_4x2048_512", rand(4, 2048), None, 0.7, 512),
+        ("dense_cluster_2x1024_256", t(cluster), None, 0.5, 256),
+        ("spread_grid_1x512_256", t(grid), None, 0.5, 256),
+        ("twins_1x1024_256", t(twins), None, 0.5, 256),
+        ("partial_valid_3x700_128", part, pvalid, 0.7, 128),
+        ("rpn_16x12000_2000", rpn_draw(16, 12000, 2, dev), None, 0.7, 2000),
+    ], ones
+
+
+def nms_pairs(keep_idx, keep_mask, n, max_out):
+    """IoU tests greedy NMS needs on this data: each box up to the last
+    one processed against every kept box before it."""
+    ki, km = keep_idx.cpu().numpy(), keep_mask.cpu().numpy()
+    total = 0
+    for lane in range(ki.shape[0]):
+        kept = ki[lane][km[lane]].astype(np.int64)
+        last = kept[-1] if len(kept) == max_out else n - 1
+        total += int(np.sum(last - kept))
+    return total
+
+
+def check_nms(dev):
+    cases, ones = nms_cases(dev)
+    main = None
+    max_err = 0.0          # largest |kernel - plain| over every case and slot
+    for name, boxes, valid, thr, max_out in cases:
+        valid = ones(boxes) if valid is None else valid
+        ki, km = nms_cuda.nms_batched(boxes, valid, thr, max_out)
+        pi, pm = nms_padded(boxes, valid, thr, max_out)
+        torch.cuda.synchronize()
+        same = torch.equal(ki, pi) and torch.equal(km, pm)
+        max_err = max(max_err, float((ki - pi).abs().max()),
+                      float((km != pm).sum()))
+        kept = km.sum(1).tolist()
+        log(f"[nms] {name}: bit-identical={same} kept/lane={kept}")
+        check(same, f"NMS kernel differs from its plain version on {name}")
+        if name == "rpn_16x6000_300":
+            main = (boxes, valid, thr, max_out, ki, km)
+    boxes, valid, thr, max_out, ki, km = main
+    e, n, _ = boxes.shape
+    ms = time_ms(lambda: nms_cuda.nms_batched(boxes, valid, thr, max_out), 20)
+    plain_ms = time_ms(lambda: nms_padded(boxes, valid, thr, max_out), 2)
+    byts = e * n * 16 + e * n + e * max_out * 5
+    ops = nms_pairs(ki, km, n, max_out) * NMS_OPS_PER_PAIR
+    b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    res = {"name": "nms", "route": "cuda",
+           "source": "lang2seg_tpu_torch/csrc/nms.cu",
+           "replaces": "lang2seg_tpu/ops/nms_pallas.py:196",
+           "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(b_bytes, b_ops),
+           "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+           "library_ms": None}
+    log(f"[nms] (16, 6000)->300: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms,"
+        f" bound {res['bound_ms'] * 1e3:.3f} us ({res['bound_by']}: "
+        f"{byts} B, {ops} ops)")
+    record["nms"] = dict(res, bytes=byts, ops=ops)
+    return res
+
+
+# ---------------------------------------------------------------- phase 4
+
+def bf16_ulp_distance(a, b):
+    def ordered(x):
+        bits = x.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        mag = bits & 0x7FFF
+        return torch.where(bits < 0, -mag, mag)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def check_gate(dev):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    e, h, w, c = 16, 40, 64, 1024
+    conv1 = (torch.randn((1, h, w, c), generator=g) * 2.0).to(
+        dev, torch.bfloat16)
+    conv = conv1.expand(e, h, w, c)                 # stride 0, as served
+    out = None
+    for k, gate, norm in ((7, "sigmoid", True), (1, "multiply", False)):
+        filt = torch.tanh(torch.randn((e, c, k), generator=g)).to(dev)
+        rfilt = (torch.tanh(torch.randn((e, k), generator=g)) if k == 7
+                 else torch.ones((e, 1))).to(dev)
+        if k == 1:
+            filt = filt * 0.03                       # keep |resp| ~ 1
+        gk, rk = fused_filter.fused_dynamic_filter(conv, filt, rfilt, k,
+                                                   gate, norm)
+        gp, rp = fused_dynamic_filter_plain(conv, filt, rfilt, k, gate, norm)
+        torch.cuda.synchronize()
+        resp_err = float((rk - rp).abs().max())
+        resp_tol = 1e-3 * float(rp.abs().max())
+        ulps = int(bf16_ulp_distance(gk.float(), gp.float()).max())
+        gated_err = float((gk.float() - gp.float()).abs().max())
+        # the gate given the kernel's own response: one rounding of the f32
+        # product, so within 1 bf16 ulp. Against the plain version's gated
+        # map the response's f32 difference also enters: through a sigmoid
+        # it stays within 1 ulp; the multiply gate passes it on unbounded
+        # near resp = 0, where gated ~ 0 and an ulp is tiny
+        g_k = torch.sigmoid(rk) if gate == "sigmoid" else rk
+        same_g = (conv.float() * g_k).to(torch.bfloat16)
+        ulps_given_resp = int(bf16_ulp_distance(gk.float(),
+                                                same_g.float()).max())
+        log(f"[gate] K={k} {gate} normalize={norm}: resp max err "
+            f"{resp_err:.3e} (tol {resp_tol:.3e}); gated vs plain: max "
+            f"{ulps} bf16 ulp, max abs {gated_err:.3e}; gated vs plain gate "
+            f"on the kernel's response: max {ulps_given_resp} bf16 ulp")
+        check(resp_err <= resp_tol, "gate kernel response out of tolerance")
+        check(ulps_given_resp <= 1, "gate kernel gated map beyond 1 bf16 ulp")
+        if gate == "sigmoid":
+            check(ulps <= 1, "gate kernel gated map beyond 1 bf16 ulp")
+        check(gk.shape == (e, h, w, c) and rk.shape == (e, h, w, 1))
+        if k == 7:
+            out = (filt, rfilt, gated_err, resp_err)
+    filt, rfilt, gated_err, resp_err = out
+    ms = time_ms(lambda: fused_filter.fused_dynamic_filter(
+        conv, filt, rfilt, 7, "sigmoid", True), 50)
+    plain_ms = time_ms(lambda: fused_dynamic_filter_plain(
+        conv, filt, rfilt, 7, "sigmoid", True), 5)
+    byts = h * w * c * 2 + e * c * 7 * 4 + e * 7 * 4 + e * h * w * c * 2 \
+        + e * h * w * 4
+    ops = e * h * w * (2 * c * 7 + c + 3 * 7 + 4)
+    b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    res = {"name": "fused_filter", "route": "cuda",
+           "source": "lang2seg_tpu_torch/csrc/fused_filter.cu",
+           "replaces": "lang2seg_tpu/ops/pallas_kernels.py:85",
+           "max_abs_err": gated_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(b_bytes, b_ops),
+           "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+           "library_ms": None}
+    log(f"[gate] (16, 40, 64, 1024) bf16 K=7: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {res['bound_ms'] * 1e3:.2f} us "
+        f"({res['bound_by']}: {byts} B, {ops} ops)")
+    record["fused_filter"] = dict(res, bytes=byts, ops=ops,
+                                  resp_max_abs_err=resp_err)
+    return res
+
+
+# ---------------------------------------------------------------- phase 5
+
+def serve_full_width():
+    cfg = flagship_config()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"[serve] flagship response model built in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in model.state_dict().values())} weights)")
+    inf = Inference(model, cfg)
+    ev = Evaluator(model, cfg)
+    # COCO images are <= 640 a side; scaled by 1.6 they fill the canvas
+    scale = 1.6
+    sizes = ((4, 1), (8, 2), (16, 3))
+    # warm-up at every request size: cuDNN picks its algorithms and the
+    # allocator grows on the first call of each shape
+    for num_expr, seed in sizes:
+        ev.eval_image(synthetic_eval_request(cfg, num_expr, 100 + seed, scale),
+                      SegEvalAccumulator())
+    torch.cuda.synchronize()
+
+    acc = SegEvalAccumulator()
+    timings = []
+    torch.cuda.reset_peak_memory_stats()
+    nms_cuda.launches = 0
+    fused_filter.launches = 0
+    for num_expr, seed in sizes:
+        b = synthetic_eval_request(cfg, num_expr, seed, scale)
+        n0, f0 = nms_cuda.launches, fused_filter.launches
+        t0 = time.perf_counter()
+        out = inf.predict(b["images"], b["im_hw"], b["labels"])
+        torch.cuda.synchronize()
+        t_pred = (time.perf_counter() - t0) * 1e3
+        check((nms_cuda.launches - n0, fused_filter.launches - f0) == (1, 1))
+        r = cfg.test.rpn_post_nms_top_n
+        shapes = {"rois": (num_expr, r, 4), "roi_valid": (num_expr, r),
+                  "cls_prob": (num_expr, r, 81),
+                  "bbox_pred": (num_expr, r, 324),
+                  "gated_conv": (num_expr, 40, 64, 1024),
+                  "response": (num_expr, 40, 64, 1)}
+        for k, shp in shapes.items():
+            check(tuple(out[k].shape) == shp, (k, tuple(out[k].shape)))
+            if k != "roi_valid":
+                check(bool(torch.isfinite(out[k].float()).all()), k)
+        check(out["gated_conv"].dtype == torch.bfloat16)
+        check(bool(out["roi_valid"].any(1).all()))
+        masks = inf.boxes_to_masks(out["gated_conv"], out["rois"][:, :2],
+                                   torch.ones((num_expr, 2), dtype=torch.int64))
+        check(masks.shape == (num_expr, 2, 14, 14))
+        check(bool(((masks >= 0) & (masks <= 1)).all()))
+
+        n0, f0 = nms_cuda.launches, fused_filter.launches
+        t0 = time.perf_counter()
+        ev.eval_image(b, acc)
+        torch.cuda.synchronize()
+        t_eval = (time.perf_counter() - t0) * 1e3
+        check((nms_cuda.launches - n0, fused_filter.launches - f0) == (1, 1))
+        timings.append({"expressions": num_expr, "predict_ms": t_pred,
+                        "eval_image_ms": t_eval})
+        log(f"[serve] request E={num_expr}: predict {t_pred:.1f} ms, "
+            f"eval_image {t_eval:.1f} ms")
+    launches = {"nms": nms_cuda.launches,
+                "fused_filter": fused_filter.launches}
+    summary = acc.summary()
+    check(acc.num_sent == 28 and acc.seg_total == 28)
+    for k, v in summary.items():
+        check(0.0 <= float(v) <= 1.0, (k, v))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[serve] main-path launches {launches}; metrics "
+        f"{ {k: round(float(v), 4) for k, v in summary.items()} }; "
+        f"peak device memory {peak:.2f} GiB")
+    check(launches["nms"] > 0 and launches["fused_filter"] > 0)
+    record["serve"] = {"timings": timings, "launches": launches,
+                       "metrics": {k: float(v) for k, v in summary.items()},
+                       "peak_gib": peak}
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+
+def small_reference():
+    """The tiny f32 config served on the card (kernels) and on the CPU
+    (plain versions) from the same weights. The RPN class weights are
+    scaled by 100, as in tests/test_torch_slice.py, so that near-tied
+    objectness scores at random init do not reorder between devices."""
+    cfg = apply_variant(Config(), "response")
+    cfg.data.canvas_h, cfg.data.canvas_w = 128, 192
+    cfg.model.backbone = "resnet26"
+    cfg.model.vocab_size = 100
+    cfg.model.compute_dtype = "float32"
+    cfg.model.normalize_response = True
+    cfg.test.rpn_pre_nms_top_n, cfg.test.rpn_post_nms_top_n = 256, 32
+    sd = init_params(cfg, 7)
+    for k in ("rpn_cls_score_net.weight", "rpn_cls_score_net.bias"):
+        sd[k] = sd[k] * 100.0
+    b = synthetic_eval_request(cfg, 3, 5)
+    outs, accs = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev, state_dict=sd)
+        outs[dev] = {k: v.float().cpu() for k, v in Inference(
+            model, cfg, device=dev).predict(b["images"], b["im_hw"],
+                                            b["labels"]).items()}
+        accs[dev] = SegEvalAccumulator()
+        Evaluator(model, cfg, device=dev).eval_image(b, accs[dev])
+    a, p = outs["cuda"], outs["cpu"]
+    check(torch.equal(a["roi_valid"], p["roi_valid"]))
+    errs = {k: float((a[k] - p[k]).abs().max()) for k in a}
+    log(f"[reference] card vs CPU, tiny f32 config: max abs diff {errs}")
+    check(errs["rois"] <= 1e-2)
+    for k in ("cls_prob", "cls_score", "bbox_pred", "response", "gated_conv"):
+        check(errs[k] <= 1e-3, k)
+    check(accs["cuda"].det_correct == accs["cpu"].det_correct)
+    check(abs(accs["cuda"].cum_i - accs["cpu"].cum_i) <= 4)
+    record["reference"] = errs
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs on a CUDA device", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    environment()
+    build()
+    dev = torch.device("cuda")
+    kernels = [check_nms(dev), check_gate(dev)]
+    launches = serve_full_width()
+    small_reference()
+    for kr in kernels:
+        kr["launches"] = launches[kr["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [{k: kr[k] for k in keys} for kr in kernels]
+    record["kernels"] = kernels
+    record["seconds"] = time.perf_counter() - t_start
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    log(f"[done] {record['seconds']:.1f} s")
+    log(record["env"]["nvidia_smi"])
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,121 @@
+"""ResNet-C4 backbone with frozen BatchNorm.
+
+Counterpart of `lang2seg_tpu/models/resnet.py` (plain path only) and of
+the reference's torchvision-style ResNet (`nets/resnet_v1.py:75-190`):
+caffe-style bottleneck (stride on the first 1x1 conv), 3x3/2/1 max pool
+after conv1, layer4 at stride 1 applied as the per-ROI tail on 7x7
+crops. Every BatchNorm is frozen, so it is a constant per-channel affine.
+Parameter names are the reference's (`conv1`, `bn1`, `layer3.4.conv2`,
+`layer1.0.downsample.0`, ...).
+
+Public methods take and return NHWC tensors; inside, activations are
+NCHW tensors in `torch.channels_last` memory format (the same bytes as
+NHWC), and convolutions run in the input's dtype with their f32
+parameters cast per call, as flax's `nn.Conv(dtype=...)` does.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+STAGE_BLOCKS = {
+    "resnet26": (1, 1, 1, 1),   # test-only tiny depth
+    "resnet50": (3, 4, 6, 3),
+    "resnet101": (3, 4, 23, 3),
+    "resnet152": (3, 8, 36, 3),
+}
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in the input's dtype: f32 parameters are cast
+    to it per call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, w, b)
+
+
+class FrozenBatchNorm(nn.Module):
+    """y = (x - mean) / sqrt(var + eps) * weight + bias with fixed
+    statistics, applied as x * inv + offset in x's dtype. The four
+    tensors are buffers under the reference's BatchNorm2d names."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:   # NCHW
+        inv = self.weight / torch.sqrt(self.running_var + self.eps)
+        offset = self.bias - self.running_mean * inv
+        return (x * inv.to(x.dtype)[:, None, None]
+                + offset.to(x.dtype)[:, None, None])
+
+
+class Bottleneck(nn.Module):
+    """Caffe-style bottleneck: the stride sits on conv1 (reference
+    resnet_v1.py:80)."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = Conv2d(inplanes, planes, 1, stride=stride, bias=False)
+        self.bn1 = FrozenBatchNorm(planes)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = FrozenBatchNorm(planes)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = FrozenBatchNorm(planes * 4)
+        self.downsample = (nn.Sequential(
+            Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
+            FrozenBatchNorm(planes * 4)) if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.downsample is None else self.downsample(x)
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return F.relu(out + residual)
+
+
+def _stage(inplanes: int, planes: int, blocks: int, stride: int):
+    layers = [Bottleneck(inplanes, planes, stride, downsample=True)]
+    layers += [Bottleneck(planes * 4, planes) for _ in range(1, blocks)]
+    return nn.Sequential(*layers)
+
+
+class ResNetC4(nn.Module):
+    """`head(images)` = conv1..layer3 (stride 16, 1024 channels);
+    `tail(crops)` = layer4 at stride 1 (reference resnet_v1.py:255-267)."""
+
+    def __init__(self, depth: str = "resnet101",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        b = STAGE_BLOCKS[depth]
+        self.dtype = dtype
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = FrozenBatchNorm(64)
+        self.layer1 = _stage(64, 64, b[0], 1)
+        self.layer2 = _stage(256, 128, b[1], 2)
+        self.layer3 = _stage(512, 256, b[2], 2)
+        self.layer4 = _stage(1024, 512, b[3], 1)
+
+    def head(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) f32 mean-subtracted BGR -> (B, H/16, W/16, 1024)."""
+        x = images.permute(0, 3, 1, 2).to(self.dtype,
+                                          memory_format=torch.channels_last)
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        x = self.layer3(self.layer2(self.layer1(x)))
+        return x.permute(0, 2, 3, 1)
+
+    def tail(self, pool5: torch.Tensor) -> torch.Tensor:
+        """(R, S, S, 1024) -> spatial_fc7 (R, S, S, 2048)."""
+        x = pool5.permute(0, 3, 1, 2).to(self.dtype,
+                                         memory_format=torch.channels_last)
+        return self.layer4(x).permute(0, 2, 3, 1)

@@ -1,0 +1,49 @@
+"""RPN proposal generation, batched over expressions.
+
+Parity: `lang2seg_tpu/ops/proposals.py::proposal_layer` and reference
+`layer_utils/proposal_layer.py:19-68`: decode deltas -> clip -> stable
+descending sort to pre_nms_n -> NMS -> gather to post_nms_n. Outputs are
+padded to post_nms_n with a validity mask; padded slots hold the top
+box (index 0), as the reference's fixed-shape gather does. One NMS call
+covers all E expressions (one kernel launch per request on a card).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .boxes import clip_boxes, decode_boxes
+from .nms_cuda import nms_batched
+
+
+class Proposals(NamedTuple):
+    rois: torch.Tensor      # (E, post_nms_n, 4)
+    scores: torch.Tensor    # (E, post_nms_n)
+    valid: torch.Tensor     # (E, post_nms_n) bool
+
+
+@torch.no_grad()
+def proposal_layer(scores: torch.Tensor, deltas: torch.Tensor,
+                   anchors: torch.Tensor, im_h, im_w, pre_nms_n: int,
+                   post_nms_n: int, nms_thresh: float) -> Proposals:
+    """scores: (E, N) positive-class probs; deltas: (E, N, 4); anchors:
+    (N, 4). im_h / im_w: true (unpadded) image extent for clipping.
+    No gradient flows through the proposals (the reference detaches the
+    rois before cropping, network.py:117)."""
+    boxes = clip_boxes(decode_boxes(anchors, deltas.float()), im_h, im_w)
+    e, n = scores.shape
+    k = min(pre_nms_n, n)
+    # stable sort: equal scores keep ascending-index order, the tie order
+    # of the reference's lax.sort (torch.topk promises none)
+    order = torch.sort(-scores, dim=1, stable=True).indices[:, :k]
+    top_scores = torch.gather(scores, 1, order)
+    top_boxes = torch.gather(boxes, 1, order[..., None].expand(e, k, 4))
+    keep_idx, keep_mask = nms_batched(
+        top_boxes.contiguous(),
+        torch.ones((e, k), dtype=torch.bool, device=scores.device),
+        nms_thresh, post_nms_n)
+    ki = keep_idx.long()
+    rois = torch.gather(top_boxes, 1, ki[..., None].expand(e, post_nms_n, 4))
+    return Proposals(rois, torch.gather(top_scores, 1, ki), keep_mask)

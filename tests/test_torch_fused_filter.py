@@ -1,0 +1,169 @@
+"""The port's plain fused gate (lang2seg_tpu_torch.ops.fused_filter, the CPU
+path and the oracle of the CUDA kernel) against the JAX package: its
+Pallas kernel `fused_dynamic_filter` run in interpret mode, and the plain
+path of `models/dynamic_filter.py::DynamicFilterGen`, for K in {1, 7} and
+both gates.
+
+Tolerances: f32 maps at 1e-4 (the (H*W, C) x (C, K) contraction is summed
+in another order). bf16 maps: the port follows the Pallas kernel, which
+rounds the f32 product conv * g once to bf16; the plain JAX path casts g
+to bf16 first and rounds the bf16 product, so gated may differ there by
+one bf16 ulp."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from lang2seg_tpu.models.dynamic_filter import (DynamicFilterGen as
+                                                JaxDynamicFilterGen)
+from lang2seg_tpu.models.dynamic_filter import spatial_masks_7 as jmasks
+from lang2seg_tpu.ops.pallas_kernels import fused_dynamic_filter as jfused
+from lang2seg_tpu_torch.models.dynamic_filter import (DynamicFilterGen,
+                                                      spatial_masks_7)
+from lang2seg_tpu_torch.ops import fused_filter
+from lang2seg_tpu_torch.ops.fused_filter import fused_dynamic_filter_plain
+
+CASES = [(7, "sigmoid"), (7, "multiply"), (1, "sigmoid"), (1, "multiply")]
+
+
+def bf16_ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance in bf16 representable steps."""
+    def ordered(x):
+        bits = x.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        mag = bits & 0x7FFF
+        return torch.where(bits < 0, -mag, mag)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _inputs(rng, k, b=2, h=8, w=16, c=128):
+    net_conv = rng.randn(b, h, w, c).astype(np.float32)
+    filt = np.tanh(rng.randn(b, c, k)).astype(np.float32)
+    rfilt = np.tanh(rng.randn(b, k)).astype(np.float32)
+    return net_conv, filt, rfilt
+
+
+def test_spatial_masks_identical():
+    for h, w in ((8, 16), (40, 64), (7, 13)):
+        np.testing.assert_array_equal(spatial_masks_7(h, w).numpy(),
+                                      np.asarray(jmasks(h, w)))
+
+
+@pytest.mark.parametrize("k,gate", CASES)
+@pytest.mark.parametrize("normalize", [True, False])
+def test_plain_matches_pallas_interpret(rng, k, gate, normalize):
+    net_conv, filt, rfilt = _inputs(rng, k)
+    if k == 1:
+        rfilt = np.ones_like(rfilt)
+    want_g, want_r = jfused(jnp.asarray(net_conv), jnp.asarray(filt),
+                            jnp.asarray(rfilt), num_filters=k, gate=gate,
+                            normalize=normalize, interpret=True)
+    got_g, got_r = fused_dynamic_filter_plain(
+        torch.from_numpy(net_conv), torch.from_numpy(filt),
+        torch.from_numpy(rfilt), k, gate, normalize)
+    assert got_r.shape == (2, 8, 16, 1) and got_r.dtype == torch.float32
+    np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _jax_filter_gen(k, gate, hidden_dim, c, rng):
+    mod = JaxDynamicFilterGen(c4_dim=c, num_filters=k, gate=gate,
+                              normalize=True)
+    params = {"dynamic_fc": {
+        "kernel": (rng.randn(hidden_dim, c * k) * 0.05).astype(np.float32),
+        "bias": (rng.randn(c * k) * 0.05).astype(np.float32)}}
+    if k == 7:
+        params["response_fc"] = {
+            "kernel": (rng.randn(hidden_dim, k) * 0.2).astype(np.float32),
+            "bias": (rng.randn(k) * 0.1).astype(np.float32)}
+    return mod, params
+
+
+def _port_filter_gen(k, gate, hidden_dim, c, params):
+    mod = DynamicFilterGen(hidden_dim, c, k, gate, normalize=True)
+    kern, bias = params["dynamic_fc"]["kernel"], params["dynamic_fc"]["bias"]
+    with torch.no_grad():
+        if k == 1:
+            mod.dynamic_fc.weight.copy_(torch.from_numpy(kern.T))
+            mod.dynamic_fc.bias.copy_(torch.from_numpy(bias))
+        else:
+            for i in range(k):
+                fc = getattr(mod, f"dynamic_fc_{i}")
+                fc.weight.copy_(torch.from_numpy(kern[:, i * c:(i + 1) * c].T))
+                fc.bias.copy_(torch.from_numpy(bias[i * c:(i + 1) * c]))
+            mod.response_fc.weight.copy_(
+                torch.from_numpy(params["response_fc"]["kernel"].T))
+            mod.response_fc.bias.copy_(
+                torch.from_numpy(params["response_fc"]["bias"]))
+    return mod
+
+
+@pytest.mark.parametrize("k,gate", CASES)
+def test_filter_gen_matches_jax_plain_path(rng, k, gate):
+    """The whole conditioning module (Dense -> tanh filters -> gate) on a
+    broadcast f32 map against the JAX module's plain einsum path."""
+    e, h, w, c, d = 3, 8, 12, 256, 64
+    jmod, params = _jax_filter_gen(k, gate, d, c, rng)
+    pmod = _port_filter_gen(k, gate, d, c, params)
+    conv1 = rng.randn(1, h, w, c).astype(np.float32)
+    hidden = rng.randn(e, d).astype(np.float32)
+    with jax.default_matmul_precision("float32"):
+        want_g, want_r = jmod.apply(
+            {"params": params},
+            jnp.broadcast_to(jnp.asarray(conv1), (e, h, w, c)),
+            jnp.asarray(hidden))
+    with torch.no_grad():
+        got_g, got_r = pmod(torch.from_numpy(conv1).expand(e, h, w, c),
+                            torch.from_numpy(hidden))
+    np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("k,gate", [(7, "sigmoid"), (1, "multiply")])
+def test_bf16_within_one_ulp_of_jax_plain_path(rng, k, gate):
+    net_conv, filt, rfilt = _inputs(rng, k, c=256)
+    if k == 1:
+        rfilt = np.ones_like(rfilt)
+    conv_bf = jnp.asarray(net_conv).astype(jnp.bfloat16)
+    # the plain JAX path of DynamicFilterGen (models/dynamic_filter.py)
+    resp = jnp.einsum("bhwc,bck->bhwk", conv_bf.astype(jnp.float32),
+                      jnp.asarray(filt), precision="highest")
+    resp = resp / jnp.sqrt(jnp.float32(256))
+    if k == 7:
+        resp = resp * jmasks(8, 16).transpose(1, 2, 0)[None]
+        fused = jnp.einsum("bhwk,bk->bhw", resp, jnp.asarray(rfilt),
+                           precision="highest")[..., None]
+    else:
+        fused = resp
+    g = jax.nn.sigmoid(fused) if gate == "sigmoid" else fused
+    want = conv_bf * g.astype(jnp.bfloat16)
+
+    conv_t = torch.from_numpy(np.array(conv_bf.astype(jnp.float32))
+                              ).to(torch.bfloat16)
+    got_g, got_r = fused_dynamic_filter_plain(
+        conv_t, torch.from_numpy(filt), torch.from_numpy(rfilt), k, gate,
+        True)
+    assert got_g.dtype == torch.bfloat16
+    np.testing.assert_allclose(got_r.numpy(), np.asarray(fused),
+                               rtol=1e-4, atol=1e-4)
+    want_t = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    assert int(bf16_ulp_distance(got_g.float(), want_t).max()) <= 1
+
+
+def test_wrapper_takes_plain_path_on_cpu(rng):
+    net_conv, filt, rfilt = _inputs(rng, 7)
+    args = (torch.from_numpy(net_conv), torch.from_numpy(filt),
+            torch.from_numpy(rfilt))
+    before = fused_filter.launches
+    g1, r1 = fused_filter.fused_dynamic_filter(*args, 7, "sigmoid", True)
+    g2, r2 = fused_dynamic_filter_plain(*args, 7, "sigmoid", True)
+    assert torch.equal(g1, g2) and torch.equal(r1, r2)
+    assert fused_filter.launches == before
+    with pytest.raises(ValueError):
+        fused_filter.fused_dynamic_filter(*(a.to("meta") for a in args))
