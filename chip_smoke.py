@@ -15,6 +15,12 @@ Phases, each fatal on failure (nothing is caught):
      flagship shape (16, 40, 64, 1024) bf16 through a stride-0 broadcast
      map, K=7 sigmoid normalized and K=1 multiply: response within 1e-3
      of max|response|, gated within 1 bf16 ulp;
+  4b. the gate's backward kernel against its plain version at the
+     training shape, (16, 40, 64, 1024) bf16 gathered from 2 images, K=7
+     sigmoid normalized and K=1 multiply, given the same response:
+     d_conv within 2 bf16 ulps (counted at no less than 2^-8 of
+     max|d_conv|), d_filt and d_rfilt within 1e-3 of their max|value|,
+     and the same bits on a second call;
   5. the serving path at full width (ResNet-101-C4 `response` variant,
      random weights from a seed, 640x1024 canvas): 3 requests of 4, 8
      and 16 expressions through Inference.predict and
@@ -22,8 +28,20 @@ Phases, each fatal on failure (nothing is caught):
      and read after; every request must launch each kernel exactly once
      per forward;
   6. a small input (resnet26, 128x192, f32) served on the card and on
-     the CPU (plain versions) from the same weights must agree.
-Then one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
+     the CPU (plain versions) from the same weights must agree;
+  7. the training path at full width: `Trainer` over 2 images x 16
+     expressions (uint8 canvases, bit-packed masks), random weights from
+     a seed, at the config's LR: 1 warm-up step, 1 step under PyTorch's
+     synchronisation debug mode (which must report no host sync inside
+     `train_step`) and 3 timed steps, with the launch counts set to 0
+     before and read after. Every step must launch the NMS, the gate and
+     the gate's backward exactly once and give finite losses; frozen
+     parameters stay bit-identical and every SGD group moves;
+  8. one tiny f32 training step (resnet26, 128x192) on the card and on the
+     CPU from the same weights, dropout draws and injected targets: the
+     losses and the updates must agree.
+Then one `{"kernels": [...]}` line (launches: the serving and training
+runs of phases 5 and 7 together) and, last, the `{"ok": true, ...}`
 line. Details go to chiprun_out/chip_smoke.json. Exits non-zero without a
 CUDA device or outside a checkout of the repository.
 """
@@ -33,6 +51,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -41,15 +60,22 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from lang2seg_tpu_torch.config import Config, apply_variant, flagship_config  # noqa: E402
-from lang2seg_tpu_torch.data.synthetic import synthetic_eval_request  # noqa: E402
+from lang2seg_tpu_torch.data.synthetic import (  # noqa: E402
+    synthetic_batch, synthetic_eval_request, to_wire)
 from lang2seg_tpu_torch.engine.evaluator import Evaluator  # noqa: E402
 from lang2seg_tpu_torch.engine.inference import Inference  # noqa: E402
+from lang2seg_tpu_torch.engine.train_state import (  # noqa: E402
+    create_train_state, to_device, train_step)
+from lang2seg_tpu_torch.engine.trainer import Trainer  # noqa: E402
 from lang2seg_tpu_torch.models.network import build_model  # noqa: E402
 from lang2seg_tpu_torch.ops import _build, fused_filter, nms_cuda  # noqa: E402
 from lang2seg_tpu_torch.ops.anchors import shifted_anchors  # noqa: E402
 from lang2seg_tpu_torch.ops.boxes import clip_boxes, decode_boxes  # noqa: E402
-from lang2seg_tpu_torch.ops.fused_filter import fused_dynamic_filter_plain  # noqa: E402
+from lang2seg_tpu_torch.ops.fused_filter import (  # noqa: E402
+    fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain)
 from lang2seg_tpu_torch.ops.nms import nms_padded  # noqa: E402
+from lang2seg_tpu_torch.ops.targets import (  # noqa: E402
+    anchor_targets, proposal_targets)
 from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator  # noqa: E402
 from lang2seg_tpu_torch.weights import init_params  # noqa: E402
 
@@ -306,6 +332,87 @@ def check_gate(dev):
     return res
 
 
+# --------------------------------------------------------------- phase 4b
+
+def bf16_ulps_floored(got, want):
+    """bf16 ulp distance in ulps of max(|want|, 2^-8 max|want|): both
+    versions round d_conv once to bf16, but the sum over C inside it runs
+    in another order, which where its two terms cancel is many ulps of the
+    small result and never of the floor."""
+    want = want.float()
+    mag = torch.maximum(want.abs(), want.abs().max() * 2.0 ** -8)
+    ulp = 2.0 ** (torch.floor(torch.log2(mag)) - 7)
+    return float(((got.float() - want).abs() / ulp).max())
+
+
+def check_gate_bwd(dev):
+    g = torch.Generator(device="cpu").manual_seed(1)
+    e, h, w, c = 16, 40, 64, 1024
+    img = (torch.randn((2, h, w, c), generator=g) * 2.0).to(dev,
+                                                            torch.bfloat16)
+    idx = torch.randperm(e, generator=g) % 2          # 8 expressions each
+    conv = img[idx.to(dev)]                           # gathered, as trained
+    d_gated = torch.randn((e, h, w, c), generator=g).to(dev, torch.bfloat16)
+    d_resp = torch.randn((e, h, w, 1), generator=g).to(dev)
+    out = None
+    for k, gate, norm in ((7, "sigmoid", True), (1, "multiply", False)):
+        filt = torch.tanh(torch.randn((e, c, k), generator=g)).to(dev)
+        rfilt = (torch.tanh(torch.randn((e, k), generator=g)) if k == 7
+                 else torch.ones((e, 1))).to(dev)
+        if k == 1:
+            filt = filt * 0.03
+        _, fused = fused_filter.fused_dynamic_filter(conv, filt, rfilt, k,
+                                                     gate, norm)
+        args = (conv, filt, rfilt, fused, d_gated, d_resp, k, gate, norm)
+        got = fused_filter.fused_dynamic_filter_bwd(*args)
+        want = fused_dynamic_filter_bwd_plain(*args)
+        again = fused_filter.fused_dynamic_filter_bwd(*args)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps_floored(got[0], want[0])
+        raw_ulps = int(bf16_ulp_distance(got[0].float(),
+                                         want[0].float()).max())
+        dconv_err = float((got[0].float() - want[0].float()).abs().max())
+        errs = [float((a - b).abs().max()) for a, b in zip(got[1:], want[1:])]
+        tols = [1e-3 * float(b.abs().max()) for b in want[1:]]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[gate-bwd] K={k} {gate} normalize={norm}: d_conv {ulps:.2f} "
+            f"bf16 ulp (floored; raw max {raw_ulps}), max abs {dconv_err:.3e};"
+            f" d_filt err {errs[0]:.3e} (tol {tols[0]:.3e}); d_rfilt err "
+            f"{errs[1]:.3e} (tol {tols[1]:.3e}); repeatable={same}")
+        check(ulps <= 2.0, "gate backward d_conv beyond 2 bf16 ulps")
+        check(errs[0] <= tols[0], "gate backward d_filt out of tolerance")
+        check(errs[1] <= tols[1], "gate backward d_rfilt out of tolerance")
+        check(same, "gate backward not repeatable")
+        check(got[0].dtype == torch.bfloat16 and got[0].shape == conv.shape)
+        if k == 7:
+            out = (args, dconv_err, errs)
+    args, dconv_err, errs = out
+    ms = time_ms(lambda: fused_filter.fused_dynamic_filter_bwd(*args), 50)
+    plain_ms = time_ms(lambda: fused_dynamic_filter_bwd_plain(*args), 5)
+    k = 7
+    # bytes: conv, d_gated read and d_conv written (bf16), fused and
+    # d_resp read, filt and rfilt read, d_filt and d_rfilt written (f32)
+    byts = (3 * e * h * w * c * 2 + 2 * e * h * w * 4
+            + 2 * (e * c * k + e * k) * 4)
+    # f32 operations per pixel: the response recompute (2CK), d_g (2C),
+    # d_conv (C (2K + 3)), d_filt (2CK), d_fused / d_rfilt (3K + 10)
+    ops = e * h * w * (c * (6 * k + 5) + 3 * k + 10)
+    b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    res = {"name": "fused_filter_bwd", "route": "cuda",
+           "source": "lang2seg_tpu_torch/csrc/fused_filter.cu",
+           "replaces": "lang2seg_tpu/ops/pallas_kernels.py:147",
+           "max_abs_err": max([dconv_err] + errs), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+           "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+           "library_ms": None}
+    log(f"[gate-bwd] (16, 40, 64, 1024) bf16 K=7: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {res['bound_ms'] * 1e3:.2f} us "
+        f"({res['bound_by']}: {byts} B, {ops} ops)")
+    record["fused_filter_bwd"] = dict(res, bytes=byts, ops=ops,
+                                      d_filt_err=errs[0], d_rfilt_err=errs[1])
+    return res
+
+
 # ---------------------------------------------------------------- phase 5
 
 def serve_full_width():
@@ -423,6 +530,173 @@ def small_reference():
     record["reference"] = errs
 
 
+# ---------------------------------------------------------------- phase 7
+
+def launch_counts():
+    return (nms_cuda.launches, fused_filter.launches,
+            fused_filter.bwd_launches)
+
+
+def train_full_width():
+    cfg = flagship_config()
+    num_images, num_expr = 2, 16
+    batches = [to_wire(cfg, synthetic_batch(cfg, num_images, num_expr,
+                                            seed=s)) for s in range(4)]
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, batches, device="cuda", seed=0)
+    model = trainer.state.model
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    log(f"[train] flagship response model and SGD built in "
+        f"{time.perf_counter() - t0:.1f} s; lr {cfg.train.learning_rate}, "
+        f"{len(trainer.state.optimizer.param_groups)} groups")
+
+    nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
+    t0 = time.perf_counter()
+    steps = [trainer.train(1)]                          # warm-up
+    torch.cuda.synchronize()
+    log(f"[train] warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    per_step = [launch_counts()]
+    # one step with PyTorch's CUDA synchronisation debug mode on: any host
+    # synchronisation inside train_step is reported as a warning (the
+    # batch is uploaded before it, the losses read after it)
+    batch = to_device(batches[1], "cuda")
+    c0 = launch_counts()
+
+    def host_syncs(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            out = fn()
+            torch.cuda.set_sync_debug_mode("default")
+        return out, [str(x.message) for x in caught if
+                     "called a synchronizing CUDA operation" in str(x.message)]
+
+    losses, syncs = host_syncs(
+        lambda: train_step(trainer.state, batch, trainer.generator))
+    # control: reading a loss is a host sync, and the mode must report it
+    _, control = host_syncs(lambda: float(losses["total_loss"]))
+    log(f"[train] step 2 under the sync debug mode: {len(syncs)} host "
+        f"synchronisations {syncs[:3]} (control, a loss read: "
+        f"{len(control)})")
+    check(control, "the sync debug mode did not report a loss read")
+    check(not syncs, "the train step synchronises with the host")
+    steps.append({k: float(v) for k, v in losses.items()})
+    per_step.append(tuple(b - a for a, b in zip(c0, launch_counts())))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3, 6):
+        c0 = launch_counts()
+        t0 = time.perf_counter()
+        steps.append(trainer.train(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(tuple(b - a for a, b in zip(c0, launch_counts())))
+    launches = dict(zip(("nms", "fused_filter", "fused_filter_bwd"),
+                        launch_counts()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train] step ms {[round(t, 2) for t in times]} (mean "
+        f"{sum(times) / len(times):.2f}); peak device memory {peak:.2f} GiB; "
+        f"launches per step (nms, gate, gate bwd) {per_step}")
+    for i, ls in enumerate(steps):
+        log(f"[train] step {i + 1} losses "
+            f"{ {k: round(v, 4) for k, v in sorted(ls.items())} }")
+        check(all(np.isfinite(v) for v in ls.values()),
+              f"non-finite loss at step {i + 1}")
+    check(all(c == (1, 1, 1) for c in per_step),
+          "a train step did not launch each kernel exactly once")
+    check(trainer.state.step == 5)
+    after = dict(model.named_parameters())
+    frozen = [n for n, p in after.items() if not p.requires_grad]
+    check(frozen and all(torch.equal(before[n], after[n]) for n in frozen),
+          "a frozen parameter changed")
+    moved = {}
+    for grp in trainer.state.optimizer.param_groups:
+        n_moved = sum(int(not torch.equal(before[n], p))
+                      for n, p in zip(grp["names"], grp["params"]))
+        moved[f"x{grp['lr_mult']:g} wd {grp['weight_decay']:g}"] = \
+            f"{n_moved}/{len(grp['params'])}"
+        check(n_moved > 0, f"SGD group {grp['lr_mult']} did not move")
+    log(f"[train] {len(frozen)} frozen parameters bit-identical; moved per "
+        f"group {moved}")
+    record["train"] = {"step_ms": times, "peak_gib": peak,
+                       "lr": cfg.train.learning_rate, "launches": launches,
+                       "launches_per_step": per_step, "losses": steps,
+                       "moved_per_group": moved, "host_syncs": len(syncs)}
+    return launches
+
+
+# ---------------------------------------------------------------- phase 8
+
+def small_train_reference():
+    """One tiny f32 SGD step on the card (kernels) and on the CPU (plain
+    versions) from the same weights, the same word-dropout draws (a CPU
+    generator feeds both) and the same injected targets. The LR is 1, so
+    that the updates stand far above the parameters' own f32 rounding."""
+    cfg = apply_variant(Config(), "response")
+    cfg.data.canvas_h, cfg.data.canvas_w = 128, 192
+    cfg.model.backbone = "resnet26"
+    cfg.model.vocab_size = 100
+    cfg.model.compute_dtype = "float32"
+    cfg.model.normalize_response = True
+    cfg.train.grad_clip_norm = 10.0
+    cfg.train.learning_rate = 1.0
+    cfg.train.roi_batch_size = 32
+    sd = init_params(cfg, 7)
+    batch = to_wire(cfg, synthetic_batch(cfg, 2, 4, seed=5))
+    g = torch.Generator().manual_seed(6)
+    e = 4
+    gt = torch.from_numpy(batch["gt_boxes"])[:, None]
+    valid = torch.ones((e, 1), dtype=torch.bool)
+    im_hw = torch.from_numpy(batch["im_hw"][batch["img_idx"]])
+    anchors = shifted_anchors(8, 12, 16, cfg.model.anchor_scales,
+                              cfg.model.anchor_ratios)
+    at = anchor_targets(anchors, gt, valid, im_hw[:, 0], im_hw[:, 1],
+                        generator=g)
+    rois = gt[:, :, :4] + torch.randn((e, 64, 4), generator=g) * 6.0
+    rois = torch.clamp(rois, min=0.0)
+    rois[..., 2:] = torch.maximum(rois[..., 2:], rois[..., :2] + 4.0)
+    masks = np.unpackbits(batch["gt_masks"], axis=-1)[:, None]
+    pt = proposal_targets(rois, torch.ones((e, 64), dtype=torch.bool), gt,
+                          valid, torch.from_numpy(masks), generator=g,
+                          num_rois=32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(cfg, device=dev, state_dict=sd)
+        old = {k: v.detach().float().cpu().clone()
+               for k, v in state.model.state_dict().items()}
+        c0 = launch_counts()
+        targets = tuple(type(t)(*(x.to(dev) for x in t)) for t in (at, pt))
+        losses = train_step(state, to_device(batch, dev),
+                            torch.Generator().manual_seed(0), targets)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            check(tuple(b - a for a, b in zip(c0, launch_counts()))
+                  == (0, 1, 1), "the tiny step did not launch both gate "
+                  "kernels once")
+        new = {k: v.detach().float().cpu()
+               for k, v in state.model.state_dict().items()}
+        out[dev] = ({k: float(v) for k, v in losses.items()},
+                    {k: new[k] - old[k] for k in new})
+    (lc, dc), (lp, dp) = out["cuda"], out["cpu"]
+    loss_err = {k: abs(lc[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp}
+    upd_err = {k: float((dc[k] - dp[k]).norm() / dp[k].norm())
+               for k in dp if float(dp[k].norm()) > 0}
+    frozen_moved = [k for k in dp if float(dp[k].norm()) == 0
+                    and float(dc[k].norm()) > 0]
+    worst = max(upd_err, key=upd_err.get)
+    log(f"[train-reference] card vs CPU, tiny f32 step: loss rel err max "
+        f"{max(loss_err.values()):.2e}; update rel L2 err max "
+        f"{upd_err[worst]:.2e} ({worst}) over {len(upd_err)} tensors")
+    check(max(loss_err.values()) <= 1e-4, ("losses", loss_err))
+    check(upd_err[worst] <= 1e-3, ("updates", worst, upd_err[worst]))
+    check(not frozen_moved and len(upd_err) >= 40, frozen_moved)
+    record["train_reference"] = {"loss_rel_err": loss_err,
+                                 "update_rel_err_max": upd_err[worst],
+                                 "worst": worst}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -432,11 +706,13 @@ def main():
     environment()
     build()
     dev = torch.device("cuda")
-    kernels = [check_nms(dev), check_gate(dev)]
-    launches = serve_full_width()
+    kernels = [check_nms(dev), check_gate(dev), check_gate_bwd(dev)]
+    serve = serve_full_width()
     small_reference()
+    train = train_full_width()
+    small_train_reference()
     for kr in kernels:
-        kr["launches"] = launches[kr["name"]]
+        kr["launches"] = serve.get(kr["name"], 0) + train[kr["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: kr[k] for k in keys} for kr in kernels]

@@ -60,6 +60,27 @@ def synthetic_batch(cfg: Config, num_images: int, num_expr: int,
     return batch
 
 
+def uint8_canvas(cfg: Config, images: np.ndarray) -> np.ndarray:
+    """Mean-subtracted f32 canvases as the raw uint8 BGR wire format (the
+    model subtracts the pixel means on the device)."""
+    means = np.asarray(cfg.data.pixel_means_bgr, np.float32)
+    return np.clip(np.round(images + means), 0, 255).astype(np.uint8)
+
+
+def to_wire(cfg: Config, batch: Dict[str, np.ndarray]
+            ) -> Dict[str, np.ndarray]:
+    """A training batch in the wire formats that cfg.data selects, as the
+    JAX package's loader sends them (`data/loader.py`): the uint8 canvas
+    (wire_uint8_images) and GT masks bit-packed MSB-first along the width
+    (wire_packed_masks, when the canvas width is a multiple of 8)."""
+    out = dict(batch)
+    if cfg.data.wire_uint8_images:
+        out["images"] = uint8_canvas(cfg, batch["images"])
+    if cfg.data.wire_packed_masks and batch["gt_masks"].shape[-1] % 8 == 0:
+        out["gt_masks"] = np.packbits(batch["gt_masks"] > 0, axis=-1)
+    return out
+
+
 def synthetic_test_batch(cfg: Config, num_expr: int,
                          seed: int = 0) -> Dict[str, np.ndarray]:
     b = synthetic_batch(cfg, 1, num_expr, seed)
@@ -73,8 +94,6 @@ def synthetic_eval_request(cfg: Config, num_expr: int, seed: int = 0,
     raw BGR canvas (the model subtracts the pixel means on the device),
     canvas-sized GT masks and the image's scale."""
     b = synthetic_batch(cfg, 1, num_expr, seed)
-    means = np.asarray(cfg.data.pixel_means_bgr, np.float32)
-    images = np.clip(np.round(b["images"] + means), 0, 255).astype(np.uint8)
-    return {"images": images, "im_hw": b["im_hw"], "labels": b["labels"],
-            "gt_boxes": b["gt_boxes"], "gt_masks": b["gt_masks"],
+    return {"images": uint8_canvas(cfg, b["images"]), "im_hw": b["im_hw"],
+            "labels": b["labels"], "gt_boxes": b["gt_boxes"], "gt_masks": b["gt_masks"],
             "im_scale": np.float32(im_scale)}

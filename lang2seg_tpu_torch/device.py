@@ -1,6 +1,10 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and small constants
+kept on a device."""
 
 from __future__ import annotations
+
+import functools
+from typing import Tuple
 
 import torch
 
@@ -16,3 +20,16 @@ def resolve_device(device="cuda") -> torch.device:
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain PyTorch path on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: Tuple[float, ...], device: str) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def device_constant(values, device) -> torch.Tensor:
+    """A small f32 constant (pixel means, box normalisers) on `device`,
+    copied there once and shared by every later caller, which must not
+    write to it. A copy from pageable host memory synchronises the host
+    with the stream, so a training step copies nothing."""
+    return _constant(tuple(float(v) for v in values), str(device))

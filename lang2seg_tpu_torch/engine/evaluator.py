@@ -26,7 +26,7 @@ import torch
 
 from ..config import Config
 from ..device import resolve_device
-from ..models.network import Lang2Seg
+from ..models.network import Lang2Seg, unpack_mask_bits
 from ..ops.boxes import decode_boxes
 from ..utils.metrics import SegEvalAccumulator
 
@@ -88,10 +88,7 @@ class Evaluator:
         s, m, _ = mask_probs.shape
         dev = mask_probs.device
         if packed:
-            shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
-            bits = (gt_masks[..., None] >> shifts) & 1
-            gt_masks = bits.reshape(gt_masks.shape[0], gt_masks.shape[1],
-                                    gt_masks.shape[2] * 8)
+            gt_masks = unpack_mask_bits(gt_masks)
 
         # int-truncated, clipped box corners (recover_masks semantics)
         x1 = torch.clamp(boxes[:, 0], 0.0, iw - 1.0).to(torch.int32)

@@ -6,7 +6,9 @@ spatial, `network_7f_response.py:543-545` sigmoid gate). The filters are
 tanh(Linear(hidden)) per head, under the reference's names (`dynamic_fc`
 for one filter, `dynamic_fc_0..6` and `response_fc` for seven); the
 contraction, masks, response fuse and gate run in one call of
-`ops/fused_filter.py` (the CUDA kernel on a card).
+`ops/fused_filter.py` (the CUDA kernel on a card), an autograd node
+whose backward (the second kernel on a card) gives the map, the filters
+and through them `dynamic_fc_k` / `response_fc` their gradients.
 """
 
 from __future__ import annotations

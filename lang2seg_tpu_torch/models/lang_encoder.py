@@ -1,5 +1,5 @@
-"""Referring-expression encoder: Embedding -> dropout -> Linear+ReLU ->
-bi-LSTM over variable lengths.
+"""Referring-expression encoder: Embedding -> word dropout -> Linear+ReLU
+-> bi-LSTM over variable lengths.
 
 Counterpart of `lang2seg_tpu/models/lang_encoder.py::RNNEncoder` and of
 the reference's `lib/layers/lang_encoder.py:11-82`. Parameters carry the
@@ -8,17 +8,32 @@ reference's names (`embedding`, `mlp.0`, `rnn.weight_ih_l0[_reverse]`,
 package's masked scan: padding token 0, lengths = (labels != 0).sum(1),
 the carry updates only while t < length, and the backward direction
 runs over each row's valid prefix reversed — both directions in one
-loop of T steps.
+loop of T steps. Word dropout (`input_dropout_p`) acts in train mode only
+and draws its mask from the caller's `torch.Generator`, as flax's
+`nn.Dropout` does from its rng: keep where uniform < 1 - p, scale the kept
+values by 1 / (1 - p).
 
 Returns (output (B, T, 2H), hidden (B, 2H), embedded (B, T, D)).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+
+def word_dropout(x: torch.Tensor, p: float,
+                 generator: torch.Generator) -> torch.Tensor:
+    """flax `nn.Dropout(p)` in train mode: each element is kept where a
+    uniform draw is below 1 - p and then divided by 1 - p, else zeroed.
+    The draws come from `generator`, on its own device (a CPU generator
+    gives the same mask on every device), and move to x's device."""
+    keep_p = 1.0 - p
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    keep = u.to(x.device) < keep_p
+    return torch.where(keep, x / keep_p, torch.zeros_like(x))
 
 
 class RNNEncoder(nn.Module):
@@ -28,8 +43,8 @@ class RNNEncoder(nn.Module):
         super().__init__()
         self.hidden_size = hidden_size
         self.bidirectional = bidirectional
+        self.input_dropout_p = input_dropout_p
         self.embedding = nn.Embedding(vocab_size, word_embedding_size)
-        self.input_dropout = nn.Dropout(input_dropout_p)
         self.mlp = nn.Sequential(nn.Linear(word_embedding_size, word_vec_size),
                                  nn.ReLU())
         # parameter holder only: the recurrence below reads its weights
@@ -44,12 +59,20 @@ class RNNEncoder(nn.Module):
                 torch.stack([getattr(r, "bias_ih" + s) for s in sfx]),
                 torch.stack([getattr(r, "bias_hh" + s) for s in sfx]))
 
-    def forward(self, labels: torch.Tensor
+    def forward(self, labels: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """labels: (B, T) int, 0 = PAD."""
+        """labels: (B, T) int, 0 = PAD. In train mode with a dropout rate
+        above 0, `generator` draws the word-dropout mask (required)."""
         b, t = labels.shape
         lengths = (labels != 0).sum(1)
-        embedded = self.mlp(self.input_dropout(self.embedding(labels.long())))
+        embedded = self.embedding(labels.long())
+        if self.training and self.input_dropout_p > 0.0:
+            if generator is None:
+                raise ValueError("RNNEncoder: word dropout in train mode "
+                                 "needs a torch.Generator")
+            embedded = word_dropout(embedded, self.input_dropout_p, generator)
+        embedded = self.mlp(embedded)
         d = embedded.shape[-1]
 
         pos = torch.arange(t, device=labels.device)[None, :]

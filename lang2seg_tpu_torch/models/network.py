@@ -1,36 +1,84 @@
-"""Lang2Seg serving path: the language-conditioned Mask R-CNN at test time.
+"""Lang2Seg: the language-conditioned Mask R-CNN, for serving and training.
 
-Counterpart of `lang2seg_tpu/models/network.py::Lang2Seg` (`test_forward`,
-`predict_masks`, `_roi_features`). Expressions are the batch axis; an
-image's C4 map is computed once and broadcast (stride 0, no copy) over
-its expressions. The state_dict carries the reference network's keys
-(`resnet.*`, `rnn_encoder.*`, `dynamic_fc_0..6`, `response_fc`,
+Counterpart of `lang2seg_tpu/models/network.py::Lang2Seg` (`train_forward`
+with its losses, `test_forward`, `predict_masks`, `_roi_features`).
+Expressions are the batch axis. In serving an image's C4 map is computed
+once and broadcast (stride 0, no copy) over its expressions; in training
+each expression gathers its image's map (`img_idx`), and the gather's
+backward sums the expressions' gradients per image. The state_dict
+carries the reference network's keys (`resnet.*`, `rnn_encoder.*`, `dynamic_fc_0..6`, `response_fc`,
 `rpn_net`, `cls_score_net`, `mask_up_sampling`, ...), so the JAX
 package's `engine/convert.py::convert_torch_state_dict` maps it onto the
 JAX params tree.
 
 Ported: ResNet backbones, the language path, `num_filters` 1 or 7, both
-gates, test mode 'nms', pooling mode 'crop'. The rest (VGG, MobileNet,
-no-language mode, 'top' proposals, 'pool' crops, captioner, training)
-raises NotImplementedError here.
+gates, test mode 'nms', pooling mode 'crop', the detection, mask and
+response losses. The rest (VGG, MobileNet, no-language mode, 'top'
+proposals, 'pool' crops, captioner and attribute losses, `expr_uid` key
+folding) raises NotImplementedError here.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..config import Config
-from ..device import resolve_device
+from ..device import device_constant, resolve_device
 from ..ops.anchors import shifted_anchors
 from ..ops.proposals import proposal_layer
 from ..ops.roi_align import roi_crop_pool
+from ..ops.targets import anchor_targets, proposal_targets
 from .dynamic_filter import DynamicFilterGen
 from .heads import BoxHead, MaskHead, RPNHead
 from .lang_encoder import RNNEncoder
 from .resnet import ResNetC4
+
+
+def smooth_l1(pred, target, inside_w, outside_w, sigma: float):
+    """Reference _smooth_l1_loss (network.py:357-370): per-element huber on
+    inside-weighted diffs, scaled by outside weights; the caller reduces.
+    Masked entries are selected away (not multiplied by 0), so an inf
+    outside the mask cannot make the loss NaN."""
+    s2 = sigma * sigma
+    diff = torch.where(inside_w > 0, pred - target, 0.0) * inside_w
+    a = torch.abs(diff)
+    flag = (a < 1.0 / s2).to(pred.dtype)
+    per = flag * 0.5 * s2 * diff * diff + (1.0 - flag) * (a - 0.5 / s2)
+    return torch.where(outside_w > 0, per * outside_w, 0.0)
+
+
+def weighted_softmax_ce(logits, labels, weights):
+    """Mean cross entropy over the entries with weight > 0:
+    sum(w * ce) / max(sum(w), 1)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    ce = torch.where(weights > 0, ce, 0.0)
+    return torch.sum(ce * weights) / torch.clamp(torch.sum(weights), min=1.0)
+
+
+def response_target(gt_mask: torch.Tensor, stride: int, h: int,
+                    w: int) -> torch.Tensor:
+    """Nearest-downsample (..., canvas_h, canvas_w) GT masks to the (h, w)
+    response map by stride-center sampling: cell k reads canvas pixel
+    stride * k + stride // 2 (the JAX package's `response_target`)."""
+    gm = gt_mask.float()
+    return gm[..., stride // 2::stride, stride // 2::stride][..., :h, :w]
+
+
+def bce_with_logits(logits, targets):
+    return (torch.clamp(logits, min=0) - logits * targets
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def unpack_mask_bits(packed: torch.Tensor) -> torch.Tensor:
+    """(..., W // 8) uint8 masks bit-packed MSB-first along the width
+    (np.packbits(_, axis=-1)) -> (..., W) uint8 {0, 1}."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8)
 
 
 class Lang2Seg(nn.Module):
@@ -49,6 +97,7 @@ class Lang2Seg(nn.Module):
         self.compute_dtype = (torch.bfloat16 if m.compute_dtype == "bfloat16"
                               else torch.float32)
         self.resnet = ResNetC4(m.backbone, self.compute_dtype)
+        self.resnet.freeze(m.fixed_blocks)
         self.rnn_encoder = RNNEncoder(
             m.vocab_size, m.word_embedding_size, m.word_vec_size,
             m.rnn_hidden_size, m.bidirectional, m.word_drop_out)
@@ -72,10 +121,12 @@ class Lang2Seg(nn.Module):
 
     # ---------- building blocks ----------
 
-    def _condition(self, net_conv: torch.Tensor, labels: torch.Tensor):
+    def _condition(self, net_conv: torch.Tensor, labels: torch.Tensor,
+                   generator: Optional[torch.Generator] = None):
         """Language encoding + dynamic-filter gating.
-        net_conv: (E, h, w, C); labels: (E, T)."""
-        _, hidden, _ = self.rnn_encoder(labels)
+        net_conv: (E, h, w, C); labels: (E, T); `generator` draws the
+        word-dropout mask in train mode."""
+        _, hidden, _ = self.rnn_encoder(labels, generator)
         return self.filter_gen(net_conv, hidden)
 
     def _roi_features(self, gated: torch.Tensor, rois: torch.Tensor
@@ -94,10 +145,155 @@ class Lang2Seg(nn.Module):
     def _images(self, images: torch.Tensor) -> torch.Tensor:
         if images.dtype == torch.uint8:
             # uint8 wire format: raw BGR, mean subtraction on the device
-            means = torch.tensor(self.cfg.data.pixel_means_bgr,
-                                 dtype=torch.float32, device=images.device)
+            means = device_constant(self.cfg.data.pixel_means_bgr,
+                                    images.device)
             return images.float() - means
         return images.float()
+
+    # ---------- training ----------
+
+    def train_forward(self, batch: Dict[str, torch.Tensor],
+                      targets: Optional[Tuple] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """Losses of one training batch; every tensor on the model's device.
+
+        batch:
+          images   (I, H, W, 3) f32 mean-subtracted BGR, or the raw uint8
+                   BGR canvas (the means are subtracted here)
+          im_hw    (I, 2) f32 true scaled extents
+          labels   (E, T) int token ids, 0 pad
+          img_idx  (E,) int image index per expression
+          gt_boxes (E, M, 5) f32 [x1 y1 x2 y2 cls] scaled coords, or (E, 5)
+          gt_valid (E, M) bool, optional (default all valid)
+          gt_masks (E, M, Hc, Wc) uint8 {0, 1} canvas masks (or (E, Hc,
+                   Wc)), or bit-packed along the width when
+                   cfg.data.wire_packed_masks and Hc x Wc / 8
+        `targets` injects (AnchorTargets, ProposalTargets), either of them
+        None to compute it, as the JAX package's train_forward does.
+        `generator` draws the word-dropout mask, then the anchor and ROI
+        sampling priorities, in that order. Returns the loss dict with
+        `total_loss`, all scalars on the device."""
+        cfg, m, t = self.cfg, self.cfg.model, self.cfg.train
+        if "expr_uid" in batch:
+            raise NotImplementedError(
+                "expr_uid key folding is not ported (it comes with data "
+                "parallel training)")
+        images = self._images(batch["images"])
+        img_idx = batch["img_idx"].long()
+        e = img_idx.shape[0]
+        gt_boxes = batch["gt_boxes"].float()
+        if gt_boxes.dim() == 2:
+            gt_boxes = gt_boxes[:, None, :]
+        gt_masks = batch["gt_masks"]
+        if gt_masks.dim() == 3:
+            gt_masks = gt_masks[:, None]
+        if cfg.data.wire_packed_masks and \
+                gt_masks.shape[-1] * 8 == images.shape[2]:
+            gt_masks = unpack_mask_bits(gt_masks)
+        elif gt_masks.shape[-1] != images.shape[2]:
+            raise ValueError(
+                f"gt_masks width {gt_masks.shape[-1]} is neither the canvas "
+                f"width {images.shape[2]} nor its bit-packed form (with "
+                f"cfg.data.wire_packed_masks={cfg.data.wire_packed_masks})")
+        gt_valid = batch.get("gt_valid")
+        if gt_valid is None:
+            gt_valid = torch.ones(gt_boxes.shape[:2], dtype=torch.bool,
+                                  device=gt_boxes.device)
+
+        net_conv_img = self.resnet.head(images)               # (I, h, w, C)
+        net_conv = net_conv_img.index_select(0, img_idx).contiguous()
+        gated, response = self._condition(net_conv, batch["labels"],
+                                          generator)
+        rpn_cls, rpn_box = self.rpn_head(gated)               # (E,h,w,A,2|4)
+        _, h, w, a, _ = rpn_cls.shape
+        anchors = shifted_anchors(h, w, m.feat_stride, m.anchor_scales,
+                                  m.anchor_ratios, device=gated.device)
+        n = anchors.shape[0]
+        im_hw = batch["im_hw"].float().index_select(0, img_idx)   # (E, 2)
+
+        at, pt = targets if targets is not None else (None, None)
+        if at is None:
+            at = anchor_targets(
+                anchors, gt_boxes, gt_valid, im_hw[:, 0], im_hw[:, 1],
+                generator=generator, rpn_batchsize=t.rpn_batchsize,
+                fg_fraction=t.rpn_fg_fraction,
+                pos_overlap=t.rpn_positive_overlap,
+                neg_overlap=t.rpn_negative_overlap,
+                clobber_positives=t.rpn_clobber_positives)
+        if pt is None:
+            with torch.no_grad():
+                score_pos = torch.softmax(rpn_cls.reshape(e, n, 2),
+                                          dim=-1)[..., 1]
+                props = proposal_layer(
+                    score_pos, rpn_box.reshape(e, n, 4), anchors,
+                    im_hw[:, 0], im_hw[:, 1], t.rpn_pre_nms_top_n,
+                    t.rpn_post_nms_top_n, t.rpn_nms_thresh)
+            pt = proposal_targets(
+                props.rois, props.valid, gt_boxes, gt_valid,
+                gt_masks.to(torch.uint8), generator=generator,
+                num_rois=t.roi_batch_size, fg_fraction=t.fg_fraction,
+                fg_thresh=t.fg_thresh, bg_thresh_hi=t.bg_thresh_hi,
+                bg_thresh_lo=t.bg_thresh_lo, mask_size=m.mask_size,
+                normalize_means=t.bbox_normalize_means,
+                normalize_stds=t.bbox_normalize_stds, use_gt=t.use_gt)
+
+        # ---- RPN losses (network.py:372-387) ----
+        rpn_ce = weighted_softmax_ce(
+            rpn_cls.reshape(e, n, 2), torch.clamp(at.labels, min=0),
+            (at.labels >= 0).float())
+        rpn_l1 = smooth_l1(rpn_box.reshape(e, n, 4), at.bbox_targets,
+                           at.bbox_inside_w[..., None],
+                           at.bbox_outside_w[..., None], sigma=3.0)
+        rpn_loss_box = torch.sum(rpn_l1) / e
+
+        # ---- ROI heads ----
+        spatial_fc7 = self._roi_features(gated, pt.rois)
+        r = spatial_fc7.shape[1]
+        cls_score, bbox_pred = self.box_head(
+            spatial_fc7.reshape(e * r, *spatial_fc7.shape[2:]))
+        cls_score = cls_score.reshape(e, r, -1)
+        bbox_pred = bbox_pred.reshape(e, r, m.num_classes, 4)
+        ce = weighted_softmax_ce(cls_score, pt.labels, pt.roi_valid.float())
+        # compact per-class bbox loss: the labelled class's deltas only
+        lab = pt.labels.long()
+        sel_pred = torch.gather(
+            bbox_pred, 2, lab[..., None, None].expand(e, r, 1, 4))[:, :, 0]
+        bw = pt.bbox_weight[..., None]
+        loss_box = torch.sum(smooth_l1(sel_pred, pt.bbox_targets, bw, bw,
+                                       sigma=1.0)) / (e * r)
+        losses = {"rpn_cross_entropy": rpn_ce, "rpn_loss_box": rpn_loss_box,
+                  "cross_entropy": ce, "loss_box": loss_box}
+
+        # ---- mask loss on the fg slots (network.py:401-410) ----
+        if m.use_mask_head:
+            f = pt.mask_targets.shape[1]
+            s = m.mask_size
+            fg_fc7 = spatial_fc7[:, :f]
+            fg_lab = torch.clamp(lab[:, :f], 0, m.num_classes - 1)
+            sel = self.mask_head(fg_fc7.reshape(e * f, *fg_fc7.shape[2:]),
+                                 labels=fg_lab.reshape(e * f))
+            bce = bce_with_logits(sel.reshape(e, f, s, s), pt.mask_targets)
+            mw = pt.mask_weight[:, :, None, None]
+            bce = torch.where(mw > 0, bce, 0.0)
+            denom = torch.clamp(torch.sum(pt.mask_weight), min=1.0) * s * s
+            losses["loss_mask"] = torch.sum(bce * mw) / denom
+
+        # ---- response loss (network_7f_response.py:411-428) ----
+        if m.use_response_loss:
+            stride = m.feat_stride
+            tgt = response_target(gt_masks[:, 0], stride, h, w)
+            ys = torch.arange(h, device=gated.device)[None, :, None] * stride
+            xs = torch.arange(w, device=gated.device)[None, None, :] * stride
+            vmask = ((ys < im_hw[:, 0, None, None])
+                     & (xs < im_hw[:, 1, None, None])).float()
+            bce = bce_with_logits(response[..., 0], tgt)
+            losses["loss_response"] = (torch.sum(bce * vmask)
+                                       / torch.clamp(torch.sum(vmask),
+                                                     min=1.0))
+
+        losses["total_loss"] = sum(losses.values())
+        return losses
 
     # ---------- inference ----------
 
@@ -137,10 +333,8 @@ class Lang2Seg(nn.Module):
         cls_prob = torch.softmax(cls_score, dim=-1)
         bbox_pred = bbox_pred.reshape(e, r, m.num_classes, 4)
         # de-normalize deltas (network.py:607-613)
-        stds = torch.tensor(cfg.train.bbox_normalize_stds,
-                            dtype=torch.float32, device=gated.device)
-        means = torch.tensor(cfg.train.bbox_normalize_means,
-                             dtype=torch.float32, device=gated.device)
+        stds = device_constant(cfg.train.bbox_normalize_stds, gated.device)
+        means = device_constant(cfg.train.bbox_normalize_means, gated.device)
         bbox_pred = bbox_pred * stds + means
         return {"rois": props.rois, "roi_valid": props.valid,
                 "cls_score": cls_score, "cls_prob": cls_prob,

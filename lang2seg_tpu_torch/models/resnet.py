@@ -4,14 +4,18 @@ Counterpart of `lang2seg_tpu/models/resnet.py` (plain path only) and of
 the reference's torchvision-style ResNet (`nets/resnet_v1.py:75-190`):
 caffe-style bottleneck (stride on the first 1x1 conv), 3x3/2/1 max pool
 after conv1, layer4 at stride 1 applied as the per-ROI tail on 7x7
-crops. Every BatchNorm is frozen, so it is a constant per-channel affine.
+crops. Every BatchNorm is frozen, so it is a constant per-channel affine
+held in buffers; `freeze` takes the stem and the first stages out of
+training, as the JAX package's optimizer does (`engine/optimizer.py::
+_is_frozen`).
 Parameter names are the reference's (`conv1`, `bn1`, `layer3.4.conv2`,
 `layer1.0.downsample.0`, ...).
 
 Public methods take and return NHWC tensors; inside, activations are
 NCHW tensors in `torch.channels_last` memory format (the same bytes as
 NHWC), and convolutions run in the input's dtype with their f32
-parameters cast per call, as flax's `nn.Conv(dtype=...)` does.
+parameters cast per call, as flax's `nn.Conv(dtype=...)` does; gradients
+flow through the casts to the f32 parameters.
 """
 
 from __future__ import annotations
@@ -104,6 +108,16 @@ class ResNetC4(nn.Module):
         self.layer2 = _stage(256, 128, b[1], 2)
         self.layer3 = _stage(512, 256, b[2], 2)
         self.layer4 = _stage(1024, 512, b[3], 1)
+
+    def freeze(self, fixed_blocks: int) -> None:
+        """requires_grad=False on the stem conv1 and on layer1 ..
+        layer{fixed_blocks} (the reference's frozen set, cfg.RESNET.
+        FIXED_BLOCKS; the BatchNorms are buffers already)."""
+        frozen = [self.conv1] + [getattr(self, f"layer{i}")
+                                 for i in range(1, fixed_blocks + 1)]
+        for mod in frozen:
+            for p in mod.parameters():
+                p.requires_grad_(False)
 
     def head(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) f32 mean-subtracted BGR -> (B, H/16, W/16, 1024)."""

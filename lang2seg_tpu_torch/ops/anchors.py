@@ -52,10 +52,19 @@ def _shifted_anchors_np(height: int, width: int, feat_stride: int,
     return np.ascontiguousarray(all_anchors.reshape(-1, 4))
 
 
+@functools.lru_cache(maxsize=16)
+def _shifted_anchors_on(height: int, width: int, feat_stride: int, scales,
+                        ratios, device: str) -> torch.Tensor:
+    return torch.from_numpy(_shifted_anchors_np(
+        height, width, feat_stride, scales, ratios)).to(device)
+
+
 def shifted_anchors(height: int, width: int, feat_stride: int,
                     scales=(8, 16, 32), ratios=(0.5, 1, 2),
                     device="cpu") -> torch.Tensor:
     """All anchors over an H x W feature grid: (H*W*A, 4) float32,
-    ordered (H, W, A), on `device`."""
-    return torch.from_numpy(_shifted_anchors_np(
-        height, width, feat_stride, tuple(scales), tuple(ratios))).to(device)
+    ordered (H, W, A), on `device`. The tensor is copied to a device once
+    and shared by later calls (callers must not write to it), so a
+    training step makes no host-to-device copy for it."""
+    return _shifted_anchors_on(height, width, feat_stride, tuple(scales),
+                               tuple(ratios), str(torch.device(device)))

@@ -1,14 +1,18 @@
-"""Fused language-conditioned gate: the hand-written CUDA kernel
-(`csrc/fused_filter.cu`) for CUDA tensors, its plain PyTorch version for
-CPU tensors.
+"""Fused language-conditioned gate and its gradient: the hand-written
+CUDA kernels (`csrc/fused_filter.cu`) for CUDA tensors, their plain
+PyTorch versions for CPU tensors.
 
 Replaces the TPU kernel `lang2seg_tpu/ops/pallas_kernels.py::
-fused_dynamic_filter` (forward). Both versions follow that kernel's
-arithmetic, not the plain JAX path of `models/dynamic_filter.py`: the
-response is scaled by the f32 constant 1/sqrt(C) (not divided by
-sqrt(C)), and the gated map is the f32 product conv * g rounded once to
-the map's dtype (not a product of g cast to the map's dtype). `launches`
-counts the kernel's launches.
+fused_dynamic_filter`, a `jax.custom_vjp`: its Pallas forward and its
+gradient rule `_fdf_bwd`. `fused_dynamic_filter` is differentiable on
+both devices through `FusedDynamicFilter`, whose backward is the second
+kernel. Both versions follow the Pallas kernel's arithmetic, not the
+plain JAX path of `models/dynamic_filter.py`: the response is scaled by
+the f32 constant 1/sqrt(C) (not divided by sqrt(C)), and the gated map
+is the f32 product conv * g rounded once to the map's dtype (not a
+product of g cast to the map's dtype); the backward recomputes the
+response and rounds d_conv once to the map's dtype, as `_fdf_bwd` does.
+`launches` and `bwd_launches` count the two kernels' launches.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from . import _build
 
 launches = 0
+bwd_launches = 0
 
 
 def fused_dynamic_filter_plain(net_conv: torch.Tensor, filt: torch.Tensor,
@@ -50,6 +55,47 @@ def fused_dynamic_filter_plain(net_conv: torch.Tensor, filt: torch.Tensor,
     return (x * g).to(net_conv.dtype), fused
 
 
+def fused_dynamic_filter_bwd_plain(net_conv: torch.Tensor, filt: torch.Tensor,
+                                   rfilt: torch.Tensor, fused: torch.Tensor,
+                                   d_gated: torch.Tensor, d_resp: torch.Tensor,
+                                   num_filters: int = 7,
+                                   gate: str = "sigmoid",
+                                   normalize: bool = False
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """The gradient rule `_fdf_bwd` in torch ops: given the forward's
+    inputs, its response `fused` (E, H, W, 1) f32 and the cotangents of
+    its two outputs, returns (d_conv in net_conv's dtype, rounded once,
+    d_filt (E, C, K) f32, d_rfilt (E, K) f32; zero for K=1)."""
+    from ..models.dynamic_filter import spatial_masks_7
+    e, h, w, c = net_conv.shape
+    k = num_filters
+    conv32 = net_conv.float()
+    d_gated32 = d_gated.float()
+    scale = 1.0 / (c ** 0.5) if normalize else 1.0
+    if gate == "sigmoid":
+        g = torch.sigmoid(fused)
+        g_prime = g * (1.0 - g)
+    else:
+        g = fused
+        g_prime = torch.ones_like(fused)
+    d_conv = d_gated32 * g
+    d_g = torch.sum(d_gated32 * conv32, dim=-1, keepdim=True)
+    d_fused = d_resp.float() + d_g * g_prime                   # (E, H, W, 1)
+    if k == 7:
+        mask = spatial_masks_7(h, w, device=net_conv.device).permute(
+            1, 2, 0)[None]                                      # (1, H, W, 7)
+        resp0 = torch.einsum("ehwc,eck->ehwk", conv32, filt) * scale
+        d_rfilt = torch.einsum("ehwk,ehw->ek", resp0 * mask, d_fused[..., 0])
+        d_resp0 = d_fused * rfilt[:, None, None, :] * mask
+    else:
+        d_rfilt = torch.zeros_like(rfilt)
+        d_resp0 = d_fused
+    d_conv = d_conv + torch.einsum("ehwk,eck->ehwc", d_resp0, filt) * scale
+    d_filt = torch.einsum("ehwc,ehwk->eck", conv32, d_resp0) * scale
+    return d_conv.to(net_conv.dtype), d_filt, d_rfilt
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("fused_filter")
@@ -58,51 +104,57 @@ def _lib():
     lib.fused_filter_launch.argtypes = [p, ctypes.c_longlong, p, p, i, i, i,
                                         i, i, i, i, ctypes.c_float, p, p, p]
     lib.fused_filter_launch.restype = ctypes.c_int
+    lib.fused_filter_bwd_launch.argtypes = [
+        p, ctypes.c_longlong, p, p, p, p, p, i, i, i, i, i, i, i,
+        ctypes.c_float, i, p, p, p, p, p, p]
+    lib.fused_filter_bwd_launch.restype = ctypes.c_int
     return lib
 
 
-def fused_dynamic_filter(net_conv: torch.Tensor, filt: torch.Tensor,
-                         rfilt: torch.Tensor, num_filters: int = 7,
-                         gate: str = "sigmoid", normalize: bool = False
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """See `fused_dynamic_filter_plain`. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel on the current stream, or
-    raises. On the card net_conv is bf16 or f32, and each expression's
-    (H, W, C) map must be contiguous; the expression stride may be 0 (a
-    broadcast map is read in place, never copied)."""
-    if net_conv.device.type == "cpu":
-        return fused_dynamic_filter_plain(net_conv, filt, rfilt, num_filters,
-                                          gate, normalize)
-    if net_conv.device.type != "cuda":
-        raise ValueError(f"fused_dynamic_filter: unsupported device "
-                         f"{net_conv.device}")
+def _check_inputs(net_conv, filt, rfilt, num_filters, gate, what):
+    """Raise unless the kernels take these inputs; returns the map's
+    batch stride in elements."""
     if gate not in ("sigmoid", "multiply"):
-        raise ValueError(f"fused_dynamic_filter: unknown gate {gate!r}")
+        raise ValueError(f"{what}: unknown gate {gate!r}")
     if net_conv.dim() != 4 or net_conv.dtype not in (torch.bfloat16,
                                                      torch.float32):
-        raise ValueError("fused_dynamic_filter: net_conv must be (E, H, W, "
-                         "C) bfloat16 or float32")
+        raise ValueError(f"{what}: net_conv must be (E, H, W, C) bfloat16 "
+                         f"or float32")
     e, h, w, c = net_conv.shape
     k = num_filters
     per_vec = 8 if net_conv.dtype == torch.bfloat16 else 4
     nv = c // (32 * per_vec)
     if k not in (1, 7) or c % (32 * per_vec) or nv not in (
             (1, 2, 4) if per_vec == 8 else (1, 2, 4, 8)):
-        raise ValueError(f"fused_dynamic_filter: unsupported C={c}, K={k} "
-                         f"for {net_conv.dtype}")
+        raise ValueError(f"{what}: unsupported C={c}, K={k} for "
+                         f"{net_conv.dtype}")
     s0, s1, s2, s3 = net_conv.stride()
     if (s1, s2, s3) != (w * c, c, 1):
-        raise ValueError("fused_dynamic_filter: each (H, W, C) map must be "
-                         "contiguous")
+        raise ValueError(f"{what}: each (H, W, C) map must be contiguous")
     if net_conv.data_ptr() % 16 or (s0 * net_conv.element_size()) % 16:
-        raise ValueError("fused_dynamic_filter: net_conv must be 16-byte "
-                         "aligned")
-    for name, t, shape in (("filt", filt, (e, c, k)), ("rfilt", rfilt, (e, k))):
+        raise ValueError(f"{what}: net_conv must be 16-byte aligned")
+    for name, t, shape in (("filt", filt, (e, c, k)),
+                           ("rfilt", rfilt, (e, k))):
         if (t.dtype != torch.float32 or tuple(t.shape) != shape
                 or not t.is_contiguous() or t.device != net_conv.device):
-            raise ValueError(f"fused_dynamic_filter: {name} must be a "
-                             f"contiguous float32 {shape} on the map's device")
+            raise ValueError(f"{what}: {name} must be a contiguous float32 "
+                             f"{shape} on the map's device")
+    return s0
 
+
+def _forward(net_conv, filt, rfilt, num_filters, gate, normalize):
+    """The forward on the map's device: the plain version for a CPU
+    tensor, the kernel on the current stream for a CUDA tensor."""
+    if net_conv.device.type == "cpu":
+        return fused_dynamic_filter_plain(net_conv, filt, rfilt, num_filters,
+                                          gate, normalize)
+    if net_conv.device.type != "cuda":
+        raise ValueError(f"fused_dynamic_filter: unsupported device "
+                         f"{net_conv.device}")
+    s0 = _check_inputs(net_conv, filt, rfilt, num_filters, gate,
+                       "fused_dynamic_filter")
+    e, h, w, c = net_conv.shape
+    k = num_filters
     gated = torch.empty((e, h, w, c), dtype=net_conv.dtype,
                         device=net_conv.device)
     resp = torch.empty((e, h, w, 1), dtype=torch.float32,
@@ -114,7 +166,108 @@ def fused_dynamic_filter(net_conv: torch.Tensor, filt: torch.Tensor,
         c, k, int(net_conv.dtype == torch.bfloat16), int(gate == "sigmoid"),
         scale, gated.data_ptr(), resp.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"fused_filter kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"fused_filter kernel launch failed: cudaError "
+                           f"{rc}")
     global launches
     launches += 1
     return gated, resp
+
+
+def fused_dynamic_filter_bwd(net_conv: torch.Tensor, filt: torch.Tensor,
+                             rfilt: torch.Tensor, fused: torch.Tensor,
+                             d_gated: torch.Tensor, d_resp: torch.Tensor,
+                             num_filters: int = 7, gate: str = "sigmoid",
+                             normalize: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """See `fused_dynamic_filter_bwd_plain`. A CPU tensor takes the plain
+    version; a CUDA tensor launches the backward kernel and its fixed-order
+    reduction on the current stream, or raises. On the card the inputs
+    follow the forward's rules; d_gated is a contiguous map of
+    net_conv's dtype, fused and d_resp contiguous (E, H, W, 1) f32."""
+    if net_conv.device.type == "cpu":
+        return fused_dynamic_filter_bwd_plain(
+            net_conv, filt, rfilt, fused, d_gated, d_resp, num_filters, gate,
+            normalize)
+    if net_conv.device.type != "cuda":
+        raise ValueError(f"fused_dynamic_filter_bwd: unsupported device "
+                         f"{net_conv.device}")
+    s0 = _check_inputs(net_conv, filt, rfilt, num_filters, gate,
+                       "fused_dynamic_filter_bwd")
+    e, h, w, c = net_conv.shape
+    k = num_filters
+    if (d_gated.dtype != net_conv.dtype or d_gated.shape != net_conv.shape
+            or not d_gated.is_contiguous() or d_gated.data_ptr() % 16
+            or d_gated.device != net_conv.device):
+        raise ValueError("fused_dynamic_filter_bwd: d_gated must be a "
+                         "contiguous 16-byte aligned map of net_conv's "
+                         "shape and dtype")
+    for name, t in (("fused", fused), ("d_resp", d_resp)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (e, h, w, 1)
+                or not t.is_contiguous() or t.device != net_conv.device):
+            raise ValueError(f"fused_dynamic_filter_bwd: {name} must be a "
+                             f"contiguous float32 {(e, h, w, 1)}")
+    # pixel tiles per expression: about two blocks per SM over the grid;
+    # each tile's partial d_filt / d_rfilt goes to scratch, and a second
+    # kernel sums the tiles in a fixed order (deterministic, no atomics)
+    sms = torch.cuda.get_device_properties(net_conv.device
+                                           ).multi_processor_count
+    tiles = max(1, min(-(-2 * sms // e), h * w))
+    dev = net_conv.device
+    d_conv = torch.empty((e, h, w, c), dtype=net_conv.dtype, device=dev)
+    d_filt = torch.empty((e, c, k), dtype=torch.float32, device=dev)
+    d_rfilt = torch.empty((e, k), dtype=torch.float32, device=dev)
+    filt_part = torch.empty((e * tiles * c * k,), dtype=torch.float32,
+                            device=dev)
+    rfilt_part = torch.empty((e * tiles * k,), dtype=torch.float32,
+                             device=dev)
+    scale = 1.0 / (c ** 0.5) if normalize else 1.0
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().fused_filter_bwd_launch(
+        net_conv.data_ptr(), s0, d_gated.data_ptr(), filt.data_ptr(),
+        rfilt.data_ptr(), fused.data_ptr(), d_resp.data_ptr(), e, h, w, c, k,
+        int(net_conv.dtype == torch.bfloat16), int(gate == "sigmoid"), scale,
+        tiles, filt_part.data_ptr(), rfilt_part.data_ptr(), d_conv.data_ptr(),
+        d_filt.data_ptr(), d_rfilt.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_filter backward kernel launch failed: "
+                           f"cudaError {rc}")
+    global bwd_launches
+    bwd_launches += 1
+    return d_conv, d_filt, d_rfilt
+
+
+class FusedDynamicFilter(torch.autograd.Function):
+    """The gate as an autograd node: forward as `fused_dynamic_filter`,
+    saving (net_conv, filt, rfilt, fused) as `_fdf_fwd` does; backward
+    through `fused_dynamic_filter_bwd` (the kernel on a card)."""
+
+    @staticmethod
+    def forward(ctx, net_conv, filt, rfilt, num_filters, gate, normalize):
+        gated, fused = _forward(net_conv, filt, rfilt, num_filters, gate,
+                                normalize)
+        ctx.save_for_backward(net_conv, filt, rfilt, fused)
+        ctx.args = (num_filters, gate, normalize)
+        return gated, fused
+
+    @staticmethod
+    def backward(ctx, d_gated, d_resp):
+        net_conv, filt, rfilt, fused = ctx.saved_tensors
+        d_conv, d_filt, d_rfilt = fused_dynamic_filter_bwd(
+            net_conv, filt, rfilt, fused, d_gated.contiguous(),
+            d_resp.contiguous(), *ctx.args)
+        return d_conv, d_filt, d_rfilt, None, None, None
+
+
+def fused_dynamic_filter(net_conv: torch.Tensor, filt: torch.Tensor,
+                         rfilt: torch.Tensor, num_filters: int = 7,
+                         gate: str = "sigmoid", normalize: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """See `fused_dynamic_filter_plain`; differentiable in all three
+    tensors. A CPU tensor takes the plain versions; a CUDA tensor launches
+    the kernels on the current stream, or raises. On the card net_conv is
+    bf16 or f32, and each expression's (H, W, C) map must be contiguous;
+    the expression stride may be 0 (a broadcast map is read in place,
+    never copied)."""
+    return FusedDynamicFilter.apply(net_conv, filt, rfilt, num_filters, gate,
+                                    normalize)

@@ -29,11 +29,18 @@ def proposal_layer(scores: torch.Tensor, deltas: torch.Tensor,
                    anchors: torch.Tensor, im_h, im_w, pre_nms_n: int,
                    post_nms_n: int, nms_thresh: float) -> Proposals:
     """scores: (E, N) positive-class probs; deltas: (E, N, 4); anchors:
-    (N, 4). im_h / im_w: true (unpadded) image extent for clipping.
-    No gradient flows through the proposals (the reference detaches the
-    rois before cropping, network.py:117)."""
-    boxes = clip_boxes(decode_boxes(anchors, deltas.float()), im_h, im_w)
+    (N, 4). im_h / im_w: true (unpadded) image extent for clipping, one
+    for all expressions (scalars) or one per expression ((E,) tensors: a
+    training batch holds images of different extents). No gradient flows
+    through the proposals (the reference detaches the rois before
+    cropping, network.py:117)."""
     e, n = scores.shape
+    im_h, im_w = (torch.as_tensor(v, dtype=torch.float32,
+                                  device=scores.device) for v in (im_h, im_w))
+    if im_h.dim() == 1:
+        # (E,) -> (E, 1, 1) against the (E, N, 1) box coordinates
+        im_h, im_w = im_h.reshape(e, 1, 1), im_w.reshape(e, 1, 1)
+    boxes = clip_boxes(decode_boxes(anchors, deltas.float()), im_h, im_w)
     k = min(pre_nms_n, n)
     # stable sort: equal scores keep ascending-index order, the tie order
     # of the reference's lax.sort (torch.topk promises none)

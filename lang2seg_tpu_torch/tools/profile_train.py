@@ -1,0 +1,114 @@
+"""Where a training step's time goes on the card.
+
+    python -m lang2seg_tpu_torch.tools.profile_train [--expressions 16]
+
+Builds the flagship `response` model for training at full width (random
+weights from a seed, the config's SGD groups, 2 images per step as the
+JAX bench runs it), takes two warm-up steps, then times one step in
+three stages with CUDA events (`train_forward` with its losses, the
+backward, clipping and the SGD update), and profiles one more step with
+`torch.profiler`: the device's busy time against the host window, the
+time of the port's three hand kernels, and the twelve largest
+device-time entries. Prints one JSON line. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from ..config import flagship_config
+from ..data.synthetic import synthetic_batch, to_wire
+from ..engine.train_state import (apply_update, create_train_state,
+                                  to_device, train_step)
+
+# the port's own kernels, by the names nvcc gives them
+HAND_KERNELS = ("nms_", "fused_filter_kernel", "fused_filter_bwd_")
+
+
+def staged_step(state, batch, generator):
+    """One `train_step`, its three stages timed with CUDA events."""
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    mark("start")
+    state.optimizer.zero_grad(set_to_none=True)
+    losses = state.model.train_forward(batch, None, generator)
+    mark("forward_and_losses")
+    losses["total_loss"].backward()
+    mark("backward")
+    apply_update(state)
+    mark("sgd")
+    torch.cuda.synchronize()
+    return {name: a.elapsed_time(b)
+            for (_, a), (name, b) in zip(marks, marks[1:])}
+
+
+def _device_us(evt):
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--expressions", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    cfg = flagship_config()
+    state = create_train_state(cfg, device="cuda", seed=args.seed)
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    batches = [to_device(to_wire(cfg, synthetic_batch(
+        cfg, 2, args.expressions, seed=s)), "cuda")
+        for s in range(4)]
+    for b in batches[:2]:
+        train_step(state, b, gen)
+    stages = staged_step(state, batches[2], gen)
+    total = sum(stages.values())
+    for k, v in stages.items():
+        print(f"[stage] {k:20s} {v:9.3f} ms  {100 * v / total:5.1f}%")
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batches[3], gen)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    # busy time: the device time of the kernel entries themselves (one
+    # stream, so they do not overlap), as the profiler table's total counts
+    # it; the aten ops that launch them carry the same time again
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+    hand = {tag: sum(_device_us(e) for e in kernels if tag in e.key) / 1e3
+            for tag in HAND_KERNELS}
+    print(f"[profile] device busy {busy_ms:.2f} ms in a {window_ms:.2f} ms "
+          f"host window (idle {100 * (1 - busy_ms / window_ms):.1f}%); "
+          f"hand kernels {hand}")
+    print(avgs.table(sort_by="cuda_time_total", row_limit=12))
+    print(json.dumps({"device": smi, "images": 2,
+                      "expressions": args.expressions, "stages_ms": stages,
+                      "window_ms": window_ms, "device_busy_ms": busy_ms,
+                      "hand_kernels_ms": hand}))
+
+
+if __name__ == "__main__":
+    main()

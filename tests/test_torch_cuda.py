@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from lang2seg_tpu_torch.ops import fused_filter, nms_cuda
-from lang2seg_tpu_torch.ops.fused_filter import fused_dynamic_filter_plain
+from lang2seg_tpu_torch.ops.fused_filter import (
+    fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain)
 from lang2seg_tpu_torch.ops.nms import nms_padded
 
 pytestmark = pytest.mark.cuda
@@ -74,3 +75,78 @@ def test_gate_kernel_matches_plain(dev, dtype, k, gate, normalize):
     ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
     tol = ulp * want.abs() + 1e-30
     assert bool(((gk.float() - want).abs() <= tol).all())
+
+
+def bf16_ulps_floored(got, want):
+    """bf16 ulp distance, counted in ulps of max(|want|, 2^-8 max|want|).
+    d_conv = d_gated * g + scale * (d_resp0 . filt) is rounded once to
+    bf16 in both versions, but d_g inside d_resp0 is a sum over C in
+    another order: where the two terms cancel, that f32 difference is
+    many ulps of the small result, never of the 2^-8 floor."""
+    want = want.float()
+    mag = torch.maximum(want.abs(), want.abs().max() * 2.0 ** -8)
+    ulp = 2.0 ** (torch.floor(torch.log2(mag)) - 7)
+    return ((got.float() - want).abs() / ulp).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,gate,normalize", [(7, "sigmoid", True),
+                                              (1, "multiply", False),
+                                              (7, "multiply", False)])
+@pytest.mark.parametrize("c", [256, 1024])
+def test_gate_bwd_kernel_matches_plain(dev, dtype, k, gate, normalize, c):
+    """The backward kernel against its plain version, on a map gathered
+    from 2 images (as in training) and on a stride-0 broadcast map."""
+    g = torch.Generator().manual_seed(c + k)
+    e, h, w = 5, 9, 20
+    img = torch.randn((2, h, w, c), generator=g).to(dev, dtype)
+    idx = torch.tensor([0, 1, 1, 0, 1], device=dev)
+    filt = (torch.tanh(torch.randn((e, c, k), generator=g))
+            * (1.0 if normalize else 0.05)).to(dev)
+    rfilt = (torch.tanh(torch.randn((e, k), generator=g)) if k == 7
+             else torch.ones((e, 1))).to(dev)
+    d_gated = torch.randn((e, h, w, c), generator=g).to(dev, dtype)
+    d_resp = torch.randn((e, h, w, 1), generator=g).to(dev)
+    for conv in (img[idx], img[:1].expand(e, h, w, c)):
+        _, fused = fused_dynamic_filter_plain(conv, filt, rfilt, k, gate,
+                                              normalize)
+        before = fused_filter.bwd_launches
+        got = fused_filter.fused_dynamic_filter_bwd(
+            conv, filt, rfilt, fused, d_gated, d_resp, k, gate, normalize)
+        assert fused_filter.bwd_launches == before + 1
+        want = fused_dynamic_filter_bwd_plain(
+            conv, filt, rfilt, fused, d_gated, d_resp, k, gate, normalize)
+        torch.cuda.synchronize()
+        # d_conv: one rounding of an f32 value whose sums ran in another
+        # order: 2 ulps of the map's dtype (f32: relative 1e-5)
+        if dtype == torch.bfloat16:
+            assert float(bf16_ulps_floored(got[0], want[0])) <= 2.0
+        else:
+            assert float((got[0] - want[0]).abs().max()) <= \
+                1e-5 * float(want[0].abs().max())
+        # d_filt, d_rfilt: f32 sums over the pixels in another order
+        for a, b in zip(got[1:], want[1:]):
+            assert float((a - b).abs().max()) <= \
+                1e-3 * max(float(b.abs().max()), 1e-30)
+        again = fused_filter.fused_dynamic_filter_bwd(
+            conv, filt, rfilt, fused, d_gated, d_resp, k, gate, normalize)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_gate_autograd_launches_both_kernels(dev):
+    g = torch.Generator().manual_seed(0)
+    e, h, w, c = 3, 8, 16, 512
+    conv = torch.randn((e, h, w, c), generator=g).to(dev, torch.bfloat16)
+    conv.requires_grad_(True)
+    filt = torch.tanh(torch.randn((e, c, 7), generator=g)).to(dev)
+    rfilt = torch.tanh(torch.randn((e, 7), generator=g)).to(dev)
+    filt.requires_grad_(True)
+    rfilt.requires_grad_(True)
+    f0, b0 = fused_filter.launches, fused_filter.bwd_launches
+    gated, resp = fused_filter.fused_dynamic_filter(conv, filt, rfilt, 7,
+                                                    "sigmoid", True)
+    (gated.float().square().sum() + resp.sum()).backward()
+    assert (fused_filter.launches - f0, fused_filter.bwd_launches - b0) \
+        == (1, 1)
+    for t in (conv, filt, rfilt):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())

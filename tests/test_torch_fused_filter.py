@@ -167,3 +167,70 @@ def test_wrapper_takes_plain_path_on_cpu(rng):
     assert fused_filter.launches == before
     with pytest.raises(ValueError):
         fused_filter.fused_dynamic_filter(*(a.to("meta") for a in args))
+
+
+def _cotangents(rng, net_conv):
+    return (rng.randn(*net_conv.shape).astype(np.float32),
+            rng.randn(*net_conv.shape[:3], 1).astype(np.float32))
+
+
+@pytest.mark.parametrize("k,gate", CASES)
+@pytest.mark.parametrize("normalize", [True, False])
+def test_plain_bwd_matches_pallas_vjp(rng, k, gate, normalize):
+    """The plain backward against jax.vjp of the Pallas kernel (interpret
+    mode), i.e. its custom_vjp rule `_fdf_bwd`, in f32: within 1e-5 of
+    each gradient's largest magnitude (sums taken in another order)."""
+    net_conv, filt, rfilt = _inputs(rng, k)
+    if k == 1:
+        rfilt = np.ones_like(rfilt)
+    d_gated, d_resp = _cotangents(rng, net_conv)
+    (_, resp), vjp = jax.vjp(
+        lambda x, f, r: jfused(x, f, r, num_filters=k, gate=gate,
+                               normalize=normalize, interpret=True),
+        jnp.asarray(net_conv), jnp.asarray(filt), jnp.asarray(rfilt))
+    want = vjp((jnp.asarray(d_gated), jnp.asarray(d_resp)))
+    got = fused_filter.fused_dynamic_filter_bwd_plain(
+        torch.from_numpy(net_conv), torch.from_numpy(filt),
+        torch.from_numpy(rfilt), torch.from_numpy(np.array(resp)),
+        torch.from_numpy(d_gated), torch.from_numpy(d_resp), k, gate,
+        normalize)
+    for name, g, w in zip(("d_conv", "d_filt", "d_rfilt"), got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("k,gate", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_matches_autograd_of_plain(rng, k, gate, dtype):
+    """fused_dynamic_filter on CPU tensors (the autograd Function with the
+    plain backward) against torch autograd through the plain forward.
+    bf16 maps: both round d_conv once to bf16 from nearly the same f32
+    value, so they may differ by one bf16 ulp."""
+    net_conv, filt, rfilt = _inputs(rng, k)
+    d_gated, d_resp = _cotangents(rng, net_conv)
+    grads = []
+    for fn in (fused_filter.fused_dynamic_filter, fused_dynamic_filter_plain):
+        x = torch.from_numpy(net_conv).to(dtype).requires_grad_(True)
+        f = torch.from_numpy(filt).requires_grad_(True)
+        r = torch.from_numpy(rfilt).requires_grad_(True)
+        gated, resp = fn(x, f, r, k, gate, True)
+        loss = ((gated.float() * torch.from_numpy(d_gated)).sum()
+                + (resp * torch.from_numpy(d_resp)).sum())
+        grads.append(torch.autograd.grad(loss, (x, f, r), allow_unused=True,
+                                         materialize_grads=True))
+    (dx, df, dr), (px, pf, pr) = grads
+    assert dx.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert int(bf16_ulp_distance(dx.float(), px.float()).max()) <= 1
+        tol = 1e-3           # d_filt sums conv in bf16-rounded values
+    else:
+        tol = 1e-5
+        np.testing.assert_allclose(dx.numpy(), px.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(px.abs().max()))
+    for a, b in ((df, pf), (dr, pr)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=tol,
+                                   atol=tol * max(float(b.abs().max()), 1e-30))
+    if k == 1:
+        assert float(dr.abs().max()) == 0.0
