@@ -10,7 +10,12 @@ Phases, each fatal on failure (nothing is caught):
      sm_90a, in parallel;
   3. NMS kernel against its plain version on the card, bit for bit:
      (16, 6000) -> 300 and (16, 12000) -> 2000 on RPN draws, uniform
-     boxes, a dense cluster, a spread grid and jittered twins;
+     boxes, a dense cluster, a spread grid and jittered twins, and the
+     edge cases of `tools/profile_nms.py::edge_cases` (N = 63, 64, 65,
+     129; max_out reached on a tile's last box and mid-tile; max_out > N;
+     an all-invalid lane beside valid ones; 1, 4 and 8 lanes; a grid
+     that fills a frontier of 2000); then its device time at both RPN
+     shapes (`profile_nms.device_ms`), each beside its bound;
   4. fused gate kernel against its plain version on the card at the
      flagship shape (16, 40, 64, 1024) bf16 through a stride-0 broadcast
      map, K=7 sigmoid normalized and K=1 multiply: response within 1e-3
@@ -40,8 +45,10 @@ Phases, each fatal on failure (nothing is caught):
   8. one tiny f32 training step (resnet26, 128x192) on the card and on the
      CPU from the same weights, dropout draws and injected targets: the
      losses and the updates must agree.
-Then one `{"kernels": [...]}` line (launches: the serving and training
-runs of phases 5 and 7 together) and, last, the `{"ok": true, ...}`
+Then one `{"kernels": [...]}` line (one NMS entry per shape, its
+launches from the run of that shape's path: serving in phase 5, training
+in phase 7; the gate's from both, its backward's from training) and,
+last, the `{"ok": true, ...}`
 line. Details go to chiprun_out/chip_smoke.json. Exits non-zero without a
 CUDA device or outside a checkout of the repository.
 """
@@ -70,23 +77,17 @@ from lang2seg_tpu_torch.engine.trainer import Trainer  # noqa: E402
 from lang2seg_tpu_torch.models.network import build_model  # noqa: E402
 from lang2seg_tpu_torch.ops import _build, fused_filter, nms_cuda  # noqa: E402
 from lang2seg_tpu_torch.ops.anchors import shifted_anchors  # noqa: E402
-from lang2seg_tpu_torch.ops.boxes import clip_boxes, decode_boxes  # noqa: E402
 from lang2seg_tpu_torch.ops.fused_filter import (  # noqa: E402
     fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain)
 from lang2seg_tpu_torch.ops.nms import nms_padded  # noqa: E402
 from lang2seg_tpu_torch.ops.targets import (  # noqa: E402
     anchor_targets, proposal_targets)
+from lang2seg_tpu_torch.tools.profile_nms import (  # noqa: E402
+    F32_FLOPS, HBM_BYTES_PER_S, MAIN_SHAPES, device_ms, edge_cases,
+    lane_stats, nms_bound, rpn_draw, time_ms)
 from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator  # noqa: E402
 from lang2seg_tpu_torch.weights import init_params  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor)
-# FLOP/s; both kernels do their arithmetic in f32 on the CUDA cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-# f32 operations of one +1-pixel IoU test (4 min/max, 4 sub/add for the
-# overlap, 2 clamps, 1 mul, 1 add + 1 sub for the union, 1 div, 1 compare;
-# box areas are per box, not per pair)
-NMS_OPS_PER_PAIR = 15
 OUT = os.path.join(REPO, "chiprun_out")
 record = {}
 
@@ -99,21 +100,6 @@ def check(ok, what="check failed"):
     """A failed check ends the run (an exception, also under python -O)."""
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
-
-
-def time_ms(fn, reps, warmup=1):
-    """Mean device time of fn over `reps` back-to-back calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 # ---------------------------------------------------------------- phase 1
@@ -154,24 +140,6 @@ def build():
 
 # ---------------------------------------------------------------- phase 3
 
-def rpn_draw(e, pre_n, seed, dev):
-    """Score-sorted proposal boxes as the proposal layer makes them: an
-    RPN draw over the 40x64x12 anchors of the 640x1024 canvas, decoded,
-    clipped, stably sorted, top pre_n."""
-    g = np.random.RandomState(seed)
-    anchors = shifted_anchors(40, 64, 16, (4, 8, 16, 32), (0.5, 1.0, 2.0),
-                              device=dev)
-    n = anchors.shape[0]
-    scores = torch.from_numpy(g.uniform(0, 1, (e, n)).astype(np.float32))
-    deltas = torch.from_numpy((g.randn(e, n, 4) * 0.2).astype(np.float32))
-    boxes = clip_boxes(decode_boxes(anchors, deltas.to(dev)),
-                       torch.tensor(600.0, device=dev),
-                       torch.tensor(1000.0, device=dev))
-    order = torch.sort(-scores.to(dev), dim=1, stable=True).indices[:, :pre_n]
-    return torch.gather(boxes, 1, order[..., None].expand(e, pre_n, 4)
-                        ).contiguous()
-
-
 def nms_cases(dev):
     g = np.random.RandomState(0)
 
@@ -196,32 +164,23 @@ def nms_cases(dev):
     pvalid[1, ::7] = False
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
     ones = lambda b: torch.ones(b.shape[:2], dtype=torch.bool, device=dev)  # noqa: E731
-    return [
-        ("rpn_16x6000_300", rpn_draw(16, 6000, 1, dev), None, 0.7, 300),
+    main = [(name, rpn_draw(e, n, seed, dev), None, thr, max_out)
+            for name, e, n, seed, thr, max_out in MAIN_SHAPES]
+    return main[:1] + [
         ("uniform_4x2048_512", rand(4, 2048), None, 0.7, 512),
         ("dense_cluster_2x1024_256", t(cluster), None, 0.5, 256),
         ("spread_grid_1x512_256", t(grid), None, 0.5, 256),
         ("twins_1x1024_256", t(twins), None, 0.5, 256),
         ("partial_valid_3x700_128", part, pvalid, 0.7, 128),
-        ("rpn_16x12000_2000", rpn_draw(16, 12000, 2, dev), None, 0.7, 2000),
-    ], ones
-
-
-def nms_pairs(keep_idx, keep_mask, n, max_out):
-    """IoU tests greedy NMS needs on this data: each box up to the last
-    one processed against every kept box before it."""
-    ki, km = keep_idx.cpu().numpy(), keep_mask.cpu().numpy()
-    total = 0
-    for lane in range(ki.shape[0]):
-        kept = ki[lane][km[lane]].astype(np.int64)
-        last = kept[-1] if len(kept) == max_out else n - 1
-        total += int(np.sum(last - kept))
-    return total
+    ] + main[1:] + [(name, t(b), torch.from_numpy(v).to(dev), thr, max_out)
+                    for name, b, v, thr, max_out in edge_cases()], ones
 
 
 def check_nms(dev):
+    """The kernel bit for bit against its plain version on every case;
+    then its time at the main path's two shapes, each with its bound."""
     cases, ones = nms_cases(dev)
-    main = None
+    main = {}
     max_err = 0.0          # largest |kernel - plain| over every case and slot
     for name, boxes, valid, thr, max_out in cases:
         valid = ones(boxes) if valid is None else valid
@@ -231,30 +190,37 @@ def check_nms(dev):
         same = torch.equal(ki, pi) and torch.equal(km, pm)
         max_err = max(max_err, float((ki - pi).abs().max()),
                       float((km != pm).sum()))
-        kept = km.sum(1).tolist()
-        log(f"[nms] {name}: bit-identical={same} kept/lane={kept}")
+        kept, last = lane_stats(ki, km, boxes.shape[1], max_out)
+        log(f"[nms] {name}: bit-identical={same} kept/lane={kept} "
+            f"last examined/lane={last}")
         check(same, f"NMS kernel differs from its plain version on {name}")
-        if name == "rpn_16x6000_300":
-            main = (boxes, valid, thr, max_out, ki, km)
-    boxes, valid, thr, max_out, ki, km = main
-    e, n, _ = boxes.shape
-    ms = time_ms(lambda: nms_cuda.nms_batched(boxes, valid, thr, max_out), 20)
-    plain_ms = time_ms(lambda: nms_padded(boxes, valid, thr, max_out), 2)
-    byts = e * n * 16 + e * n + e * max_out * 5
-    ops = nms_pairs(ki, km, n, max_out) * NMS_OPS_PER_PAIR
-    b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-    res = {"name": "nms", "route": "cuda",
-           "source": "lang2seg_tpu_torch/csrc/nms.cu",
-           "replaces": "lang2seg_tpu/ops/nms_pallas.py:196",
-           "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(b_bytes, b_ops),
-           "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-           "library_ms": None}
-    log(f"[nms] (16, 6000)->300: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms,"
-        f" bound {res['bound_ms'] * 1e3:.3f} us ({res['bound_by']}: "
-        f"{byts} B, {ops} ops)")
-    record["nms"] = dict(res, bytes=byts, ops=ops)
-    return res
+        main[name] = (boxes, valid, thr, max_out, ki, km)
+    results = []
+    for (name, e, n, _, _, max_out), path in zip(MAIN_SHAPES,
+                                                 ("serve", "train")):
+        boxes, valid, thr, _, ki, km = main[name]
+        call = (lambda: nms_cuda.nms_batched(boxes, valid, thr, max_out))
+        # the kernel's device time: at the serving shape back-to-back calls
+        # are bound by the host's wrapper, which events alone would time
+        ms = device_ms(call, 50)
+        events_ms = time_ms(call, 50)
+        plain_ms = time_ms(lambda: nms_padded(boxes, valid, thr, max_out), 2)
+        bound, by, byts, ops = nms_bound(ki, km, n, max_out)
+        res = {"name": f"nms_{e}x{n}_{max_out}", "route": "cuda",
+               "source": "lang2seg_tpu_torch/csrc/nms.cu",
+               "replaces": "lang2seg_tpu/ops/nms_pallas.py:196",
+               "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "launched_by": ((path, "nms"),)}
+        csize = nms_cuda.cluster_size(dev, e, n, max_out)
+        log(f"[nms] ({e}, {n})->{max_out}: kernel {ms:.4f} ms device time "
+            f"({csize} CTAs a lane; back-to-back calls {events_ms:.4f} ms), "
+            f"plain {plain_ms:.2f} ms, bound {bound * 1e3:.3f} us ({by}: "
+            f"{byts} B, {ops} ops)")
+        record[res["name"]] = dict(res, bytes=byts, ops=ops,
+                                   events_ms=events_ms, cluster_size=csize)
+        results.append(res)
+    return results
 
 
 # ---------------------------------------------------------------- phase 4
@@ -323,7 +289,9 @@ def check_gate(dev):
            "max_abs_err": gated_err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(b_bytes, b_ops),
            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-           "library_ms": None}
+           "library_ms": None,
+           "launched_by": (("serve", "fused_filter"),
+                           ("train", "fused_filter"))}
     log(f"[gate] (16, 40, 64, 1024) bf16 K=7: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, bound {res['bound_ms'] * 1e3:.2f} us "
         f"({res['bound_by']}: {byts} B, {ops} ops)")
@@ -404,7 +372,8 @@ def check_gate_bwd(dev):
            "max_abs_err": max([dconv_err] + errs), "ms": ms,
            "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-           "library_ms": None}
+           "library_ms": None,
+           "launched_by": (("train", "fused_filter_bwd"),)}
     log(f"[gate-bwd] (16, 40, 64, 1024) bf16 K=7: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, bound {res['bound_ms'] * 1e3:.2f} us "
         f"({res['bound_by']}: {byts} B, {ops} ops)")
@@ -706,13 +675,14 @@ def main():
     environment()
     build()
     dev = torch.device("cuda")
-    kernels = [check_nms(dev), check_gate(dev), check_gate_bwd(dev)]
-    serve = serve_full_width()
+    kernels = check_nms(dev) + [check_gate(dev), check_gate_bwd(dev)]
+    runs = {"serve": serve_full_width()}
     small_reference()
-    train = train_full_width()
+    runs["train"] = train_full_width()
     small_train_reference()
     for kr in kernels:
-        kr["launches"] = serve.get(kr["name"], 0) + train[kr["name"]]
+        kr["launches"] = sum(runs[path].get(counter, 0)
+                             for path, counter in kr["launched_by"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: kr[k] for k in keys} for kr in kernels]

@@ -27,9 +27,12 @@ BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v"]
-# per-source flags: NMS must not contract its IoU into FMAs (bit identity
+# per-library flags: NMS must not contract its IoU into FMAs (bit identity
 # with the f32 reference); neither source may use fast math
 SOURCE_FLAGS = {"nms": ["-fmad=false"], "fused_filter": []}
+# variants built from another library's source, with flags added; only
+# measuring tools load them
+VARIANTS = {"nms_clocks": ("nms", ["-DNMS_PHASE_CLOCKS"])}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -47,12 +50,19 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
+def _source(name: str) -> Path:
+    return CSRC_DIR / f"{VARIANTS.get(name, (name,))[0]}.cu"
+
+
 def _flags(name: str):
+    if name in VARIANTS:
+        base, extra = VARIANTS[name]
+        return _flags(base) + extra
     return ARCH_FLAGS + COMMON_FLAGS + SOURCE_FLAGS[name]
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src = _source(name).read_bytes()
     key = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}" / f"lib{name}.so"
 
@@ -74,7 +84,7 @@ def build_all(names: Iterable[str] = tuple(SOURCE_FLAGS)) -> Dict[str, Path]:
         nvcc = nvcc or _nvcc()
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(_source(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT),
                        tmp, time.perf_counter())
@@ -94,7 +104,8 @@ def build_all(names: Iterable[str] = tuple(SOURCE_FLAGS)) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
+    """The loaded library `name` (csrc/<name>.cu, or a variant), built
+    first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -3,8 +3,10 @@ CUDA tensors, its plain PyTorch version (`nms.nms_padded`) for CPU
 tensors.
 
 Replaces the TPU kernel `lang2seg_tpu/ops/nms_pallas.py::
-nms_pallas_batched`; same wire format (see `nms.py`). `launches` counts
-the kernel's launches (the two-pass kernel counts once per call).
+nms_pallas_batched`; same wire format (see `nms.py`). The kernel is one
+launch with no device scratch: a thread-block cluster per lane walks the
+boxes in tiles of 64 against a frontier of kept boxes in shared memory.
+`launches` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -25,9 +27,54 @@ def _lib():
     lib = _build.load("nms")
     p = ctypes.c_void_p
     lib.nms_launch.argtypes = [p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_float, p, p, p, p]
+                               ctypes.c_float, ctypes.c_int, p, p, p]
     lib.nms_launch.restype = ctypes.c_int
+    lib.nms_cluster_size.argtypes = [ctypes.c_int] * 3
+    lib.nms_cluster_size.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_size(device_index: int, e: int, cap: int) -> int:
+    with torch.cuda.device(device_index):
+        c = _lib().nms_cluster_size(e, cap, cap)
+    if c < 1:
+        raise RuntimeError(f"nms cluster occupancy query failed: "
+                           f"cudaError {-c}")
+    return c
+
+
+def cluster_size(device: torch.device, e: int, n: int, max_out: int) -> int:
+    """CTAs per lane: the largest cluster (at most 8) of which the card
+    can hold all E at once, one CTA per SM, as
+    `cudaOccupancyMaxActiveClusters` reports it for the launch of E lanes
+    with a frontier of min(max_out, N) boxes; 1 where none fits. More
+    CTAs split each tile's frontier test further, but a lane that waits
+    for SMs costs a whole second pass (on an H100 SXM, 6 for E = 16, 8
+    for E <= 15)."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return _cluster_size(index, e, min(max_out, n))
+
+
+def _launch(boxes, valid, iou_thresh, max_out, cluster):
+    e, n, _ = boxes.shape
+    keep_idx = torch.empty((e, max_out), dtype=torch.int32,
+                           device=boxes.device)
+    keep_mask = torch.empty((e, max_out), dtype=torch.bool,
+                            device=boxes.device)
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    with torch.cuda.device(boxes.device):     # the stream's device
+        rc = _lib().nms_launch(boxes.data_ptr(), valid.data_ptr(), e, n,
+                               max_out, float(iou_thresh), cluster,
+                               keep_idx.data_ptr(), keep_mask.data_ptr(),
+                               stream)
+    if rc != 0:
+        raise RuntimeError(f"nms kernel launch failed: cudaError {rc}")
+    global launches
+    launches += 1
+    return keep_idx, keep_mask
 
 
 def nms_batched(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
@@ -36,7 +83,8 @@ def nms_batched(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     (keep_idx (E, max_out) int32, keep_mask (E, max_out) bool).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel on the current stream, or raises."""
+    kernel on the current stream (`cluster_size` CTAs per lane), or
+    raises."""
     if boxes.device.type == "cpu":
         return nms_padded(boxes, valid, iou_thresh, max_out)
     if boxes.device.type != "cuda":
@@ -55,23 +103,5 @@ def nms_batched(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
         raise ValueError("nms_batched: boxes must be 16-byte aligned")
     if max_out <= 0:
         raise ValueError("nms_batched: max_out must be positive")
-
-    col_blocks = (n + 63) // 64
-    # the kernel's suppression bitmask; freed when this returns, which is
-    # safe: the caching allocator hands the block out again only to work
-    # queued after the kernel on the same stream
-    scratch = torch.empty(max(e * n * col_blocks, 1), dtype=torch.int64,
-                          device=boxes.device)
-    keep_idx = torch.empty((e, max_out), dtype=torch.int32,
-                           device=boxes.device)
-    keep_mask = torch.empty((e, max_out), dtype=torch.bool,
-                            device=boxes.device)
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    rc = _lib().nms_launch(boxes.data_ptr(), valid.data_ptr(), e, n, max_out,
-                           float(iou_thresh), scratch.data_ptr(),
-                           keep_idx.data_ptr(), keep_mask.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"nms kernel launch failed: cudaError {rc}")
-    global launches
-    launches += 1
-    return keep_idx, keep_mask
+    return _launch(boxes, valid, iou_thresh, max_out,
+                   cluster_size(boxes.device, e, n, max_out))

@@ -9,7 +9,10 @@ three stages with CUDA events (`train_forward` with its losses, the
 backward, clipping and the SGD update), and profiles one more step with
 `torch.profiler`: the device's busy time against the host window, the
 time of the port's three hand kernels, and the twelve largest
-device-time entries. Prints one JSON line. Needs a CUDA device.
+device-time entries. A last step records its NMS input: per lane the
+boxes kept and the last box examined, the kernel's device time alone on
+that input and its cycles a tile by phase (`profile_nms.phase_cycles`).
+Prints one JSON line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from ..config import flagship_config
 from ..data.synthetic import synthetic_batch, to_wire
 from ..engine.train_state import (apply_update, create_train_state,
                                   to_device, train_step)
+from ..ops import nms_cuda, proposals
+from .profile_nms import device_ms, lane_stats, phase_cycles
 
 # the port's own kernels, by the names nvcc gives them
 HAND_KERNELS = ("nms_", "fused_filter_kernel", "fused_filter_bwd_")
@@ -74,7 +79,7 @@ def main(argv=None):
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
     batches = [to_device(to_wire(cfg, synthetic_batch(
         cfg, 2, args.expressions, seed=s)), "cuda")
-        for s in range(4)]
+        for s in range(5)]
     for b in batches[:2]:
         train_step(state, b, gen)
     stages = staged_step(state, batches[2], gen)
@@ -104,10 +109,39 @@ def main(argv=None):
           f"host window (idle {100 * (1 - busy_ms / window_ms):.1f}%); "
           f"hand kernels {hand}")
     print(avgs.table(sort_by="cuda_time_total", row_limit=12))
+
+    # one more step, its NMS results kept aside (read after the step)
+    nms_calls = []
+    real_nms = proposals.nms_batched
+
+    def recorded_nms(*nms_in):
+        out = real_nms(*nms_in)
+        nms_calls.append(nms_in + out)
+        return out
+
+    proposals.nms_batched = recorded_nms
+    try:
+        train_step(state, batches[4], gen)
+    finally:
+        proposals.nms_batched = real_nms
+    (boxes, valid, thresh, max_out, keep_idx, keep_mask), = nms_calls
+    e, n, _ = boxes.shape
+    nms_args = (boxes, valid, thresh, max_out)
+    kept, last = lane_stats(keep_idx, keep_mask, n, max_out)
+    # the kernel alone on this step's input, and its tile loop by phase
+    nms_ms = device_ms(lambda: real_nms(*nms_args), 20)
+    cycles = phase_cycles(*nms_args, nms_cuda.cluster_size(boxes.device, e,
+                                                           n, max_out))
+    print(f"[nms] ({e}, {n})->{max_out} in a step: kept/lane {kept}; last "
+          f"examined/lane {last}; kernel alone {nms_ms:.4f} ms; cycles a "
+          f"tile {cycles}")
     print(json.dumps({"device": smi, "images": 2,
                       "expressions": args.expressions, "stages_ms": stages,
                       "window_ms": window_ms, "device_busy_ms": busy_ms,
-                      "hand_kernels_ms": hand}))
+                      "hand_kernels_ms": hand,
+                      "nms_kept_per_lane": kept,
+                      "nms_last_examined_per_lane": last,
+                      "nms_alone_ms": nms_ms, "nms_cycles_a_tile": cycles}))
 
 
 if __name__ == "__main__":

@@ -15,6 +15,7 @@ from lang2seg_tpu_torch.ops import fused_filter, nms_cuda
 from lang2seg_tpu_torch.ops.fused_filter import (
     fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain)
 from lang2seg_tpu_torch.ops.nms import nms_padded
+from lang2seg_tpu_torch.tools.profile_nms import edge_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -34,17 +35,47 @@ def _boxes(rng, e, n, lim=100.0):
                             .astype(np.float32))
 
 
-@pytest.mark.parametrize("e,n,thresh,max_out", [(3, 700, 0.7, 128),
-                                                 (2, 64, 0.5, 64),
-                                                 (1, 1, 0.7, 4),
-                                                 (4, 2000, 0.99, 300)])
-def test_nms_kernel_bit_identical(dev, e, n, thresh, max_out):
+# the small edge cases of chip_smoke.py phase 3, by name
+EDGE = {c[0]: c[1:] for c in edge_cases() if c[1].shape[1] <= 500}
+RANDOM = [(3, 700, 0.7, 128), (2, 64, 0.5, 64), (1, 1, 0.7, 4),
+          (4, 2000, 0.99, 300)]
+
+
+def _nms_case(case, dev):
+    """(boxes, valid, thresh, max_out) on the card: a random draw for
+    (e, n, thresh, max_out), or the edge case of that name."""
+    if isinstance(case, str):
+        b, v, thresh, max_out = EDGE[case]
+        return (torch.from_numpy(b).to(dev), torch.from_numpy(v).to(dev),
+                thresh, max_out)
+    e, n, thresh, max_out = case
     rng = np.random.RandomState(n)
     boxes = _boxes(rng, e, n).to(dev)
     valid = torch.from_numpy(rng.uniform(size=(e, n)) > 0.1).to(dev)
+    return boxes, valid, thresh, max_out
+
+
+@pytest.mark.parametrize("case", [pytest.param(c, id="-".join(map(str, c)))
+                                  for c in RANDOM] + list(EDGE))
+def test_nms_kernel_bit_identical(dev, case):
+    """Random draws, and the edge cases: tile edges, max_out at a tile's
+    end, mid-tile and above N, an all-invalid lane, 1, 4 and 8 lanes."""
+    boxes, valid, thresh, max_out = _nms_case(case, dev)
     before = nms_cuda.launches
     ki, km = nms_cuda.nms_batched(boxes, valid, thresh, max_out)
     assert nms_cuda.launches == before + 1
+    pi, pm = nms_padded(boxes, valid, thresh, max_out)
+    assert torch.equal(ki, pi) and torch.equal(km, pm)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", [
+    pytest.param((3, 700, 0.7, 128), id="3-700-0.7-128"),
+    "invalid_lane_3x300_128", "max_out_mid_tile_2x200_100"])
+def test_nms_kernel_any_cluster_size(dev, case, cluster):
+    """Every cluster size (CTAs per lane) gives the same bits."""
+    boxes, valid, thresh, max_out = _nms_case(case, dev)
+    ki, km = nms_cuda._launch(boxes, valid, thresh, max_out, cluster)
     pi, pm = nms_padded(boxes, valid, thresh, max_out)
     assert torch.equal(ki, pi) and torch.equal(km, pm)
 

@@ -16,6 +16,7 @@ from lang2seg_tpu.ops.nms import nms_padded as jnms_padded
 from lang2seg_tpu.ops.nms_pallas import nms_pallas_batched
 from lang2seg_tpu_torch.ops import nms_cuda
 from lang2seg_tpu_torch.ops.nms import nms_padded
+from lang2seg_tpu_torch.tools.profile_nms import edge_cases
 from tests.test_nms import greedy_nms_oracle, rand_boxes
 
 
@@ -25,8 +26,9 @@ def _port(boxes, valid, thresh, max_out):
     return ki.numpy(), km.numpy()
 
 
-def _compare(boxes, valid, thresh, max_out, pallas=False):
-    """Port == JAX nms_padded per lane, full wire format (padded idx 0)."""
+def _compare(boxes, valid, thresh, max_out, pallas=False, block=256):
+    """Port == JAX nms_padded per lane, full wire format (padded idx 0);
+    with `pallas`, also == nms_pallas_batched in tiles of `block`."""
     ki, km = _port(boxes, valid, thresh, max_out)
     assert ki.dtype == np.int32 and km.dtype == np.bool_
     assert ki.shape == km.shape == (boxes.shape[0], max_out)
@@ -37,7 +39,7 @@ def _compare(boxes, valid, thresh, max_out, pallas=False):
         np.testing.assert_array_equal(ki[lane], np.asarray(ri))
     if pallas:
         pi, pm = nms_pallas_batched(jnp.asarray(boxes), jnp.asarray(valid),
-                                    thresh, max_out, block=256, chunk=64,
+                                    thresh, max_out, block=block, chunk=64,
                                     interpret=True)
         np.testing.assert_array_equal(km, np.asarray(pm))
         np.testing.assert_array_equal(ki, np.asarray(pi))
@@ -89,6 +91,41 @@ def test_spread_grid_and_twins(rng):
     inter[:, 0::2] = grid
     inter[:, 1::2] = twins
     _compare(inter, np.ones((1, 1024), bool), 0.5, 256, pallas=True)
+
+
+# the CUDA kernel's edge cases (chip_smoke.py phase 3) up to 500 boxes
+EDGE = [c for c in edge_cases() if c[1].shape[1] <= 500]
+
+
+@pytest.mark.parametrize("case", EDGE, ids=[c[0] for c in EDGE])
+def test_kernel_edge_cases(case):
+    """Tile edges (N = 63, 64, 65, 129), max_out reached on a tile's last
+    box and mid-tile, max_out > N, an all-invalid lane beside valid ones,
+    1, 4 and 8 lanes: the port's plain version against JAX nms_padded and
+    the Pallas kernel in tiles of 64, the CUDA kernel's tile."""
+    _, boxes, valid, thresh, max_out = case
+    ki, km = _compare(boxes, valid, thresh, max_out, pallas=True, block=64)
+    kept = km.sum(1)
+    assert (kept <= min(max_out, boxes.shape[1])).all()
+    assert not km[~valid.any(1)].any()           # an all-invalid lane
+
+
+def test_edge_cases_reach_their_edges():
+    """Each named edge case does what its name says, on the plain version."""
+    cases = {c[0]: c[1:] for c in edge_cases()}
+
+    def kept(name):
+        boxes, valid, thresh, max_out = cases[name]
+        ki, km = _port(boxes, valid, thresh, max_out)
+        return [list(ki[lane][km[lane]]) for lane in range(len(ki))]
+
+    assert kept("max_out_at_tile_end_2x200_64")[0][-1] == 63
+    assert kept("max_out_mid_tile_2x200_100")[0][-1] == 99
+    assert all(len(k) < 300 for k in kept("max_out_above_n_2x100_300"))
+    assert [len(k) for k in kept("invalid_lane_3x300_128")] == [128, 0, 128]
+    assert [len(k) for k in kept("grid_frontier_2x2560_2000")] == [2000, 2000]
+    assert [cases[f"lanes_{e}x500_128"][0].shape[0] for e in (1, 4, 8)] \
+        == [1, 4, 8]
 
 
 def test_iou_between_f32_and_double_threshold():
