@@ -16,16 +16,21 @@ Phases, each fatal on failure (nothing is caught):
      an all-invalid lane beside valid ones; 1, 4 and 8 lanes; a grid
      that fills a frontier of 2000); then its device time at both RPN
      shapes (`profile_nms.device_ms`), each beside its bound;
-  4. fused gate kernel against its plain version on the card at the
-     flagship shape (16, 40, 64, 1024) bf16 through a stride-0 broadcast
-     map, K=7 sigmoid normalized and K=1 multiply: response within 1e-3
-     of max|response|, gated within 1 bf16 ulp;
+  4. fused gate kernel against its plain version on the card at its two
+     main-path shapes (`tools/profile_gate.py::SHAPES`): (16, 40, 64,
+     1024) bf16 through a stride-0 broadcast map (serving) and gathered
+     from 2 images (training), K=7 sigmoid normalized and K=1 multiply:
+     response within 1e-3 of max|response|, and within 1e-5 of it for
+     these bf16 maps (the tensor-core product with the filter split in a
+     hi and a lo bf16 part; a one-pass bf16 product misses this by far),
+     gated within 1 bf16 ulp; then its device time at each shape beside
+     its bound, the tile plan the wrapper launched it with and its
+     registers (ptxas, build.log);
   4b. the gate's backward kernel against its plain version at the
-     training shape, (16, 40, 64, 1024) bf16 gathered from 2 images, K=7
-     sigmoid normalized and K=1 multiply, given the same response:
-     d_conv within 2 bf16 ulps (counted at no less than 2^-8 of
-     max|d_conv|), d_filt and d_rfilt within 1e-3 of their max|value|,
-     and the same bits on a second call;
+     training shape, K=7 sigmoid normalized and K=1 multiply, given the
+     same response: d_conv within 2 bf16 ulps (counted at no less than
+     2^-8 of max|d_conv|), d_filt and d_rfilt within 1e-3 of their
+     max|value|, and the same bits on a second call; then its time;
   5. the serving path at full width (ResNet-101-C4 `response` variant,
      random weights from a seed, 640x1024 canvas): 3 requests of 4, 8
      and 16 expressions through Inference.predict and
@@ -45,9 +50,9 @@ Phases, each fatal on failure (nothing is caught):
   8. one tiny f32 training step (resnet26, 128x192) on the card and on the
      CPU from the same weights, dropout draws and injected targets: the
      losses and the updates must agree.
-Then one `{"kernels": [...]}` line (one NMS entry per shape, its
-launches from the run of that shape's path: serving in phase 5, training
-in phase 7; the gate's from both, its backward's from training) and,
+Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
+shape, its launches from the run of that shape's path: serving in phase
+5, training in phase 7; the gate's backward's from training) and,
 last, the `{"ok": true, ...}`
 line. Details go to chiprun_out/chip_smoke.json. Exits non-zero without a
 CUDA device or outside a checkout of the repository.
@@ -82,9 +87,12 @@ from lang2seg_tpu_torch.ops.fused_filter import (  # noqa: E402
 from lang2seg_tpu_torch.ops.nms import nms_padded  # noqa: E402
 from lang2seg_tpu_torch.ops.targets import (  # noqa: E402
     anchor_targets, proposal_targets)
+from lang2seg_tpu_torch.tools.profile_gate import (  # noqa: E402
+    SHAPES as GATE_SHAPES, bf16_ulp_distance, bf16_ulps_floored, gate_bound,
+    gate_bwd_bound, gate_inputs, kernel_registers)
 from lang2seg_tpu_torch.tools.profile_nms import (  # noqa: E402
-    F32_FLOPS, HBM_BYTES_PER_S, MAIN_SHAPES, device_ms, edge_cases,
-    lane_stats, nms_bound, rpn_draw, time_ms)
+    MAIN_SHAPES, device_ms, edge_cases, lane_stats, nms_bound, rpn_draw,
+    time_ms)
 from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator  # noqa: E402
 from lang2seg_tpu_torch.weights import init_params  # noqa: E402
 
@@ -225,108 +233,112 @@ def check_nms(dev):
 
 # ---------------------------------------------------------------- phase 4
 
-def bf16_ulp_distance(a, b):
-    def ordered(x):
-        bits = x.to(torch.bfloat16).view(torch.int16).to(torch.int32)
-        mag = bits & 0x7FFF
-        return torch.where(bits < 0, -mag, mag)
-    return (ordered(a) - ordered(b)).abs()
+def gate_registers():
+    """Registers a thread of the main path's gate kernels (bf16, K=7,
+    sigmoid, C=1024), as ptxas reported them in build.log."""
+    regs = kernel_registers(_build.library_path("fused_filter").with_name(
+        "build.log"))
+    want = {"forward": "fused_filter_mma_kernel<7, 1024, true>",
+            "backward": "fused_filter_bwd_kernel<__nv_bfloat16, 7, 256, true>"}
+    out = {}
+    for kind, key in want.items():
+        hits = [v for name, v in regs.items() if key in name]
+        check(len(hits) == 1, f"no ptxas line for {key}")
+        r, frame, st, ld = hits[0]
+        out[kind] = {"registers": r, "stack_bytes": frame,
+                     "spill_bytes": st + ld}
+    return out
 
 
-def check_gate(dev):
-    g = torch.Generator(device="cpu").manual_seed(0)
-    e, h, w, c = 16, 40, 64, 1024
-    conv1 = (torch.randn((1, h, w, c), generator=g) * 2.0).to(
-        dev, torch.bfloat16)
-    conv = conv1.expand(e, h, w, c)                 # stride 0, as served
-    out = None
-    for k, gate, norm in ((7, "sigmoid", True), (1, "multiply", False)):
-        filt = torch.tanh(torch.randn((e, c, k), generator=g)).to(dev)
-        rfilt = (torch.tanh(torch.randn((e, k), generator=g)) if k == 7
-                 else torch.ones((e, 1))).to(dev)
-        if k == 1:
-            filt = filt * 0.03                       # keep |resp| ~ 1
-        gk, rk = fused_filter.fused_dynamic_filter(conv, filt, rfilt, k,
-                                                   gate, norm)
-        gp, rp = fused_dynamic_filter_plain(conv, filt, rfilt, k, gate, norm)
-        torch.cuda.synchronize()
-        resp_err = float((rk - rp).abs().max())
-        resp_tol = 1e-3 * float(rp.abs().max())
-        ulps = int(bf16_ulp_distance(gk.float(), gp.float()).max())
-        gated_err = float((gk.float() - gp.float()).abs().max())
-        # the gate given the kernel's own response: one rounding of the f32
-        # product, so within 1 bf16 ulp. Against the plain version's gated
-        # map the response's f32 difference also enters: through a sigmoid
-        # it stays within 1 ulp; the multiply gate passes it on unbounded
-        # near resp = 0, where gated ~ 0 and an ulp is tiny
-        g_k = torch.sigmoid(rk) if gate == "sigmoid" else rk
-        same_g = (conv.float() * g_k).to(torch.bfloat16)
-        ulps_given_resp = int(bf16_ulp_distance(gk.float(),
-                                                same_g.float()).max())
-        log(f"[gate] K={k} {gate} normalize={norm}: resp max err "
-            f"{resp_err:.3e} (tol {resp_tol:.3e}); gated vs plain: max "
-            f"{ulps} bf16 ulp, max abs {gated_err:.3e}; gated vs plain gate "
-            f"on the kernel's response: max {ulps_given_resp} bf16 ulp")
-        check(resp_err <= resp_tol, "gate kernel response out of tolerance")
-        check(ulps_given_resp <= 1, "gate kernel gated map beyond 1 bf16 ulp")
-        if gate == "sigmoid":
-            check(ulps <= 1, "gate kernel gated map beyond 1 bf16 ulp")
-        check(gk.shape == (e, h, w, c) and rk.shape == (e, h, w, 1))
-        if k == 7:
-            out = (filt, rfilt, gated_err, resp_err)
-    filt, rfilt, gated_err, resp_err = out
-    ms = time_ms(lambda: fused_filter.fused_dynamic_filter(
-        conv, filt, rfilt, 7, "sigmoid", True), 50)
-    plain_ms = time_ms(lambda: fused_dynamic_filter_plain(
-        conv, filt, rfilt, 7, "sigmoid", True), 5)
-    byts = h * w * c * 2 + e * c * 7 * 4 + e * 7 * 4 + e * h * w * c * 2 \
-        + e * h * w * 4
-    ops = e * h * w * (2 * c * 7 + c + 3 * 7 + 4)
-    b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-    res = {"name": "fused_filter", "route": "cuda",
-           "source": "lang2seg_tpu_torch/csrc/fused_filter.cu",
-           "replaces": "lang2seg_tpu/ops/pallas_kernels.py:85",
-           "max_abs_err": gated_err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(b_bytes, b_ops),
-           "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-           "library_ms": None,
-           "launched_by": (("serve", "fused_filter"),
-                           ("train", "fused_filter"))}
-    log(f"[gate] (16, 40, 64, 1024) bf16 K=7: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {res['bound_ms'] * 1e3:.2f} us "
-        f"({res['bound_by']}: {byts} B, {ops} ops)")
-    record["fused_filter"] = dict(res, bytes=byts, ops=ops,
-                                  resp_max_abs_err=resp_err)
-    return res
+def check_gate(dev, regs):
+    """The forward against its plain version at its two main-path shapes,
+    the map a stride-0 broadcast (serving) and gathered from 2 images
+    (training): K=7 sigmoid normalized and K=1 multiply, response within
+    1e-3 of max|response| and, these maps being bf16, within 1e-5 (the
+    split filter's precision), gated within 1 bf16 ulp given the kernel's
+    own response; then its time at each shape, each beside its bound."""
+    results = []
+    for (name, e, h, w, c, _, _, _, maps), path in zip(GATE_SHAPES,
+                                                       ("serve", "train")):
+        nmaps = 1 if maps == "broadcast" else e
+        for seed, (k, gate, norm) in enumerate(((7, "sigmoid", True),
+                                                (1, "multiply", False))):
+            conv, filt, rfilt, _, _ = gate_inputs(e, h, w, c, k, maps, dev,
+                                                  seed=seed)
+            if k == 1:
+                filt = filt * 0.03                   # keep |resp| ~ 1
+            gk, rk = fused_filter.fused_dynamic_filter(conv, filt, rfilt, k,
+                                                       gate, norm)
+            gp, rp = fused_dynamic_filter_plain(conv, filt, rfilt, k, gate,
+                                                norm)
+            torch.cuda.synchronize()
+            resp_err = float((rk - rp).abs().max())
+            resp_tol = 1e-3 * float(rp.abs().max())
+            resp_split_tol = 1e-5 * float(rp.abs().max())
+            ulps = int(bf16_ulp_distance(gk.float(), gp.float()).max())
+            gated_err = float((gk.float() - gp.float()).abs().max())
+            # the gate given the kernel's own response: one rounding of the
+            # f32 product, so within 1 bf16 ulp. Against the plain version's
+            # gated map the response's f32 difference also enters: through a
+            # sigmoid it stays within 1 ulp; the multiply gate passes it on
+            # unbounded near resp = 0, where gated ~ 0 and an ulp is tiny
+            g_k = torch.sigmoid(rk) if gate == "sigmoid" else rk
+            same_g = (conv.float() * g_k).to(torch.bfloat16)
+            ulps_given_resp = int(bf16_ulp_distance(gk.float(),
+                                                    same_g.float()).max())
+            log(f"[gate] {path} {maps} map K={k} {gate} normalize={norm}: "
+                f"resp max err {resp_err:.3e} (tol {resp_tol:.3e}, split-filter "
+                f"tol {resp_split_tol:.3e}); gated vs "
+                f"plain: max {ulps} bf16 ulp, max abs {gated_err:.3e}; gated "
+                f"vs plain gate on the kernel's response: max "
+                f"{ulps_given_resp} bf16 ulp")
+            check(resp_err <= resp_tol, "gate kernel response out of tolerance")
+            check(resp_err <= resp_split_tol, "gate kernel response beyond "
+                  "1e-5 of max: not the hi + lo split-filter product")
+            check(ulps_given_resp <= 1, "gate kernel gated map beyond 1 bf16 ulp")
+            if gate == "sigmoid":
+                check(ulps <= 1, "gate kernel gated map beyond 1 bf16 ulp")
+            check(gk.shape == (e, h, w, c) and rk.shape == (e, h, w, 1))
+            if k == 7:                               # the main path's gate
+                args = (conv, filt, rfilt, k, gate, norm)
+                max_err, resp7_err = gated_err, resp_err
+        call = (lambda a=args: fused_filter.fused_dynamic_filter(*a))
+        ms = device_ms(call, 50)
+        events_ms = time_ms(call, 50)
+        plan = fused_filter.plans["forward"]     # as the timed calls ran
+        check(plan["grid"][1] == e, "gate forward plan of another shape")
+        plain_ms = time_ms(lambda a=args: fused_dynamic_filter_plain(*a), 5)
+        bound, by, byts, ops = gate_bound(e, h, w, c, 7, 2, nmaps)
+        res = {"name": f"fused_filter_{path}", "route": "cuda",
+               "source": "lang2seg_tpu_torch/csrc/fused_filter.cu",
+               "replaces": "lang2seg_tpu/ops/pallas_kernels.py:85",
+               "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "tile_plan": {"grid": plan["grid"],
+                             "tile_pixels": plan["tile_pixels"],
+                             "tiles_per_block": plan["tiles_per_block"]},
+               "registers": regs["forward"]["registers"],
+               "launched_by": ((path, "fused_filter"),)}
+        log(f"[gate] {name} ({maps} map) bf16 K=7: kernel {ms:.4f} ms device "
+            f"time (back-to-back calls {events_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound * 1e3:.2f} us ({by}: {byts} B, "
+            f"{ops} ops); plan {res['tile_plan']}, {regs['forward']}")
+        record[res["name"]] = dict(res, bytes=byts, ops=ops,
+                                   events_ms=events_ms,
+                                   resp_max_abs_err=resp7_err)
+        results.append(res)
+    return results
 
 
 # --------------------------------------------------------------- phase 4b
 
-def bf16_ulps_floored(got, want):
-    """bf16 ulp distance in ulps of max(|want|, 2^-8 max|want|): both
-    versions round d_conv once to bf16, but the sum over C inside it runs
-    in another order, which where its two terms cancel is many ulps of the
-    small result and never of the floor."""
-    want = want.float()
-    mag = torch.maximum(want.abs(), want.abs().max() * 2.0 ** -8)
-    ulp = 2.0 ** (torch.floor(torch.log2(mag)) - 7)
-    return float(((got.float() - want).abs() / ulp).max())
-
-
-def check_gate_bwd(dev):
-    g = torch.Generator(device="cpu").manual_seed(1)
-    e, h, w, c = 16, 40, 64, 1024
-    img = (torch.randn((2, h, w, c), generator=g) * 2.0).to(dev,
-                                                            torch.bfloat16)
-    idx = torch.randperm(e, generator=g) % 2          # 8 expressions each
-    conv = img[idx.to(dev)]                           # gathered, as trained
-    d_gated = torch.randn((e, h, w, c), generator=g).to(dev, torch.bfloat16)
-    d_resp = torch.randn((e, h, w, 1), generator=g).to(dev)
+def check_gate_bwd(dev, regs):
+    name, e, h, w, c, _, _, _, maps = GATE_SHAPES[1]         # as trained
     out = None
-    for k, gate, norm in ((7, "sigmoid", True), (1, "multiply", False)):
-        filt = torch.tanh(torch.randn((e, c, k), generator=g)).to(dev)
-        rfilt = (torch.tanh(torch.randn((e, k), generator=g)) if k == 7
-                 else torch.ones((e, 1))).to(dev)
+    for seed, (k, gate, norm) in enumerate(((7, "sigmoid", True),
+                                            (1, "multiply", False))):
+        conv, filt, rfilt, d_gated, d_resp = gate_inputs(
+            e, h, w, c, k, maps, dev, seed=10 + seed)
         if k == 1:
             filt = filt * 0.03
         _, fused = fused_filter.fused_dynamic_filter(conv, filt, rfilt, k,
@@ -355,29 +367,29 @@ def check_gate_bwd(dev):
         if k == 7:
             out = (args, dconv_err, errs)
     args, dconv_err, errs = out
-    ms = time_ms(lambda: fused_filter.fused_dynamic_filter_bwd(*args), 50)
+    call = (lambda: fused_filter.fused_dynamic_filter_bwd(*args))
+    ms = device_ms(call, 50)
+    events_ms = time_ms(call, 50)
+    plan = fused_filter.plans["backward"]        # as the timed calls ran
     plain_ms = time_ms(lambda: fused_dynamic_filter_bwd_plain(*args), 5)
-    k = 7
-    # bytes: conv, d_gated read and d_conv written (bf16), fused and
-    # d_resp read, filt and rfilt read, d_filt and d_rfilt written (f32)
-    byts = (3 * e * h * w * c * 2 + 2 * e * h * w * 4
-            + 2 * (e * c * k + e * k) * 4)
-    # f32 operations per pixel: the response recompute (2CK), d_g (2C),
-    # d_conv (C (2K + 3)), d_filt (2CK), d_fused / d_rfilt (3K + 10)
-    ops = e * h * w * (c * (6 * k + 5) + 3 * k + 10)
-    b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    bound, by, byts, ops = gate_bwd_bound(e, h, w, c, 7, 2, e)
     res = {"name": "fused_filter_bwd", "route": "cuda",
            "source": "lang2seg_tpu_torch/csrc/fused_filter.cu",
            "replaces": "lang2seg_tpu/ops/pallas_kernels.py:147",
            "max_abs_err": max([dconv_err] + errs), "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
-           "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": None,
+           "tile_plan": {"grid": plan["grid"],
+                         "tile_pixels": plan["tile_pixels"],
+                         "tiles_per_block": plan["tiles_per_block"]},
+           "registers": regs["backward"]["registers"],
            "launched_by": (("train", "fused_filter_bwd"),)}
-    log(f"[gate-bwd] (16, 40, 64, 1024) bf16 K=7: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {res['bound_ms'] * 1e3:.2f} us "
-        f"({res['bound_by']}: {byts} B, {ops} ops)")
+    log(f"[gate-bwd] {name} (gathered map) bf16 K=7: kernel {ms:.4f} ms "
+        f"device time (back-to-back calls {events_ms:.4f} ms), plain "
+        f"{plain_ms:.3f} ms, bound {bound * 1e3:.2f} us ({by}: {byts} B, "
+        f"{ops} ops); plan {res['tile_plan']}, {regs['backward']}")
     record["fused_filter_bwd"] = dict(res, bytes=byts, ops=ops,
+                                      events_ms=events_ms,
                                       d_filt_err=errs[0], d_rfilt_err=errs[1])
     return res
 
@@ -675,7 +687,9 @@ def main():
     environment()
     build()
     dev = torch.device("cuda")
-    kernels = check_nms(dev) + [check_gate(dev), check_gate_bwd(dev)]
+    regs = gate_registers()
+    kernels = check_nms(dev) + check_gate(dev, regs) + [
+        check_gate_bwd(dev, regs)]
     runs = {"serve": serve_full_width()}
     small_reference()
     runs["train"] = train_full_width()
@@ -684,8 +698,9 @@ def main():
         kr["launches"] = sum(runs[path].get(counter, 0)
                              for path, counter in kr["launched_by"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: kr[k] for k in keys} for kr in kernels]
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "tile_plan", "registers")
+    kernels = [{k: kr[k] for k in keys if k in kr} for kr in kernels]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     os.makedirs(OUT, exist_ok=True)

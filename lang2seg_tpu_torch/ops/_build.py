@@ -32,7 +32,9 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 SOURCE_FLAGS = {"nms": ["-fmad=false"], "fused_filter": []}
 # variants built from another library's source, with flags added; only
 # measuring tools load them
-VARIANTS = {"nms_clocks": ("nms", ["-DNMS_PHASE_CLOCKS"])}
+VARIANTS = {"nms_clocks": ("nms", ["-DNMS_PHASE_CLOCKS"]),
+            "fused_filter_clocks": ("fused_filter",
+                                    ["-DFUSED_FILTER_PHASE_CLOCKS"])}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -12,14 +12,19 @@ the f32 constant 1/sqrt(C) (not divided by sqrt(C)), and the gated map
 is the f32 product conv * g rounded once to the map's dtype (not a
 product of g cast to the map's dtype); the backward recomputes the
 response and rounds d_conv once to the map's dtype, as `_fdf_bwd` does.
-`launches` and `bwd_launches` count the two kernels' launches.
+On the card the bf16 forward takes its f32 products on the tensor cores,
+the filter split into a hi and a lo bf16 part. `tile_plan` is how the
+wrapper cuts a map into persistent blocks for both kernels, from the
+tiling each kernel reports (`fused_filter_tiling`); `plans` keeps the plan
+of each kernel's last launch. `launches` and `bwd_launches` count the two
+kernels' launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -27,6 +32,7 @@ from . import _build
 
 launches = 0
 bwd_launches = 0
+plans: Dict[str, Dict[str, object]] = {}
 
 
 def fused_dynamic_filter_plain(net_conv: torch.Tensor, filt: torch.Tensor,
@@ -96,19 +102,81 @@ def fused_dynamic_filter_bwd_plain(net_conv: torch.Tensor, filt: torch.Tensor,
     return d_conv.to(net_conv.dtype), d_filt, d_rfilt
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("fused_filter")
+def _bind(lib, earlier: bool = False):
+    """Declare the C entries' argument types on a loaded library built from
+    `csrc/fused_filter.cu`: the port's or a variant, or with `earlier` a
+    source from before the wrapper planned the grids, whose forward takes
+    no `blocks` and which reports no tiling."""
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.fused_filter_launch.argtypes = [p, ctypes.c_longlong, p, p, i, i, i,
-                                        i, i, i, i, ctypes.c_float, p, p, p]
+    lib.fused_filter_launch.argtypes = (
+        [p, ctypes.c_longlong, p, p, i, i, i, i, i, i, i, ctypes.c_float]
+        + [i] * (not earlier) + [p, p, p])
     lib.fused_filter_launch.restype = ctypes.c_int
     lib.fused_filter_bwd_launch.argtypes = [
         p, ctypes.c_longlong, p, p, p, p, p, i, i, i, i, i, i, i,
         ctypes.c_float, i, p, p, p, p, p, p]
     lib.fused_filter_bwd_launch.restype = ctypes.c_int
+    if not earlier:
+        lib.fused_filter_tiling.argtypes = [i, i, i, p]
+        lib.fused_filter_tiling.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return _bind(_build.load("fused_filter"))
+
+
+@functools.lru_cache(maxsize=None)
+def _tiling(backward: bool, c: int, is_bf16: bool) -> Tuple[int, int]:
+    """(pixels a tile, blocks an SM) of the kernel the C entry takes for
+    maps of c channels, as the library reports them."""
+    out = (ctypes.c_int * 2)()
+    rc = _lib().fused_filter_tiling(int(backward), c, int(is_bf16), out)
+    if rc != 0:
+        raise ValueError(f"fused_dynamic_filter: unsupported C={c} for "
+                         f"{'bfloat16' if is_bf16 else 'float32'}")
+    return out[0], out[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tile_plan(e: int, h: int, w: int, tile_pixels: int, blocks_per_sm: int,
+              sms: int) -> Dict[str, object]:
+    """How a kernel walking tiles of `tile_pixels` pixels covers an (e, h,
+    w) map: each expression's tiles split into runs of `tiles_per_block`
+    consecutive tiles, one persistent block a run, on a grid of
+    (blocks_per_expr, e) blocks: `blocks_per_sm` blocks an SM, in one wave
+    while e <= blocks_per_sm * sms. Block b of expression i covers pixels
+    [b * tiles_per_block * tile_pixels, ...) up to the next block's first
+    pixel or h * w. The backward writes one (c, k) d_filt partial and k
+    d_rfilt partials a block, (e, blocks_per_expr, c, k) and (e,
+    blocks_per_expr, k) in all, summed in block order by its second
+    kernel."""
+    tiles = -(-(h * w) // tile_pixels)
+    blocks = max(1, min(tiles, blocks_per_sm * sms // e))
+    per_block = -(-tiles // blocks)
+    blocks = -(-tiles // per_block)                 # no block left empty
+    return {"tile_pixels": tile_pixels, "tiles_per_expr": tiles,
+            "tiles_per_block": per_block, "blocks_per_expr": blocks,
+            "grid": (blocks, e)}
+
+
+def launch_plan(kernel: str, net_conv: torch.Tensor) -> Dict[str, object]:
+    """The plan `kernel` ("forward" or "backward") is launched with for
+    the CUDA map `net_conv` on its card. Raises ValueError for a shape or
+    C the kernels do not take; the launch checks the rest."""
+    if net_conv.dim() != 4:
+        raise ValueError("fused_dynamic_filter: net_conv must be (E, H, W, "
+                         "C)")
+    e, h, w, c = net_conv.shape
+    tp, per_sm = _tiling(kernel == "backward", c,
+                         net_conv.dtype == torch.bfloat16)
+    return tile_plan(e, h, w, tp, per_sm, _sms(net_conv.device.index))
 
 
 def _check_inputs(net_conv, filt, rfilt, num_filters, gate, what):
@@ -151,6 +219,18 @@ def _forward(net_conv, filt, rfilt, num_filters, gate, normalize):
     if net_conv.device.type != "cuda":
         raise ValueError(f"fused_dynamic_filter: unsupported device "
                          f"{net_conv.device}")
+    plan = launch_plan("forward", net_conv)
+    out = _launch_forward(_lib(), plan["blocks_per_expr"], net_conv, filt,
+                          rfilt, num_filters, gate, normalize)
+    plans["forward"] = plan
+    return out
+
+
+def _launch_forward(lib, blocks, net_conv, filt, rfilt, num_filters, gate,
+                    normalize):
+    """Check CUDA inputs and launch `lib`'s forward with `blocks` blocks
+    per expression on the current stream (`blocks` None: an earlier
+    source's entry, which planned its own grid)."""
     s0 = _check_inputs(net_conv, filt, rfilt, num_filters, gate,
                        "fused_dynamic_filter")
     e, h, w, c = net_conv.shape
@@ -161,10 +241,11 @@ def _forward(net_conv, filt, rfilt, num_filters, gate, normalize):
                        device=net_conv.device)
     scale = 1.0 / (c ** 0.5) if normalize else 1.0
     stream = torch.cuda.current_stream(net_conv.device).cuda_stream
-    rc = _lib().fused_filter_launch(
+    rc = lib.fused_filter_launch(
         net_conv.data_ptr(), s0, filt.data_ptr(), rfilt.data_ptr(), e, h, w,
         c, k, int(net_conv.dtype == torch.bfloat16), int(gate == "sigmoid"),
-        scale, gated.data_ptr(), resp.data_ptr(), stream)
+        scale, *(() if blocks is None else (blocks,)), gated.data_ptr(),
+        resp.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_filter kernel launch failed: cudaError "
                            f"{rc}")
@@ -192,6 +273,18 @@ def fused_dynamic_filter_bwd(net_conv: torch.Tensor, filt: torch.Tensor,
     if net_conv.device.type != "cuda":
         raise ValueError(f"fused_dynamic_filter_bwd: unsupported device "
                          f"{net_conv.device}")
+    plan = launch_plan("backward", net_conv)
+    out = _launch_backward(_lib(), plan["blocks_per_expr"], net_conv, filt,
+                           rfilt, fused, d_gated, d_resp, num_filters, gate,
+                           normalize)
+    plans["backward"] = plan
+    return out
+
+
+def _launch_backward(lib, blocks, net_conv, filt, rfilt, fused, d_gated,
+                     d_resp, num_filters, gate, normalize):
+    """Check CUDA inputs and launch `lib`'s backward with `blocks` blocks
+    per expression (and its reduction) on the current stream."""
     s0 = _check_inputs(net_conv, filt, rfilt, num_filters, gate,
                        "fused_dynamic_filter_bwd")
     e, h, w, c = net_conv.shape
@@ -207,27 +300,20 @@ def fused_dynamic_filter_bwd(net_conv: torch.Tensor, filt: torch.Tensor,
                 or not t.is_contiguous() or t.device != net_conv.device):
             raise ValueError(f"fused_dynamic_filter_bwd: {name} must be a "
                              f"contiguous float32 {(e, h, w, 1)}")
-    # pixel tiles per expression: about two blocks per SM over the grid;
-    # each tile's partial d_filt / d_rfilt goes to scratch, and a second
-    # kernel sums the tiles in a fixed order (deterministic, no atomics)
-    sms = torch.cuda.get_device_properties(net_conv.device
-                                           ).multi_processor_count
-    tiles = max(1, min(-(-2 * sms // e), h * w))
     dev = net_conv.device
     d_conv = torch.empty((e, h, w, c), dtype=net_conv.dtype, device=dev)
     d_filt = torch.empty((e, c, k), dtype=torch.float32, device=dev)
     d_rfilt = torch.empty((e, k), dtype=torch.float32, device=dev)
-    filt_part = torch.empty((e * tiles * c * k,), dtype=torch.float32,
+    filt_part = torch.empty((e, blocks, c, k), dtype=torch.float32,
                             device=dev)
-    rfilt_part = torch.empty((e * tiles * k,), dtype=torch.float32,
-                             device=dev)
+    rfilt_part = torch.empty((e, blocks, k), dtype=torch.float32, device=dev)
     scale = 1.0 / (c ** 0.5) if normalize else 1.0
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().fused_filter_bwd_launch(
+    rc = lib.fused_filter_bwd_launch(
         net_conv.data_ptr(), s0, d_gated.data_ptr(), filt.data_ptr(),
         rfilt.data_ptr(), fused.data_ptr(), d_resp.data_ptr(), e, h, w, c, k,
         int(net_conv.dtype == torch.bfloat16), int(gate == "sigmoid"), scale,
-        tiles, filt_part.data_ptr(), rfilt_part.data_ptr(), d_conv.data_ptr(),
+        blocks, filt_part.data_ptr(), rfilt_part.data_ptr(), d_conv.data_ptr(),
         d_filt.data_ptr(), d_rfilt.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_filter backward kernel launch failed: "

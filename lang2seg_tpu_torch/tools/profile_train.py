@@ -32,7 +32,7 @@ from ..ops import nms_cuda, proposals
 from .profile_nms import device_ms, lane_stats, phase_cycles
 
 # the port's own kernels, by the names nvcc gives them
-HAND_KERNELS = ("nms_", "fused_filter_kernel", "fused_filter_bwd_")
+HAND_KERNELS = ("nms_", "fused_filter_mma_kernel", "fused_filter_bwd_")
 
 
 def staged_step(state, batch, generator):

@@ -164,6 +164,108 @@ def test_gate_bwd_kernel_matches_plain(dev, dtype, k, gate, normalize, c):
         assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# (dtype, C) the kernels take at the edges of their tiling: a tile is 16 KB
+# of map, 8 pixels of bf16 C = 1024 up to 32 of bf16 256 or f32 128
+TILE_EDGE_MAPS = [(torch.bfloat16, 256), (torch.bfloat16, 512),
+                  (torch.bfloat16, 1024), (torch.float32, 128),
+                  (torch.float32, 1024)]
+
+
+@pytest.mark.parametrize("maps", ["broadcast", "gathered"])
+@pytest.mark.parametrize("e,h,w", [(1, 9, 20), (17, 9, 20), (2, 40, 64)])
+@pytest.mark.parametrize("dtype,c", TILE_EDGE_MAPS,
+                         ids=[f"{str(d)[6:]}-{c}" for d, c in TILE_EDGE_MAPS])
+def test_gate_kernels_at_tile_edges(dev, dtype, c, e, h, w, maps):
+    """Forward and backward at shapes that end mid-tile (9 x 20 = 180
+    pixels), with 1 and 17 expressions (a grid of 1 to 15 blocks an
+    expression), through a stride-0 map and a gathered one; the backward
+    twice, for the same bits. The response is held within 1e-5 of its max
+    as well as 1e-3: the bf16 forward's filter split in a hi and a lo
+    bf16 part keeps it near f32, where a one-pass bf16 product would not."""
+    g = torch.Generator().manual_seed(c + e)
+    k = 7
+    img = torch.randn((2, h, w, c), generator=g).to(dev, dtype)
+    conv = (img[:1].expand(e, h, w, c) if maps == "broadcast" else
+            img[torch.arange(e, device=dev) % 2])
+    filt = torch.tanh(torch.randn((e, c, k), generator=g)).to(dev)
+    rfilt = torch.tanh(torch.randn((e, k), generator=g)).to(dev)
+    d_gated = torch.randn((e, h, w, c), generator=g).to(dev, dtype)
+    d_resp = torch.randn((e, h, w, 1), generator=g).to(dev)
+    gk, rk = fused_filter.fused_dynamic_filter(conv, filt, rfilt, k,
+                                               "sigmoid", True)
+    gp, rp = fused_dynamic_filter_plain(conv, filt, rfilt, k, "sigmoid", True)
+    assert float((rk - rp).abs().max()) <= 1e-3 * float(rp.abs().max())
+    assert float((rk - rp).abs().max()) <= 1e-5 * float(rp.abs().max())
+    want = (conv.float() * torch.sigmoid(rk)).to(dtype).float()
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    assert bool(((gk.float() - want).abs() <= ulp * want.abs() + 1e-30).all())
+    args = (conv, filt, rfilt, rp, d_gated, d_resp, k, "sigmoid", True)
+    got = fused_filter.fused_dynamic_filter_bwd(*args)
+    want = fused_dynamic_filter_bwd_plain(*args)
+    if dtype == torch.bfloat16:
+        assert float(bf16_ulps_floored(got[0], want[0])) <= 2.0
+    else:
+        assert float((got[0] - want[0]).abs().max()) <= \
+            1e-5 * float(want[0].abs().max())
+    for a, b in zip(got[1:], want[1:]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    again = fused_filter.fused_dynamic_filter_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,c", TILE_EDGE_MAPS,
+                         ids=[f"{str(d)[6:]}-{c}" for d, c in TILE_EDGE_MAPS])
+def test_gate_plans_match_the_kernels(dev, dtype, c):
+    """The tiling each kernel reports (a backward tile is 16 KB of each
+    map) gives the flagship plan PERF.md states at C = 1024 bf16 on 132
+    SMs; and the backward writes exactly the (e, blocks, c, k) d_filt and
+    (e, blocks, k) d_rfilt partials of its plan: its scratch, taken from a
+    NaN-filled buffer with a guard after it, is finite and the guard
+    untouched."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    tp, per_sm = fused_filter._tiling(True, c, dtype == torch.bfloat16)
+    assert tp * c * elem == 16384 and per_sm == 2
+    if dtype == torch.bfloat16 and c == 1024:
+        bwd = fused_filter.tile_plan(16, 40, 64, tp, per_sm, 132)
+        fwd = fused_filter.tile_plan(
+            16, 40, 64, *fused_filter._tiling(False, c, True), 132)
+        assert (tp, bwd["tiles_per_block"], bwd["grid"]) == (8, 20, (16, 16))
+        assert (fwd["tile_pixels"], fwd["tiles_per_block"], fwd["grid"]) == \
+            (16, 10, (16, 16))
+    g = torch.Generator().manual_seed(c)
+    e, h, w, k = 17, 9, 20, 7
+    conv = torch.randn((e, h, w, c), generator=g).to(dev, dtype)
+    filt = torch.tanh(torch.randn((e, c, k), generator=g)).to(dev)
+    rfilt = torch.tanh(torch.randn((e, k), generator=g)).to(dev)
+    d_gated = torch.randn((e, h, w, c), generator=g).to(dev, dtype)
+    d_resp = torch.randn((e, h, w, 1), generator=g).to(dev)
+    _, fused = fused_filter.fused_dynamic_filter(conv, filt, rfilt, k)
+    plan = fused_filter.launch_plan("backward", conv)
+    assert fused_filter.plans["forward"] == \
+        fused_filter.launch_plan("forward", conv)
+    blocks = plan["blocks_per_expr"]
+    guard = 4096
+    fpart = torch.full((e * blocks * c * k + guard,), float("nan"), device=dev)
+    rpart = torch.full((e * blocks * k + guard,), float("nan"), device=dev)
+    out = [torch.empty_like(conv), torch.empty((e, c, k), device=dev),
+           torch.empty((e, k), device=dev)]
+    rc = fused_filter._lib().fused_filter_bwd_launch(
+        conv.data_ptr(), conv.stride(0), d_gated.data_ptr(), filt.data_ptr(),
+        rfilt.data_ptr(), fused.data_ptr(), d_resp.data_ptr(), e, h, w, c, k,
+        int(dtype == torch.bfloat16), 1, 1.0, blocks, fpart.data_ptr(),
+        rpart.data_ptr(), *(t.data_ptr() for t in out),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    for part, n in ((fpart, e * blocks * c * k), (rpart, e * blocks * k)):
+        assert bool(torch.isfinite(part[:n]).all())
+        assert bool(torch.isnan(part[n:]).all())
+    want = fused_dynamic_filter_bwd_plain(conv, filt, rfilt, fused, d_gated,
+                                          d_resp, k, "sigmoid", False)
+    for a, b in zip(out[1:], want[1:]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
 def test_gate_autograd_launches_both_kernels(dev):
     g = torch.Generator().manual_seed(0)
     e, h, w, c = 3, 8, 16, 512

@@ -169,6 +169,48 @@ def test_wrapper_takes_plain_path_on_cpu(rng):
         fused_filter.fused_dynamic_filter(*(a.to("meta") for a in args))
 
 
+# (e, h, w): the flagship map, maps that end mid-tile, one and 17
+# expressions, more expressions than two an SM, a single pixel
+PLAN_SHAPES = [(16, 40, 64), (1, 9, 20), (17, 9, 20), (3, 9, 20),
+               (1, 40, 64), (300, 8, 8), (2, 1, 1)]
+
+
+def _plan_pixels(plan, h, w):
+    """The pixel ranges each block of one expression covers, as the
+    kernels walk them: block b takes tiles [b * tiles_per_block, ...)."""
+    npix, tp, per = h * w, plan["tile_pixels"], plan["tiles_per_block"]
+    return [range(min(b * per * tp, npix), min((b + 1) * per * tp, npix))
+            for b in range(plan["blocks_per_expr"])]
+
+
+# pixels a tile of the kernels the card runs at C = 1024: 8 (bf16
+# backward), 16 (bf16 forward), 32 (f32 forward at C = 256)
+@pytest.mark.parametrize("tile_pixels", [8, 16, 32])
+@pytest.mark.parametrize("e,h,w", PLAN_SHAPES)
+def test_tile_plan_covers_every_pixel_once(e, h, w, tile_pixels):
+    plan = fused_filter.tile_plan(e, h, w, tile_pixels, 2, 132)
+    ranges = _plan_pixels(plan, h, w)
+    covered = np.zeros(h * w, int)
+    for r in ranges:
+        assert len(r) > 0                      # no block left empty
+        covered[r.start:r.stop] += 1
+    assert (covered == 1).all()
+    assert plan["grid"] == (plan["blocks_per_expr"], e)
+    assert plan["tiles_per_expr"] * tile_pixels >= h * w
+    # one wave of two blocks an SM whenever the expressions allow it
+    assert e * plan["blocks_per_expr"] <= max(2 * 132, e)
+
+
+def test_tile_plan_at_the_flagship_shape():
+    """(16, 40, 64, 1024) bf16 on an H100's 132 SMs, as PERF.md states:
+    256 blocks, one wave of two an SM; the backward walks 20 tiles of 8
+    pixels a block, the forward 10 tiles of 16."""
+    bwd = fused_filter.tile_plan(16, 40, 64, 8, 2, 132)
+    fwd = fused_filter.tile_plan(16, 40, 64, 16, 2, 132)
+    assert (bwd["tiles_per_block"], bwd["grid"]) == (20, (16, 16))
+    assert (fwd["tiles_per_block"], fwd["grid"]) == (10, (16, 16))
+
+
 def _cotangents(rng, net_conv):
     return (rng.randn(*net_conv.shape).astype(np.float32),
             rng.randn(*net_conv.shape[:3], 1).astype(np.float32))
