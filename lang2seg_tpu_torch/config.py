@@ -301,10 +301,11 @@ VARIANTS = ("baseline", "spatial", "response", "vgg", "cycle",
 
 def apply_variant(cfg: Config, variant: str) -> Config:
     """Named presets of the reference's per-variant entry points
-    (tools/train_*.py). The port serves `response`; the other presets
-    set their fields the same way, for configs shared with the JAX
-    package, but their paths (VGG, captioner, no-language) are not
-    ported yet and the model raises for them."""
+    (tools/train_*.py). The port trains and serves `baseline`, `spatial`,
+    `response`, `cycle` and `cycle_response`; the other presets set their
+    fields the same way, for configs shared with the JAX package, but
+    their paths (VGG, no-language) are not ported yet and the model
+    raises for them."""
     m, t = cfg.model, cfg.train
     if variant == "baseline":
         m.num_filters = 1
@@ -347,11 +348,14 @@ def apply_variant(cfg: Config, variant: str) -> Config:
     return cfg
 
 
-def flagship_config() -> Config:
+def flagship_config(variant: str = "response") -> Config:
     """The `response` variant at full width: ResNet-101-C4 in bf16, bi-LSTM
     512 per direction, 7 spatial filters with a sigmoid gate and the
-    1/sqrt(C) response normalization, on the 640x1024 canvas."""
-    cfg = apply_variant(Config(), "response")
+    1/sqrt(C) response normalization, on the 640x1024 canvas. Another
+    `variant` gives that preset at the same width with the normalization,
+    as the JAX package's experiments/bench_variants.py builds it (e.g.
+    `cycle_response`, the paper's full model)."""
+    cfg = apply_variant(Config(), variant)
     cfg.model.backbone = "resnet101"
     cfg.model.normalize_response = True
     return cfg

@@ -8,6 +8,11 @@ Counterpart of `lang2seg_tpu/engine/optimizer.py::build_optimizer`
     `dynamic_fc*`, `response_fc`) get `lang_lr_mult` x LR;
   * biases get LR x (1 + double_bias) and no weight decay unless
     bias_decay; everything else the base LR and `weight_decay`.
+    A bias is what the JAX tree names `bias*`: the captioner keeps most
+    of its biases as raw params named `*_b` (`logit_b`, `a2c_b`, ...),
+    which JAX counts as weights, so their reference layers' `.bias`
+    entries (`CAPTIONER_RAW_BIASES`) are weights here too; the
+    captioner's `fc_embed`, `att_embed` and `ctx2att` biases are biases.
 
 The JAX chain is clip_by_global_norm (when grad_clip_norm > 0), then
 add_decayed_weights, trace (momentum), the group multiplier and the LR.
@@ -28,8 +33,16 @@ from ..config import Config
 _LANG_PREFIXES = ("rnn_encoder.", "dynamic_fc", "response_fc.")
 
 
+# captioner biases that the JAX tree holds as raw `*_b` params
+CAPTIONER_RAW_BIASES = tuple(
+    f"caption_model.{layer}.bias" for layer in (
+        "logit", "core.i2h", "core.h2h", "core.a2c", "core.attention.h2att",
+        "core.attention.alpha_net"))
+
+
 def _is_bias(name: str) -> bool:
-    return name.rsplit(".", 1)[-1].startswith("bias")
+    return (name.rsplit(".", 1)[-1].startswith("bias")
+            and name not in CAPTIONER_RAW_BIASES)
 
 
 def param_groups(model: nn.Module, cfg: Config) -> List[Dict]:

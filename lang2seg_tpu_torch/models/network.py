@@ -13,9 +13,11 @@ JAX params tree.
 
 Ported: ResNet backbones, the language path, `num_filters` 1 or 7, both
 gates, test mode 'nms', pooling mode 'crop', the detection, mask and
-response losses. The rest (VGG, MobileNet, no-language mode, 'top'
-proposals, 'pool' crops, captioner and attribute losses, `expr_uid` key
-folding) raises NotImplementedError here.
+response losses, and the caption-consistency loss of the `cycle` and
+`cycle_response` variants (the att2in2 captioner, `caption_model.*`). The
+rest (VGG, MobileNet, no-language mode, 'top' proposals, 'pool' crops,
+the attribute head, `expr_uid` key folding) raises NotImplementedError
+here.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
@@ -31,6 +34,7 @@ from ..ops.anchors import shifted_anchors
 from ..ops.proposals import proposal_layer
 from ..ops.roi_align import roi_crop_pool
 from ..ops.targets import anchor_targets, proposal_targets
+from .caption_zoo import setup_captioner
 from .dynamic_filter import DynamicFilterGen
 from .heads import BoxHead, MaskHead, RPNHead
 from .lang_encoder import RNNEncoder
@@ -92,8 +96,8 @@ class Lang2Seg(nn.Module):
             raise NotImplementedError(f"backbone {m.backbone!r} is not ported")
         if not m.use_language:
             raise NotImplementedError("no-language mode is not ported")
-        if m.use_caption_loss or m.use_attribute_head:
-            raise NotImplementedError("captioner / attribute head not ported")
+        if m.use_attribute_head:
+            raise NotImplementedError("the attribute head is not ported")
         self.compute_dtype = (torch.bfloat16 if m.compute_dtype == "bfloat16"
                               else torch.float32)
         self.resnet = ResNetC4(m.backbone, self.compute_dtype)
@@ -113,6 +117,8 @@ class Lang2Seg(nn.Module):
         self._set_head("box_head", BoxHead(2048, m.num_classes))
         if m.use_mask_head:
             self._set_head("mask_head", MaskHead(2048, m.num_classes))
+        if m.use_caption_loss:
+            self.caption_model = setup_captioner(m)
 
     def _set_head(self, name: str, head: nn.Module) -> None:
         for child_name, child in head.named_children():
@@ -142,6 +148,24 @@ class Lang2Seg(nn.Module):
         fc7 = self.resnet.tail(crops.reshape(e * r, *crops.shape[2:]))
         return fc7.reshape(e, r, *fc7.shape[1:])
 
+    def _gt_masks(self, gt_masks: torch.Tensor, canvas_w: int
+                  ) -> torch.Tensor:
+        """(E, M, Hc, Wc) uint8 {0, 1} GT masks from the batch's (E, M, ...)
+        or (E, ...) masks, bit-packed along the width when
+        cfg.data.wire_packed_masks and the width is canvas_w / 8."""
+        if gt_masks.dim() == 3:
+            gt_masks = gt_masks[:, None]
+        if self.cfg.data.wire_packed_masks and \
+                gt_masks.shape[-1] * 8 == canvas_w:
+            return unpack_mask_bits(gt_masks)
+        if gt_masks.shape[-1] != canvas_w:
+            raise ValueError(
+                f"gt_masks width {gt_masks.shape[-1]} is neither the canvas "
+                f"width {canvas_w} nor its bit-packed form (with "
+                f"cfg.data.wire_packed_masks="
+                f"{self.cfg.data.wire_packed_masks})")
+        return gt_masks
+
     def _images(self, images: torch.Tensor) -> torch.Tensor:
         if images.dtype == torch.uint8:
             # uint8 wire format: raw BGR, mean subtraction on the device
@@ -169,12 +193,17 @@ class Lang2Seg(nn.Module):
           gt_masks (E, M, Hc, Wc) uint8 {0, 1} canvas masks (or (E, Hc,
                    Wc)), or bit-packed along the width when
                    cfg.data.wire_packed_masks and Hc x Wc / 8
+          cap_labels (E, T') int BOS/EOS-framed caption tokens and
+          cap_masks  (E, T') f32 (`data/loader.py::caption_targets`),
+                   with cfg.model.use_caption_loss
         `targets` injects (AnchorTargets, ProposalTargets), either of them
         None to compute it, as the JAX package's train_forward does.
-        `generator` draws the word-dropout mask, then the anchor and ROI
-        sampling priorities, in that order. Returns the loss dict with
-        `total_loss`, all scalars on the device."""
-        cfg, m, t = self.cfg, self.cfg.model, self.cfg.train
+        `generator` draws, in this order: the word-dropout mask, the anchor
+        sampling priorities, the ROI sampling priorities, then the
+        captioner's dropout masks (and its scheduled-sampling draws).
+        Returns the loss dict with `total_loss`, all scalars on the
+        device."""
+        m, t = self.cfg.model, self.cfg.train
         if "expr_uid" in batch:
             raise NotImplementedError(
                 "expr_uid key folding is not ported (it comes with data "
@@ -185,17 +214,7 @@ class Lang2Seg(nn.Module):
         gt_boxes = batch["gt_boxes"].float()
         if gt_boxes.dim() == 2:
             gt_boxes = gt_boxes[:, None, :]
-        gt_masks = batch["gt_masks"]
-        if gt_masks.dim() == 3:
-            gt_masks = gt_masks[:, None]
-        if cfg.data.wire_packed_masks and \
-                gt_masks.shape[-1] * 8 == images.shape[2]:
-            gt_masks = unpack_mask_bits(gt_masks)
-        elif gt_masks.shape[-1] != images.shape[2]:
-            raise ValueError(
-                f"gt_masks width {gt_masks.shape[-1]} is neither the canvas "
-                f"width {images.shape[2]} nor its bit-packed form (with "
-                f"cfg.data.wire_packed_masks={cfg.data.wire_packed_masks})")
+        gt_masks = self._gt_masks(batch["gt_masks"], images.shape[2])
         gt_valid = batch.get("gt_valid")
         if gt_valid is None:
             gt_valid = torch.ones(gt_boxes.shape[:2], dtype=torch.bool,
@@ -292,8 +311,49 @@ class Lang2Seg(nn.Module):
                                        / torch.clamp(torch.sum(vmask),
                                                      min=1.0))
 
+        # ---- caption (cycle-consistency) loss ----
+        if m.use_caption_loss:
+            losses["loss_caption"] = m.cap_loss_weight * self._caption_loss(
+                net_conv, gated, batch, gt_masks, generator)
+
         losses["total_loss"] = sum(losses.values())
         return losses
+
+    def gt_masked_map(self, net_conv: torch.Tensor, gt_masks: torch.Tensor
+                      ) -> torch.Tensor:
+        """net_conv (E, h, w, C) times each expression's GT mask (E, M, Hc,
+        Wc), stride-centre sampled and thresholded at 0.5: the region
+        features of the 'res5_2' pairing."""
+        _, h, w, _ = net_conv.shape
+        mk = response_target(gt_masks[:, 0], self.cfg.model.feat_stride, h, w)
+        return net_conv * (mk >= 0.5).to(net_conv.dtype)[..., None]
+
+    def caption_features(self, feats_a: torch.Tensor, feats_b: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The captioner's inputs from two (E, h, w, C) maps, each through
+        the layer4 tail at full size: fc (E, 2 * 2048), the spatial means
+        concatenated, and att (E, 196, 2 * 2048), each 14 x 14 adaptive
+        pool concatenated; both f32."""
+        fc5a = self.resnet.tail(feats_a)                      # (E, h, w, 2048)
+        fc5b = self.resnet.tail(feats_b)
+        fc = torch.cat([fc5a.mean(dim=(1, 2)), fc5b.mean(dim=(1, 2))], -1)
+        att = torch.cat([_adaptive_pool(fc5a, 14),
+                         _adaptive_pool(fc5b, 14)], -1)
+        return fc.float(), att.reshape(att.shape[0], 196, -1).float()
+
+    def _caption_loss(self, net_conv, gated, batch, gt_masks, generator):
+        """Cycle consistency: the att2in2 captioner must reconstruct the
+        expression from region features. `response_gate == 'sigmoid'`
+        pairs the map before and after the gate (network_cycle_response.py:
+        424-453), otherwise the whole map and its GT-masked copy
+        (network_cycle_res5_2.py:415-448)."""
+        if self.cfg.model.response_gate == "sigmoid":
+            feats_b = gated
+        else:
+            feats_b = self.gt_masked_map(net_conv, gt_masks)
+        fc, att = self.caption_features(net_conv, feats_b)
+        return self.caption_model.teacher_forced_nll(
+            fc, att, batch["cap_labels"], batch["cap_masks"], generator)
 
     # ---------- inference ----------
 
@@ -355,6 +415,14 @@ class Lang2Seg(nn.Module):
         sel = self.mask_head(fc7.reshape(e * b, *fc7.shape[2:]),
                              labels=labels.reshape(e * b))
         return torch.sigmoid(sel.reshape(e, b, s, s))
+
+
+def _adaptive_pool(x: torch.Tensor, out: int) -> torch.Tensor:
+    """torch adaptive_avg_pool2d on NHWC (B, H, W, C) -> (B, out, out, C):
+    bin i covers [floor(i * H / out), ceil((i + 1) * H / out)), as the JAX
+    package's `_adaptive_pool` pools."""
+    y = F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), out)
+    return y.permute(0, 2, 3, 1)
 
 
 def build_model(cfg: Config, device="cuda", state_dict=None,

@@ -1,12 +1,18 @@
 """Where a training step's time goes on the card.
 
     python -m lang2seg_tpu_torch.tools.profile_train [--expressions 16]
+        [--variant response]
 
-Builds the flagship `response` model for training at full width (random
-weights from a seed, the config's SGD groups, 2 images per step as the
-JAX bench runs it), takes two warm-up steps, then times one step in
-three stages with CUDA events (`train_forward` with its losses, the
-backward, clipping and the SGD update), and profiles one more step with
+Builds the `variant` preset for training at full width
+(`config.flagship_config(variant)`: random weights from a seed, the
+config's SGD groups, 2 images per step as the JAX bench runs it), takes
+two warm-up steps, then times one step in three stages with CUDA events
+(`train_forward` with its losses, the backward, clipping and the SGD
+update). With the caption loss (`cycle`, `cycle_response`) the caption
+branch is then timed alone on that step's own inputs, in four stages:
+layer4 on both full maps with the pools, the captioner's teacher-forced
+loop, its backward, and the backward through layer4. It profiles one
+more step with
 `torch.profiler`: the device's busy time against the host window, the
 time of the port's three hand kernels, and the twelve largest
 device-time entries. A last step records its NMS input: per lane the
@@ -57,6 +63,46 @@ def staged_step(state, batch, generator):
             for (_, a), (name, b) in zip(marks, marks[1:])}
 
 
+def caption_stages(model, batch, generator):
+    """The caption branch of `train_forward` alone, on a step's inputs
+    (the gathered C4 map and the gate's output, computed first without a
+    graph), its four stages timed with CUDA events."""
+    with torch.no_grad():
+        images = model._images(batch["images"])
+        net_conv = model.resnet.head(images).index_select(
+            0, batch["img_idx"].long())
+        gated, _ = model._condition(net_conv, batch["labels"], generator)
+        gt_masks = model._gt_masks(batch["gt_masks"], images.shape[2])
+    net_conv.requires_grad_(True)
+    gated.requires_grad_(True)
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    mark("start")
+    feats_b = (gated if model.cfg.model.response_gate == "sigmoid"
+               else model.gt_masked_map(net_conv, gt_masks))
+    fc, att = model.caption_features(net_conv, feats_b)
+    mark("caption_tail_forward")
+    fc_in = fc.detach().requires_grad_(True)
+    att_in = att.detach().requires_grad_(True)
+    nll = model.caption_model.teacher_forced_nll(
+        fc_in, att_in, batch["cap_labels"], batch["cap_masks"], generator)
+    mark("captioner_forward")
+    nll.backward()
+    mark("captioner_backward")
+    # att2in2 never reads its fc features: only att carries a gradient
+    torch.autograd.backward(att, att_in.grad)
+    mark("caption_tail_backward")
+    torch.cuda.synchronize()
+    model.zero_grad(set_to_none=True)
+    return {name: a.elapsed_time(b)
+            for (_, a), (name, b) in zip(marks, marks[1:])}
+
+
 def _device_us(evt):
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0))
@@ -66,6 +112,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--expressions", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--variant", default="response")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -74,7 +121,7 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    cfg = flagship_config()
+    cfg = flagship_config(args.variant)
     state = create_train_state(cfg, device="cuda", seed=args.seed)
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
     batches = [to_device(to_wire(cfg, synthetic_batch(
@@ -86,6 +133,17 @@ def main(argv=None):
     total = sum(stages.values())
     for k, v in stages.items():
         print(f"[stage] {k:20s} {v:9.3f} ms  {100 * v / total:5.1f}%")
+    caption = {}
+    if cfg.model.use_caption_loss:
+        caption_stages(state.model, batches[2], gen)      # warm-up
+        caption = caption_stages(state.model, batches[2], gen)
+        for k, v in caption.items():
+            print(f"[caption] {k:22s} {v:9.3f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    train_step(state, batches[2], gen)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[memory] peak {peak_gib:.2f} GiB in a step")
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -135,8 +193,9 @@ def main(argv=None):
     print(f"[nms] ({e}, {n})->{max_out} in a step: kept/lane {kept}; last "
           f"examined/lane {last}; kernel alone {nms_ms:.4f} ms; cycles a "
           f"tile {cycles}")
-    print(json.dumps({"device": smi, "images": 2,
+    print(json.dumps({"device": smi, "variant": args.variant, "images": 2,
                       "expressions": args.expressions, "stages_ms": stages,
+                      "caption_stages_ms": caption, "peak_gib": peak_gib,
                       "window_ms": window_ms, "device_busy_ms": busy_ms,
                       "hand_kernels_ms": hand,
                       "nms_kept_per_lane": kept,

@@ -9,13 +9,15 @@ what `models.network.Lang2Seg` holds:
   init_params` (the flax defaults): lecun-normal (truncated) convs and
   Dense layers, normal(0.01) RPN/cls/mask heads, normal(0.001) box
   deltas, normal(1/sqrt(D)) embeddings, uniform [0, 1/sqrt(H)) LSTM
-  weights, zero biases and identity frozen BatchNorm.
+  weights, zero biases and identity frozen BatchNorm; the captioner's
+  word embedding normal(0.01), its other matrices lecun-normal.
 * `from_jax_params(params, cfg)` converts a JAX params tree (nested
   dicts of numpy arrays) into that state_dict: the inverse of the JAX
   package's `engine/convert.py::convert_torch_state_dict` (conv
   HWIO -> OIHW, Dense (I, O) -> (O, I), the RPN class-major channel
   order, the fused `dynamic_fc` split into `dynamic_fc_0..6`, the
-  flipped ConvTranspose kernel, the LSTM's transposed gate matrices).
+  flipped ConvTranspose kernel, the LSTM's transposed gate matrices, the
+  captioner's raw `*_w` / `*_b` params back to its reference layers).
 """
 
 from __future__ import annotations
@@ -72,19 +74,38 @@ def _initializer(key: str, cfg: Config):
         bound = 1.0 / math.sqrt(cfg.model.rnn_hidden_size)
         return lambda shape, g: torch.empty(shape).uniform_(
             0.0, bound, generator=g)
+    if key == "caption_model.embed.0.weight":
+        return _normal(0.01)
     if key.startswith(("rpn_", "cls_score_net", "mask_")):
         return _normal(0.01)
     if key.startswith("bbox_pred_net"):
         return _normal(0.001)
-    return _lecun_normal                     # mlp, dynamic_fc*, response_fc
+    return _lecun_normal       # mlp, dynamic_fc*, response_fc, captioner
+
+
+def _draw(shapes: Dict[str, Tuple[int, ...]], cfg: Config, seed: int
+          ) -> Dict[str, torch.Tensor]:
+    g = torch.Generator().manual_seed(seed)
+    return OrderedDict((k, _initializer(k, cfg)(shape, g).float())
+                       for k, shape in shapes.items())
 
 
 def init_params(cfg: Config, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Full state_dict for `Lang2Seg(cfg)`, on the CPU, drawn from
     torch.Generator(seed) in the module's key order."""
-    g = torch.Generator().manual_seed(seed)
-    return OrderedDict((k, _initializer(k, cfg)(shape, g).float())
-                       for k, shape in state_dict_shapes(cfg).items())
+    return _draw(state_dict_shapes(cfg), cfg, seed)
+
+
+def init_captioner_params(cfg: Config, seed: int = 0
+                          ) -> Dict[str, torch.Tensor]:
+    """The `caption_model.*` entries of a state_dict for the captioner of
+    cfg.model alone (captioner pretraining), drawn as init_params draws
+    them, from torch.Generator(seed) in the module's key order."""
+    from .models.caption_zoo import setup_captioner
+    with torch.device("meta"):
+        sd = setup_captioner(cfg.model).state_dict()
+    return _draw({f"caption_model.{k}": tuple(v.shape) for k, v in sd.items()},
+                 cfg, seed)
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +206,21 @@ def _heads(out, params):
         out["mask_pred_net.bias"] = _t(mh["mask_pred"]["bias"])
 
 
+def _captioner(out, p):
+    pre = "caption_model."
+    out[pre + "embed.0.weight"] = _t(p["embed_w"])
+    for layer in ("fc_embed", "att_embed", "ctx2att"):
+        name = pre + layer + (".0" if layer.endswith("embed") else "")
+        out[f"{name}.weight"] = _lin(p[layer]["kernel"])
+        out[f"{name}.bias"] = _t(p[layer]["bias"])
+    for raw, layer in (("logit", "logit"), ("i2h", "core.i2h"),
+                       ("h2h", "core.h2h"), ("a2c", "core.a2c"),
+                       ("h2att", "core.attention.h2att"),
+                       ("alpha", "core.attention.alpha_net")):
+        out[f"{pre}{layer}.weight"] = _lin(p[f"{raw}_w"])
+        out[f"{pre}{layer}.bias"] = _t(p[f"{raw}_b"])
+
+
 def from_jax_params(params, cfg: Config) -> Dict[str, torch.Tensor]:
     """JAX params tree (nested dicts of arrays, as `init_params` of the
     JAX package returns after `jax.device_get`) -> the port's state_dict."""
@@ -196,6 +232,8 @@ def from_jax_params(params, cfg: Config) -> Dict[str, torch.Tensor]:
     _rpn(out, params["rpn_head"],
          len(m.anchor_scales) * len(m.anchor_ratios))
     _heads(out, params)
+    if "captioner" in params:
+        _captioner(out, params["captioner"])
     return out
 
 

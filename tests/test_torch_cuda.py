@@ -82,7 +82,9 @@ def test_nms_kernel_any_cluster_size(dev, case, cluster):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k,gate,normalize", [(7, "sigmoid", True),
-                                              (1, "multiply", False)])
+                                              (1, "multiply", False),
+                                              (7, "multiply", True),
+                                              (7, "multiply", False)])
 def test_gate_kernel_matches_plain(dev, dtype, k, gate, normalize):
     g = torch.Generator().manual_seed(k)
     e, h, w, c = 3, 9, 20, 512
@@ -123,7 +125,8 @@ def bf16_ulps_floored(got, want):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k,gate,normalize", [(7, "sigmoid", True),
                                               (1, "multiply", False),
-                                              (7, "multiply", False)])
+                                              (7, "multiply", False),
+                                              (7, "multiply", True)])
 @pytest.mark.parametrize("c", [256, 1024])
 def test_gate_bwd_kernel_matches_plain(dev, dtype, k, gate, normalize, c):
     """The backward kernel against its plain version, on a map gathered
@@ -283,3 +286,79 @@ def test_gate_autograd_launches_both_kernels(dev):
         == (1, 1)
     for t in (conv, filt, rfilt):
         assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_gate_bwd_takes_a_zero_d_resp(dev, normalize):
+    """The `cycle` step: no loss reads the response, so the backward gets
+    the zeros autograd materialises for it. The kernel's gradients against
+    the plain version's at the training map's width, bf16, K=7 multiply."""
+    g = torch.Generator().manual_seed(3)
+    e, h, w, c, k = 4, 9, 20, 1024, 7
+    img = torch.randn((2, h, w, c), generator=g).to(dev, torch.bfloat16)
+    conv = img[torch.tensor([0, 1, 1, 0], device=dev)]
+    filt = (torch.tanh(torch.randn((e, c, k), generator=g))
+            * (1.0 if normalize else 0.03)).to(dev)
+    rfilt = torch.tanh(torch.randn((e, k), generator=g)).to(dev)
+    conv.requires_grad_(True)
+    filt.requires_grad_(True)
+    rfilt.requires_grad_(True)
+    before = fused_filter.bwd_launches
+    gated, resp = fused_filter.fused_dynamic_filter(conv, filt, rfilt, k,
+                                                    "multiply", normalize)
+    d_gated = torch.randn(gated.shape, generator=g).to(dev, torch.bfloat16)
+    gated.backward(d_gated)                    # resp takes no gradient
+    assert fused_filter.bwd_launches == before + 1
+    want = fused_dynamic_filter_bwd_plain(
+        conv.detach(), filt.detach(), rfilt.detach(), resp.detach(), d_gated,
+        torch.zeros_like(resp), k, "multiply", normalize)
+    assert float(bf16_ulps_floored(conv.grad, want[0])) <= 2.0
+    for a, b in zip((filt.grad, rfilt.grad), want[1:]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("variant", ["response", "cycle", "cycle_response"])
+def test_tiny_train_step_card_vs_cpu(dev, variant):
+    """One tiny f32 step (`tools/tiny_step.py`) on the card and on the CPU
+    from the same weights, draws and injected targets: the losses within
+    1e-4 relative, the updates within 1e-3 in relative L2 norm and those
+    whose exact gradient is zero within 1e-8 in norm (chip_smoke phases 8
+    and 10); the card's step launches the gate and its backward once
+    each."""
+    from lang2seg_tpu_torch.tools.tiny_step import card_vs_cpu
+    torch.backends.cudnn.allow_tf32 = False
+    errs, launched = card_vs_cpu(variant)
+    assert launched == (0, 1, 1)
+    assert max(errs["loss_rel_err"].values()) <= 1e-4, errs["loss_rel_err"]
+    assert errs["update_rel_err_max"] <= 1e-3, errs["worst"]
+    assert not errs["moved_on_card_only"] and errs["tensors"] >= 40
+    # a zero gradient in exact arithmetic: rounding only (tiny_step)
+    assert errs["rounding_only_max"] <= 1e-8
+
+
+def test_captioner_decodes_card_vs_cpu(dev):
+    """The att2in2 captioner at full width (random weights, vocab 2000)
+    decodes the same greedy and beam-10 words on the card as on the CPU,
+    scores within 1e-3; its teacher-forced NLL within 1e-5 relative."""
+    from lang2seg_tpu_torch.config import Config
+    from lang2seg_tpu_torch.engine.train_captioner import init_captioner_state
+    cfg = Config()
+    g = torch.Generator().manual_seed(0)
+    fc = torch.randn((4, 4096), generator=g)
+    att = torch.relu(torch.randn((4, 196, 4096), generator=g))
+    seq = torch.randint(1, 2000, (4, 12), generator=g)
+    seq[:, 0] = 0
+    mask = torch.ones((4, 12))
+    out = {}
+    for d in (dev, "cpu"):
+        cap = init_captioner_state(cfg, device=d, seed=1).captioner.eval()
+        a, b = fc.to(d), att.to(d)
+        with torch.no_grad():
+            nll = cap.teacher_forced_nll(a, b, seq.to(d), mask.to(d))
+        out[str(d)] = (float(nll), *(t.cpu() for t in cap.sample_greedy(a, b)),
+                       *(t.cpu() for t in cap.sample_beam(a, b, 10)))
+    (nc, gc, lc, bc, sc), (np_, gp, lp, bp, sp) = out["cuda"], out["cpu"]
+    assert abs(nc - np_) <= 1e-5 * abs(np_)
+    assert torch.equal(gc, gp) and torch.equal(bc, bp)
+    assert float((lc - lp).abs().max()) <= 1e-3
+    assert float((sc - sp).abs().max()) <= 1e-3

@@ -189,6 +189,9 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "lang2seg_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    names = {f.name for f in files}
+    assert {"captioner.py", "caption_zoo.py", "train_captioner.py",
+            "loader.py", "tiny_step.py"} <= names
     banned = ("jax", "jaxlib", "flax", "optax", "lang2seg_tpu")
     for f in files:
         for name in _imports(f):
