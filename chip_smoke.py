@@ -70,19 +70,45 @@ Phases, each fatal on failure (nothing is caught):
      report no host sync), then greedy and beam-10 decodes: shapes,
      finite scores, words in the vocabulary (no UNK in a beam), PAD from
      the first EOS on, and the greedy log-probs and beam scores within
-     1e-3 of the decoded words rescored by teacher forcing.
+     1e-3 of the decoded words rescored by teacher forcing;
+  12. the file-backed path at full width: first NMS bit for bit against
+     its plain version at the eval sentence buckets' shapes (8, 6000) ->
+     300 and (32, 6000) -> 300, and the gate at E = 8 and 32 (stride-0
+     map) to phase 4's tolerances, each timed beside its bound with the
+     cluster size and tile plan launched; then a mini REFER split built
+     in memory (`data/fixtures.py`: 8 BGR images of 427x640 and 640x427,
+     2, 3 or 6 refs of 3 sentences an image, RLE masks) through
+     `GtBatchLoader` -> `Trainer` for the flagship `response` preset,
+     2 images x 16 expressions a step, 6 steps with snapshots every 3
+     into a temporary directory; a second `Trainer` resumed from iter_3
+     must hold the model, optimizer, generator and loader state that was
+     saved, bit for bit, and draw the uninterrupted run's 4th batch;
+     `Evaluator.eval_split` scores the val and testA images through the
+     bucketed (8, 16, 32) mask-bank wire, each image launching NMS and
+     the gate once. Printed: the loader's host ms a batch, the step ms
+     with the prefetcher against phase 7's, eval images/s by bucket;
+  13. the closed-loop learning proof (`tools/learn_synthetic.py`) at the
+     settings of tests/test_learning.py: resnet26, 128x192, f32, 1 filter,
+     sigmoid gate, response loss, 8 classes, 600 SGD steps at LR 2e-4
+     (x0.1 at 450) from scratch, scored by `eval_split` before and after:
+     untrained det acc <= 0.25, trained det acc >= 0.75, trained IoU >=
+     0.5 and at least 0.4 above the untrained one.
 Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
 shape, its launches from the runs of that shape's path: serving in phase
-5, training in phases 7 and 9; the gate's backward's from training) and,
-last, the `{"ok": true, ...}`
-line. Details go to chiprun_out/chip_smoke.json. Exits non-zero without a
-CUDA device or outside a checkout of the repository.
+5 and phase 12's bucket-16 images, training in phases 7, 9 and 12, the
+eval buckets 8 and 32 in phase 12; the gate's backward's from training)
+and, last, the `{"ok": true, ...}` line. Details go to
+chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device or
+outside a checkout of the repository.
 """
 
+import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -93,8 +119,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from lang2seg_tpu_torch.config import Config, apply_variant, flagship_config  # noqa: E402
+from lang2seg_tpu_torch.data.fixtures import mini_refer_split  # noqa: E402
+from lang2seg_tpu_torch.data.loader import GtBatchLoader  # noqa: E402
 from lang2seg_tpu_torch.data.synthetic import (  # noqa: E402
-    synthetic_batch, synthetic_eval_request, to_wire)
+    FixedBatchLoader, synthetic_batch, synthetic_eval_request, to_wire)
+from lang2seg_tpu_torch.engine.checkpoint import CheckpointManager  # noqa: E402
 from lang2seg_tpu_torch.engine.evaluator import Evaluator  # noqa: E402
 from lang2seg_tpu_torch.engine.inference import Inference  # noqa: E402
 from lang2seg_tpu_torch.engine.train_captioner import (  # noqa: E402
@@ -113,19 +142,25 @@ from lang2seg_tpu_torch.tools.profile_gate import (  # noqa: E402
 from lang2seg_tpu_torch.tools.profile_nms import (  # noqa: E402
     MAIN_SHAPES, device_ms, edge_cases, lane_stats, nms_bound, rpn_draw,
     time_ms)
+from lang2seg_tpu_torch.tools import learn_synthetic  # noqa: E402
 from lang2seg_tpu_torch.tools.tiny_step import (  # noqa: E402
     card_vs_cpu, launch_counts)
 from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator  # noqa: E402
+from lang2seg_tpu_torch.utils.timer import Timer  # noqa: E402
 from lang2seg_tpu_torch.weights import init_params  # noqa: E402
 
 OUT = os.path.join(REPO, "chiprun_out")
 record = {}
 # the main-path runs whose launches of a kernel's counter a `kernels` entry
-# of that path reports: serving (phase 5); training, the response step
-# (phase 7) and the cycle_response step (phase 9)
-LAUNCHED_BY = {"serve": lambda counter: (("serve", counter),),
+# of that path reports: serving (phase 5) and phase 12's eval images of
+# the 16 bucket; training, the response step (phase 7), the cycle_response
+# step (phase 9) and the file-backed run (phase 12)
+LAUNCHED_BY = {"serve": lambda counter: (("serve", counter),
+                                         ("eval_file_16", counter)),
                "train": lambda counter: (("train", counter),
-                                         ("train_cycle", counter))}
+                                         ("train_cycle", counter),
+                                         ("train_file", counter))}
+EVAL_BUCKETS = (8, 16, 32)
 
 
 def log(*a):
@@ -591,7 +626,7 @@ def train_full_width(path, cfg):
     batches = [to_wire(cfg, synthetic_batch(cfg, num_images, num_expr,
                                             seed=s)) for s in range(4)]
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, batches, device="cuda", seed=0)
+    trainer = Trainer(cfg, FixedBatchLoader(batches), device="cuda", seed=0)
     model = trainer.state.model
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     torch.cuda.synchronize()
@@ -813,6 +848,296 @@ def pretrain_captioner(cfg, model):
                            "beam_rescore_err": beam_err}
 
 
+# --------------------------------------------------------------- phase 12
+
+# NMS at the eval sentence buckets no other phase runs: (lanes, boxes,
+# draw seed, thresh, max_out)
+EVAL_NMS_SHAPES = ((8, 6000, 3, 0.7, 300), (32, 6000, 4, 0.7, 300))
+
+
+def check_eval_kernels(dev, regs):
+    """NMS bit for bit against its plain version at (8, 6000) -> 300 and
+    (32, 6000) -> 300 (RPN draws), the gate at E = 8 and 32 through a
+    stride-0 map (K=7 sigmoid normalized, bf16) to phase 4's tolerances;
+    each timed beside its bound."""
+    results = []
+    for e, n, seed, thr, max_out in EVAL_NMS_SHAPES:
+        boxes = rpn_draw(e, n, seed, dev)
+        valid = torch.ones((e, n), dtype=torch.bool, device=dev)
+        ki, km = nms_cuda.nms_batched(boxes, valid, thr, max_out)
+        pi, pm = nms_padded(boxes, valid, thr, max_out)
+        torch.cuda.synchronize()
+        same = torch.equal(ki, pi) and torch.equal(km, pm)
+        err = max(float((ki - pi).abs().max()), float((km != pm).sum()))
+        kept, _ = lane_stats(ki, km, n, max_out)
+        check(same, f"NMS kernel differs from its plain version at "
+              f"({e}, {n})")
+        call = (lambda b=boxes, v=valid: nms_cuda.nms_batched(b, v, thr,
+                                                              max_out))
+        ms = device_ms(call, 50)
+        plain_ms = time_ms(lambda: nms_padded(boxes, valid, thr, max_out), 2)
+        bound, by, byts, ops = nms_bound(ki, km, n, max_out)
+        csize = nms_cuda.cluster_size(dev, e, n, max_out)
+        res = {"name": f"nms_{e}x{n}_{max_out}", "route": "cuda",
+               "source": "lang2seg_tpu_torch/csrc/nms.cu",
+               "replaces": "lang2seg_tpu/ops/nms_pallas.py:196",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "cluster_size": csize,
+               "launched_by": ((f"eval_file_{e}", "nms"),)}
+        log(f"[eval-kernels] nms ({e}, {n})->{max_out}: bit-identical={same}"
+            f" kept/lane={kept}; kernel {ms:.4f} ms device time ({csize} "
+            f"CTAs a lane), plain {plain_ms:.2f} ms, bound "
+            f"{bound * 1e3:.3f} us ({by}: {byts} B, {ops} ops)")
+        record[res["name"]] = dict(res, bytes=byts, ops=ops)
+        results.append(res)
+    for e in (8, 32):
+        args = gate_inputs(e, 40, 64, 1024, 7, "broadcast", dev,
+                           seed=20 + e)[:3] + (7, "sigmoid", True)
+        gk, rk = fused_filter.fused_dynamic_filter(*args)
+        gp, rp = fused_dynamic_filter_plain(*args)
+        torch.cuda.synchronize()
+        resp_err = float((rk - rp).abs().max())
+        resp_tol = 1e-5 * float(rp.abs().max())
+        ulps = int(bf16_ulp_distance(gk.float(), gp.float()).max())
+        same_g = (args[0].float() * torch.sigmoid(rk)).to(torch.bfloat16)
+        ulps_given_resp = int(bf16_ulp_distance(gk.float(),
+                                                same_g.float()).max())
+        check(resp_err <= resp_tol, f"gate response out of tolerance at "
+              f"E={e}")
+        check(ulps <= 1 and ulps_given_resp <= 1,
+              f"gate gated map beyond 1 bf16 ulp at E={e}")
+        call = (lambda a=args: fused_filter.fused_dynamic_filter(*a))
+        ms = device_ms(call, 50)
+        plan = fused_filter.plans["forward"]
+        check(plan["grid"][1] == e, "gate forward plan of another shape")
+        plain_ms = time_ms(lambda a=args: fused_dynamic_filter_plain(*a), 5)
+        bound, by, byts, ops = gate_bound(e, 40, 64, 1024, 7, 2, 1)
+        res = {"name": f"fused_filter_eval{e}", "route": "cuda",
+               "source": "lang2seg_tpu_torch/csrc/fused_filter.cu",
+               "replaces": "lang2seg_tpu/ops/pallas_kernels.py:85",
+               "max_abs_err": float((gk.float() - gp.float()).abs().max()),
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": by, "library_ms": None,
+               "tile_plan": {"grid": plan["grid"],
+                             "tile_pixels": plan["tile_pixels"],
+                             "tiles_per_block": plan["tiles_per_block"]},
+               "registers": regs["forward"]["registers"],
+               "launched_by": ((f"eval_file_{e}", "fused_filter"),)}
+        log(f"[eval-kernels] gate ({e}, 40, 64, 1024) bf16 K=7 stride-0 map:"
+            f" resp err {resp_err:.3e} (tol {resp_tol:.3e}), gated {ulps} "
+            f"bf16 ulp ({ulps_given_resp} given its response); kernel "
+            f"{ms:.4f} ms device time, plain {plain_ms:.3f} ms, bound "
+            f"{bound * 1e3:.2f} us ({by}); plan {res['tile_plan']}")
+        record[res["name"]] = dict(res, bytes=byts, ops=ops,
+                                   resp_max_abs_err=resp_err)
+        results.append(res)
+    return results
+
+
+def same_loader_state(a, b):
+    ra, rb = a["rng_state"], b["rng_state"]
+    return (a["iterators"] == b["iterators"]
+            and set(a["perm"]) == set(b["perm"])
+            and all(np.array_equal(a["perm"][k], b["perm"][k])
+                    for k in a["perm"])
+            and ra[0] == rb[0] and np.array_equal(ra[1], rb[1])
+            and tuple(ra[2:]) == tuple(rb[2:]))
+
+
+def same_optimizer_state(a, b):
+    ga = [{k: v for k, v in g.items() if k != "params"}
+          for g in a["param_groups"]]
+    gb = [{k: v for k, v in g.items() if k != "params"}
+          for g in b["param_groups"]]
+    return (ga == gb and set(a["state"]) == set(b["state"])
+            and all(torch.equal(a["state"][i]["momentum_buffer"],
+                                b["state"][i]["momentum_buffer"])
+                    for i in a["state"]))
+
+
+def file_backed_path(phase7_ms):
+    """Phase 12's main path: loader -> Trainer (6 steps, snapshots every
+    3) -> resume from iter_3 -> eval_split over the bucketed test
+    batches. Returns the launch counts of its training run and of its
+    eval run by bucket."""
+    cfg = flagship_config()
+    t = cfg.train
+    t.images_per_batch, t.expressions_per_batch = 2, 16
+    t.snapshot_iters, t.display, t.summary_interval = 3, 1, 10 ** 9
+    info, labels, read = mini_refer_split(
+        ((427, 640), (640, 427)) * 4, (2, 3, 6, 3, 2, 6, 3, 6),
+        ("train",) * 4 + ("val",) * 2 + ("testA",) * 2, seed=0)
+
+    def loader(seed):
+        return GtBatchLoader(info, labels, cfg, seed=seed, read_image=read)
+
+    probe = loader(cfg.seed)
+    cfg.model.vocab_size = cfg.model.cap_vocab_size = probe.vocab_size
+    host_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        probe.get_batch("train")
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[file] mini REFER split: {len(info['images'])} images, "
+        f"{len(info['refs'])} refs, {len(labels)} sentences, vocabulary "
+        f"{probe.vocab_size}; loader host ms a 2 x 16 batch "
+        f"{[round(x, 1) for x in host_ms]}")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
+        run_a, run_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        trainer = Trainer(cfg, loader(cfg.seed), run_a, device="cuda", seed=0)
+        nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
+        trainer.train(3)
+        torch.cuda.synchronize()
+        check(launch_counts() == (3, 3, 3), "a file-backed step did not "
+              "launch each kernel once")
+        saved = {"model": {k: v.clone() for k, v in
+                           trainer.state.model.state_dict().items()},
+                 "optimizer": copy.deepcopy(
+                     trainer.state.optimizer.state_dict()),
+                 "generator": trainer.generator.get_state(),
+                 "loader": copy.deepcopy(trainer.loader.state_dict())}
+        shutil.copytree(run_a, run_b)
+        trainer.timer = Timer()
+        t0 = time.perf_counter()
+        trainer.train(6)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = launch_counts()
+        runs["train_file"] = dict(zip(("nms", "fused_filter",
+                                       "fused_filter_bwd"), launched))
+        step_ms = trainer.timer.average_time("step") * 1e3
+        ckpts = sorted(int(d.split("_")[1])
+                       for d in os.listdir(os.path.join(run_a, "ckpt")))
+        log(f"[file] 6 steps: launches (nms, gate, gate bwd) {launched}; "
+            f"steps 4-6 {step_ms:.2f} ms a step with the prefetcher (phase 7:"
+            f" {phase7_ms:.2f} ms), {wall:.2f} s with the iter_6 snapshot; "
+            f"snapshots {ckpts}")
+        check(launched == (6, 6, 6), "a file-backed step did not launch "
+              "each kernel once")
+        check(ckpts == [3, 6] and trainer.state.step == 6)
+
+        resumed = Trainer(cfg, loader(99), run_b, device="cuda", seed=1)
+        check(resumed.try_resume() == 3, "no resume from iter_3")
+        on_disk, host = CheckpointManager(os.path.join(run_b, "ckpt")
+                                          ).restore(3, map_location="cuda")
+        sd = resumed.state.model.state_dict()
+        same = {
+            "model": all(torch.equal(sd[k], v) and
+                         torch.equal(on_disk["model"][k], v)
+                         for k, v in saved["model"].items()),
+            "optimizer": same_optimizer_state(
+                resumed.state.optimizer.state_dict(), saved["optimizer"]),
+            "generator": torch.equal(resumed.generator.get_state(),
+                                     saved["generator"]),
+            "loader": same_loader_state(resumed.loader.state_dict(),
+                                        saved["loader"])
+            and same_loader_state(host["loader_state"], saved["loader"]),
+            "step": resumed.state.step == 3}
+        replay = loader(cfg.seed)
+        want = [replay.get_batch("train") for _ in range(4)][-1]
+        got = resumed.loader.get_batch("train")
+        same["batch_4"] = set(got) == set(want) and all(
+            np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
+            for k in want)
+        log(f"[file] resumed from iter_3, bit-identical to the saved state: "
+            f"{same}")
+        check(all(same.values()), f"resume is not bit-identical: {same}")
+        del resumed, on_disk
+
+    ev = Evaluator(trainer.state.model, cfg, device="cuda")
+    per_image, dispatch = [], ev.dispatch_image
+
+    def counted(batch, sent_valid=None):
+        c0 = (nms_cuda.launches, fused_filter.launches)
+        rec = dispatch(batch, sent_valid)
+        per_image.append((batch["labels"].shape[0],
+                          nms_cuda.launches - c0[0],
+                          fused_filter.launches - c0[1]))
+        return rec
+
+    ev.dispatch_image = counted
+    acc = SegEvalAccumulator()
+    nms_cuda.launches = fused_filter.launches = 0
+    t0 = time.perf_counter()
+    for split in ("val", "testA"):
+        ev.eval_split(probe.iter_test_batches(split, buckets=EVAL_BUCKETS),
+                      acc=acc)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    ev.dispatch_image = dispatch
+    summary = acc.summary()
+    log(f"[file] eval_split of val + testA ({len(per_image)} images, "
+        f"{acc.num_sent} sentences) in {t_eval:.2f} s, loader included: "
+        f"(bucket, nms, gate) a dispatch {per_image}; "
+        f"{ {k: round(float(v), 4) for k, v in summary.items()} }")
+    check(all(n == 1 and f == 1 for _, n, f in per_image),
+          "an eval image did not launch NMS and the gate once")
+    check((nms_cuda.launches, fused_filter.launches)
+          == (len(per_image), len(per_image)))
+    check(sorted({s for s, _, _ in per_image}) == list(EVAL_BUCKETS))
+    check(acc.num_sent == 51 and acc.seg_total == 51)
+    check(all(0.0 <= float(v) <= 1.0 for v in summary.values()))
+    for b in EVAL_BUCKETS:
+        k = sum(1 for s, _, _ in per_image if s == b)
+        runs[f"eval_file_{b}"] = {"nms": k, "fused_filter": k}
+
+    # eval images/s by bucket, on prebuilt batches (no loader time): 8
+    # dispatches of the bucket's images, after one warm pass
+    by_bucket = {}
+    for split in ("val", "testA"):
+        for b in probe.iter_test_batches(split, buckets=EVAL_BUCKETS):
+            by_bucket.setdefault(b["labels"].shape[0], []).append(b)
+    rates = {}
+    for s, group in sorted(by_bucket.items()):
+        reps = (group * 8)[:8]
+        ev.eval_split(group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev.eval_split(reps)
+        torch.cuda.synchronize()
+        rates[s] = len(reps) / (time.perf_counter() - t0)
+    log(f"[file] eval images/s by bucket (prebuilt batches, pipeline depth "
+        f"4): { {s: round(r, 2) for s, r in rates.items()} }")
+    record["file_backed"] = {
+        "loader_host_ms": host_ms, "step_ms": step_ms,
+        "phase7_step_ms": phase7_ms, "six_steps_s": wall,
+        "launches_train": runs["train_file"], "resume_same": same,
+        "eval_per_image": per_image, "eval_seconds": t_eval,
+        "eval_metrics": {k: float(v) for k, v in summary.items()},
+        "eval_images_per_s": rates}
+    del trainer, ev
+    return runs
+
+
+# --------------------------------------------------------------- phase 13
+
+def learning_proof():
+    """tests/test_learning.py's closed loop on the card, held to its
+    bounds (`:71-74`)."""
+    t0 = time.perf_counter()
+    res = learn_synthetic.run(["--steps", "600", "--lr", "2e-4",
+                               "--decay-at", "450", "--eval-every", "200"])
+    wall = time.perf_counter() - t0
+    u, t = res["untrained"], res["trained"]
+    fmt = (lambda s: {k: round(float(v), 4) for k, v in s.items()})  # noqa: E731
+    log(f"[learn] untrained {fmt(u)}")
+    log(f"[learn] trained {fmt(t)}")
+    log(f"[learn] (step, loss, det acc, IoU) {res['history']}; 600 steps "
+        f"{res['train_seconds']:.1f} s, wall {wall:.1f} s with the evals")
+    check(u["det_acc"] <= 0.25, ("untrained det acc", u["det_acc"]))
+    check(t["det_acc"] >= 0.75, ("trained det acc", t["det_acc"]))
+    check(t["overall_iou"] >= 0.5, ("trained IoU", t["overall_iou"]))
+    check(t["overall_iou"] >= u["overall_iou"] + 0.4, "IoU did not rise "
+          "by 0.4")
+    record["learning_proof"] = {
+        "untrained": {k: float(v) for k, v in u.items()},
+        "trained": {k: float(v) for k, v in t.items()},
+        "history": res["history"], "train_seconds": res["train_seconds"],
+        "wall_seconds": wall}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -836,12 +1161,16 @@ def main():
     small_train_reference("train_cycle_reference", "cycle")
     pretrain_captioner(cfg, trainer.state.model)
     del trainer
+    kernels += check_eval_kernels(dev, regs)
+    phase7_ms = float(np.mean(record["train"]["step_ms"]))
+    runs.update(file_backed_path(phase7_ms))
+    learning_proof()
     for kr in kernels:
         kr["launches"] = sum(runs[path].get(counter, 0)
                              for path, counter in kr["launched_by"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "tile_plan", "registers")
+            "tile_plan", "cluster_size", "registers")
     kernels = [{k: kr[k] for k in keys if k in kr} for kr in kernels]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start

@@ -85,7 +85,8 @@ class TrainConfig:
     # batching (ours; reference is 1 sentence / step)
     expressions_per_batch: int = 8
     images_per_batch: int = 2
-    steps_per_dispatch: int = 1             # TPU dispatch knob; ignored here
+    steps_per_dispatch: int = 1             # several steps a dispatch; the
+                                            # port's Trainer takes only 1
 
 
 @dataclass
@@ -207,7 +208,9 @@ class DataConfig:
     # and bit-packed GT masks
     wire_uint8_images: bool = True
     wire_packed_masks: bool = True
-    # eval wire formats of the JAX package not yet in the port (ROADMAP)
+    # eval wire formats: the ref-deduped mask bank (the port's loader and
+    # Evaluator); the extent crop is not ported yet (ROADMAP), nor the
+    # reference-exact masks (the loader raises for them)
     wire_mask_bank: bool = True
     wire_extent_crop: bool = True
     wire_extent_granularity: int = 128

@@ -81,6 +81,27 @@ def to_wire(cfg: Config, batch: Dict[str, np.ndarray]
     return out
 
 
+class FixedBatchLoader:
+    """A loader over a fixed list of batches, taken in turn whatever the
+    split: the `Trainer`'s `get_batch` and iterator state for synthetic
+    batches (benchmarks, tests, smoke runs)."""
+
+    def __init__(self, batches):
+        self.batches = list(batches)
+        self.position = 0
+
+    def get_batch(self, split: str = "train") -> Dict[str, np.ndarray]:
+        batch = self.batches[self.position % len(self.batches)]
+        self.position += 1
+        return batch
+
+    def state_dict(self) -> Dict:
+        return {"position": self.position}
+
+    def load_state_dict(self, state: Dict):
+        self.position = state["position"]
+
+
 def synthetic_test_batch(cfg: Config, num_expr: int,
                          seed: int = 0) -> Dict[str, np.ndarray]:
     b = synthetic_batch(cfg, 1, num_expr, seed)
@@ -97,3 +118,72 @@ def synthetic_eval_request(cfg: Config, num_expr: int, seed: int = 0,
     return {"images": uint8_canvas(cfg, b["images"]), "im_hw": b["im_hw"],
             "labels": b["labels"], "gt_boxes": b["gt_boxes"], "gt_masks": b["gt_masks"],
             "im_scale": np.float32(im_scale)}
+
+
+def synthetic_learnable_set(cfg: Config, num_images: int = 4,
+                            seed: int = 0):
+    """A fixed, visually learnable referring set for the closed-loop
+    learning proof, with the draws of the JAX package's
+    `synthetic_learnable_set` (`data/synthetic.py:68-145`).
+
+    Each image: a low-noise background and two non-overlapping rectangles
+    with distinct channel signatures ("colours"), one in each half. Each
+    rectangle has one expression [colour word, noun] whose first token
+    names the colour; its GT box and mask are the rectangle, its class
+    the colour's index. Extents sit in the anchors' range (the smallest
+    anchor is 64 px).
+
+    Returns (train_batch, eval_batches): a loader-format batch of
+    I = num_images mean-subtracted f32 images and E = 2 I expressions,
+    and one `Evaluator.eval_image` batch per image (im_scale 1, im_hw the
+    full canvas)."""
+    rng = np.random.RandomState(seed)
+    d = cfg.data
+    h, w = d.canvas_h, d.canvas_w
+    colors = np.asarray([[110.0, -70.0, -70.0],
+                         [-70.0, 110.0, -70.0]], np.float32)
+
+    images = (rng.randn(num_images, h, w, 3) * 5.0).astype(np.float32)
+    im_hw = np.tile(np.asarray([[h, w]], np.float32), (num_images, 1))
+    boxes_all, masks_all, labels_all, idx_all = [], [], [], []
+    for i in range(num_images):
+        for c in range(2):
+            x_lo = 2 + c * (w // 2)
+            x1 = rng.randint(x_lo, x_lo + w // 8)
+            y1 = rng.randint(2, h // 6)
+            bw = rng.randint(int(w * 0.3), int(w * 0.46))
+            bh = rng.randint(int(h * 0.55), int(h * 0.85))
+            x2 = min(x1 + bw, x_lo + w // 2 - 4, w - 2)
+            y2 = min(y1 + bh, h - 2)
+            images[i, y1:y2 + 1, x1:x2 + 1] = colors[c] + \
+                rng.randn(y2 - y1 + 1, x2 - x1 + 1, 3).astype(np.float32) * 3
+            boxes_all.append([x1, y1, x2, y2, c + 1])
+            mask = np.zeros((h, w), np.uint8)
+            mask[y1:y2 + 1, x1:x2 + 1] = 1
+            masks_all.append(mask)
+            lab = np.zeros(d.max_len, np.int32)
+            lab[0], lab[1] = c + 1, 3
+            labels_all.append(lab)
+            idx_all.append(i)
+
+    train_batch = {
+        "images": images,
+        "im_hw": im_hw,
+        "labels": np.stack(labels_all),
+        "img_idx": np.asarray(idx_all, np.int32),
+        "gt_boxes": np.asarray(boxes_all, np.float32),
+        "gt_masks": np.stack(masks_all),
+        "expr_uid": np.arange(len(idx_all), dtype=np.int32),
+    }
+    eval_batches = []
+    for i in range(num_images):
+        sl = [j for j, ii in enumerate(idx_all) if ii == i]
+        eval_batches.append({
+            "images": images[i:i + 1],
+            "im_hw": im_hw[i:i + 1],
+            "labels": train_batch["labels"][sl],
+            "gt_boxes": train_batch["gt_boxes"][sl],
+            "gt_masks": train_batch["gt_masks"][sl],
+            "im_scale": np.float32(1.0),
+        })
+    return train_batch, eval_batches

@@ -1,25 +1,29 @@
-"""Referring-expression evaluation, one image per call.
+"""Referring-expression evaluation.
 
-Counterpart of `lang2seg_tpu/engine/evaluator.py::Evaluator.eval_image`
-on its device-paste path (reference eval_split, `model/test.py:185-450`):
-all sentences of an image run through one `test_forward`; per sentence
-the per-class boxes are decoded in original-image coordinates and the
+Counterpart of `lang2seg_tpu/engine/evaluator.py::Evaluator` on its
+device-paste path (reference eval_split, `model/test.py:185-450`): all
+sentences of an image run through one `test_forward`; per sentence the
+per-class boxes are decoded in original-image coordinates and the
 single global argmax over scores[:, 1:] is taken (`_select_fn`); the mask
 branch runs on that box; the 14x14 probs are pasted back on fixed
 (max_orig_h, max_orig_w) buffers, cut at 122/255 and scored against the
 nearest-resized GT mask (`_paste_iou_fn`); the host accumulates det acc,
 Prec@X and overall IoU (`utils/metrics.py::SegEvalAccumulator`). GT masks
-travel raw, or bit-packed (np.packbits along the width) when the canvas
-width is a multiple of 8.
+travel per sentence or as the loader's ref-deduped bank (expanded on the
+device), raw, or bit-packed (np.packbits along the width) when the
+canvas width is a multiple of 8. `eval_split` pipelines a split:
+`dispatch_image` enqueues an image's work, `drain` reads it back.
 
-Not ported yet (ROADMAP): the host paste-back for images beyond the
-paste buffers, the reference-exact mode, the ref-deduped mask bank, the
-extent-crop wire, staged uploads, multi-image and multi-device eval.
+Not ported yet (ROADMAP Queue 1 #4): the host paste-back for images
+beyond the paste buffers, the reference-exact mode, the extent-crop
+wire, staged uploads, several images a dispatch (`images_per_dispatch`)
+and multi-device eval.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from collections import deque
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -133,13 +137,26 @@ class Evaluator:
         union = ((pred | gt) & valid).sum(dim=(1, 2))
         return inter.to(torch.int32), union.to(torch.int32)
 
+    def _put(self, x, dtype=None) -> torch.Tensor:
+        """A host array on the device. To the card it goes from pinned
+        memory without blocking the host, so that the host can build the
+        next image while the card works."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if dtype is not None:
+            t = t.to(dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
     @torch.no_grad()
-    def eval_image(self, batch: Dict[str, np.ndarray],
-                   acc: SegEvalAccumulator,
-                   sent_valid: Optional[np.ndarray] = None) -> None:
-        """batch: images (1, H, W, 3), im_hw (1, 2), labels (S, T),
-        gt_boxes (S, 5) scaled, gt_masks (S, Hc, Wc), im_scale scalar.
-        sent_valid: (S,) bool mask for padded sentence slots."""
+    def dispatch_image(self, batch: Dict[str, np.ndarray],
+                       sent_valid: Optional[np.ndarray] = None) -> Dict:
+        """Enqueue all the device work of one image (the forward, the box
+        selection, the mask branch and the paste-back with its I/U
+        counts) and return a record of device tensors for `drain`,
+        without reading anything back. GT masks come per sentence
+        (`gt_masks`) or as the ref-deduped bank (`gt_mask_bank` with
+        `mask_ref_idx`), which is expanded on the device."""
         m, d = self.cfg.model, self.cfg.data
         if not m.use_mask_head:
             raise NotImplementedError("detection-only eval is not ported")
@@ -149,37 +166,89 @@ class Evaluator:
                 f"original extent {ih}x{iw} exceeds the paste buffers "
                 f"{d.max_orig_h}x{d.max_orig_w}; host paste-back is not "
                 f"ported")
-        dev = self.device
-        gm = np.asarray(batch["gt_masks"])
+        use_bank = "gt_mask_bank" in batch
+        gm = np.asarray(batch["gt_mask_bank" if use_bank else "gt_masks"])
         packed = gm.shape[-1] % 8 == 0
-        gm_op = np.packbits(gm > 0, axis=-1) if packed else gm
-
-        def put(x, dtype=None):
-            t = torch.from_numpy(np.ascontiguousarray(x))
-            return t.to(dev) if dtype is None else t.to(dev, dtype)
-
+        gm_dev = self._put(np.packbits(gm > 0, axis=-1) if packed else gm)
+        if use_bank:
+            gm_dev = gm_dev.index_select(
+                0, self._put(batch["mask_ref_idx"], torch.int64))
         out = self.model.test_forward({
-            "images": put(batch["images"]),
-            "im_hw": put(batch["im_hw"], torch.float32),
-            "labels": put(batch["labels"])})
-        f32 = dict(dtype=torch.float32, device=dev)
-        scale_t = torch.tensor(scale, **f32)
+            "images": self._put(batch["images"]),
+            "im_hw": self._put(batch["im_hw"], torch.float32),
+            "labels": self._put(batch["labels"])})
+        scale_t, ih_t, iw_t = self._put(np.float32([scale, ih, iw]))
         sel, cls = self._select_fn(
             out["rois"], out["bbox_pred"], out["cls_prob"], out["roi_valid"],
-            scale_t, torch.tensor(float(ih), **f32),
-            torch.tensor(float(iw), **f32))
+            scale_t, ih_t, iw_t)
         probs = self.model.predict_masks(
             out["gated_conv"], (sel * scale_t)[:, None, :], cls[:, None])[:, 0]
         inter, union = self._paste_iou_fn(
-            probs, sel, put(gm_op), sh, sw, ih, iw,
+            probs, sel, gm_dev, sh, sw, ih, iw,
             oh=d.max_orig_h, ow=d.max_orig_w, packed=packed)
+        return {"batch": batch, "scale": scale, "sent_valid": sent_valid,
+                "sel": sel, "inter": inter, "union": union}
 
-        sel_np = sel.cpu().numpy()
-        inter_np = inter.cpu().numpy()
-        union_np = union.cpu().numpy()
-        for i in range(sel_np.shape[0]):
+    @staticmethod
+    def drain(rec: Dict, acc: SegEvalAccumulator) -> None:
+        """Read one dispatched image's results back and accumulate them."""
+        sel = rec["sel"].cpu().numpy()
+        inter = rec["inter"].cpu().numpy()
+        union = rec["union"].cpu().numpy()
+        sent_valid = rec["sent_valid"]
+        for i in range(sel.shape[0]):
             if sent_valid is not None and not sent_valid[i]:
                 continue
-            gt_box = np.asarray(batch["gt_boxes"][i, :4]) / scale
-            acc.add_detection(sel_np[i], gt_box)
-            acc.add_segmentation_iu(int(inter_np[i]), int(union_np[i]))
+            gt_box = np.asarray(rec["batch"]["gt_boxes"][i, :4]) / rec["scale"]
+            acc.add_detection(sel[i], gt_box)
+            acc.add_segmentation_iu(int(inter[i]), int(union[i]))
+
+    def eval_image(self, batch: Dict[str, np.ndarray],
+                   acc: SegEvalAccumulator,
+                   sent_valid: Optional[np.ndarray] = None) -> None:
+        """batch: images (1, H, W, 3), im_hw (1, 2), labels (S, T),
+        gt_boxes (S, 5) scaled, gt_masks (S, Hc, Wc) (or the mask bank),
+        im_scale scalar. sent_valid: (S,) bool mask for padded sentence
+        slots."""
+        self.drain(self.dispatch_image(batch, sent_valid), acc)
+
+    def eval_split(self, batches: Iterable[Dict[str, np.ndarray]],
+                   verbose: bool = False, pipeline_depth: int = 4,
+                   images_per_dispatch: int = 1,
+                   acc: Optional[SegEvalAccumulator] = None
+                   ) -> Dict[str, float]:
+        """Score every image of `batches` (e.g. GtBatchLoader.
+        iter_test_batches), one image a dispatch, keeping up to
+        `pipeline_depth` dispatched images ahead of the drain, so that
+        the host builds and uploads the next image while the card works.
+        Each batch's own `sent_valid` marks its padded slots. Returns the
+        summary of `acc` (a fresh accumulator by default)."""
+        if images_per_dispatch > 1:
+            raise NotImplementedError(
+                "images_per_dispatch > 1 is not ported (ROADMAP Queue 1 #4)")
+        acc = SegEvalAccumulator() if acc is None else acc
+        pending = deque()
+        done = 0
+
+        def drain_one():
+            nonlocal done
+            self.drain(pending.popleft(), acc)
+            done += 1
+            if verbose and done % 20 == 0:
+                s = acc.summary()
+                print(f"[eval] {done} images: det_acc={s['det_acc']:.4f} "
+                      f"IoU={s['overall_iou']:.4f}", flush=True)
+
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            for batch in batches:
+                pending.append(self.dispatch_image(batch,
+                                                   batch.get("sent_valid")))
+                if len(pending) >= max(1, pipeline_depth):
+                    drain_one()
+            while pending:
+                drain_one()
+        finally:
+            self.model.train(was_training)
+        return acc.summary()

@@ -155,20 +155,38 @@ def captioner_state_dict(captioner: Att2In2Captioner
             for k, v in captioner.state_dict().items()}
 
 
-def restore_captioner(state_dict: Dict[str, torch.Tensor], path: str
+def load_captioner_file(path: str, allow_pickle: bool = False
+                        ) -> Dict[str, torch.Tensor]:
+    """A captioner checkpoint under `caption_model.*` keys: the port's
+    `model-best.pth`, the reference's (its captioner's own state_dict,
+    bare keys, or one with the prefix), or the JAX package's
+    `model-best.npz` (the captioner's params tree, through
+    `weights.captioner_from_jax`). `allow_pickle`: see
+    `engine/convert.py`."""
+    from .convert import load_npz_tree, load_torch_file
+    from ..weights import captioner_from_jax
+    if path.endswith(".npz"):
+        return dict(captioner_from_jax(load_npz_tree(path)))
+    loaded = load_torch_file(path, allow_pickle)
+    if not any(k.startswith(PREFIX) for k in loaded):
+        loaded = {PREFIX + k: v for k, v in loaded.items()}
+    return loaded
+
+
+def restore_captioner(state_dict: Dict[str, torch.Tensor], path: str,
+                      allow_pickle: bool = False
                       ) -> Dict[str, torch.Tensor]:
-    """Graft a pretrained captioner checkpoint (model-best.pth of
-    run_captioner_training) into a full network state_dict: the reference's
-    README step 5 restore of caption_log_*/model-best.pth into the cycle
-    network. The checkpoint must hold exactly the state_dict's
-    `caption_model.*` keys with the same shapes; they take its values in
-    each entry's dtype and device, and every other entry is returned
-    untouched."""
+    """Graft a pretrained captioner checkpoint (`load_captioner_file`)
+    into a full network state_dict: the reference's README step 5 restore
+    of caption_log_*/model-best.pth into the cycle network. The
+    checkpoint must hold exactly the state_dict's `caption_model.*` keys
+    with the same shapes; they take its values in each entry's dtype and
+    device, and every other entry is returned untouched."""
     want = {k: v for k, v in state_dict.items() if k.startswith(PREFIX)}
     if not want:
         raise ValueError("state_dict has no caption_model.* entries (not a "
                          "cycle variant?)")
-    loaded = torch.load(path, map_location="cpu", weights_only=True)
+    loaded = load_captioner_file(path, allow_pickle)
     if set(loaded) != set(want):
         raise ValueError(f"captioner checkpoint keys differ: missing "
                          f"{sorted(set(want) - set(loaded))}, unexpected "

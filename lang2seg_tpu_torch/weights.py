@@ -221,17 +221,32 @@ def _captioner(out, p):
         out[f"{pre}{layer}.bias"] = _t(p[f"{raw}_b"])
 
 
+def captioner_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The captioner's JAX params subtree -> its `caption_model.*`
+    entries."""
+    out: Dict[str, torch.Tensor] = OrderedDict()
+    _captioner(out, params)
+    return out
+
+
 def from_jax_params(params, cfg: Config) -> Dict[str, torch.Tensor]:
     """JAX params tree (nested dicts of arrays, as `init_params` of the
-    JAX package returns after `jax.device_get`) -> the port's state_dict."""
+    JAX package returns after `jax.device_get`) -> the port's state_dict.
+    A subtree the tree lacks (a captioner-only checkpoint has just
+    `captioner`) leaves its entries out."""
     m = cfg.model
     out: Dict[str, torch.Tensor] = OrderedDict()
-    _resnet(out, params["backbone"], m.backbone)
-    _encoder(out, params["encoder"])
-    _filters(out, params["filter_gen"], m.num_filters, m.c4_feat_dim)
-    _rpn(out, params["rpn_head"],
-         len(m.anchor_scales) * len(m.anchor_ratios))
-    _heads(out, params)
+    if "backbone" in params:
+        _resnet(out, params["backbone"], m.backbone)
+    if "encoder" in params:
+        _encoder(out, params["encoder"])
+    if "filter_gen" in params:
+        _filters(out, params["filter_gen"], m.num_filters, m.c4_feat_dim)
+    if "rpn_head" in params:
+        _rpn(out, params["rpn_head"],
+             len(m.anchor_scales) * len(m.anchor_ratios))
+    if "box_head" in params:
+        _heads(out, params)
     if "captioner" in params:
         _captioner(out, params["captioner"])
     return out

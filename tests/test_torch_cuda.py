@@ -7,6 +7,8 @@ on a machine without it:
 
 `chip_smoke.py` runs the same comparisons at the flagship shapes."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -362,3 +364,75 @@ def test_captioner_decodes_card_vs_cpu(dev):
     assert torch.equal(gc, gp) and torch.equal(bc, bp)
     assert float((lc - lp).abs().max()) <= 1e-3
     assert float((sc - sp).abs().max()) <= 1e-3
+
+
+def _tiny_refer():
+    """The tiny f32 `response` config (resnet26, 128x192) and a mini
+    REFER split built in memory: 3 train images and 1 val image."""
+    from lang2seg_tpu_torch.config import Config, apply_variant
+    from lang2seg_tpu_torch.data.fixtures import mini_refer_split
+    cfg = apply_variant(Config(), "response")
+    cfg.data.canvas_h, cfg.data.canvas_w = 128, 192
+    cfg.model.backbone = "resnet26"
+    cfg.model.compute_dtype = "float32"
+    cfg.model.normalize_response = True
+    cfg.train.learning_rate = 1e-5
+    cfg.train.grad_clip_norm = 10.0
+    cfg.train.rpn_pre_nms_top_n, cfg.train.rpn_post_nms_top_n = 512, 128
+    cfg.train.roi_batch_size = 32
+    cfg.test.rpn_pre_nms_top_n, cfg.test.rpn_post_nms_top_n = 256, 32
+    cfg.train.expressions_per_batch = 4
+    info, labels, read = mini_refer_split(
+        ((120, 160), (160, 120), (120, 160), (160, 120)), (2, 2, 3, 3),
+        ("train", "train", "train", "val"), seed=1)
+    cfg.model.vocab_size = len(info["word_to_ix"])
+    return cfg, info, labels, read
+
+
+def test_loader_trainer_step_on_card(dev, tmp_path):
+    """GtBatchLoader -> Trainer: one step on the card launches NMS, the
+    gate and its backward once, and snapshots iter_1."""
+    from lang2seg_tpu_torch.data.loader import GtBatchLoader
+    from lang2seg_tpu_torch.engine.trainer import Trainer
+    cfg, info, labels, read = _tiny_refer()
+    tr = Trainer(cfg, GtBatchLoader(info, labels, cfg, read_image=read),
+                 str(tmp_path), device="cuda")
+    before = (nms_cuda.launches, fused_filter.launches,
+              fused_filter.bwd_launches)
+    losses = tr.train(1)
+    after = (nms_cuda.launches, fused_filter.launches,
+             fused_filter.bwd_launches)
+    assert tuple(b - a for a, b in zip(before, after)) == (1, 1, 1)
+    assert all(np.isfinite(v) for v in losses.values())
+    assert os.path.isdir(tmp_path / "ckpt" / "iter_1")
+
+
+def test_eval_split_bucketed_image_on_card(dev):
+    """eval_split of one val image (9 sentences) padded to the 16 bucket
+    with the mask bank: NMS and the gate launch once; the card scores as
+    the CPU."""
+    from lang2seg_tpu_torch.data.loader import GtBatchLoader
+    from lang2seg_tpu_torch.engine.evaluator import Evaluator
+    from lang2seg_tpu_torch.models.network import build_model
+    from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator
+    from lang2seg_tpu_torch.weights import init_params
+    cfg, info, labels, read = _tiny_refer()
+    sd = init_params(cfg, 7)
+    for k in ("rpn_cls_score_net.weight", "rpn_cls_score_net.bias"):
+        sd[k] = sd[k] * 100.0
+    batches = list(GtBatchLoader(info, labels, cfg, read_image=read)
+                   .iter_test_batches("val", buckets=(4, 8, 16)))
+    assert len(batches) == 1 and batches[0]["labels"].shape[0] == 16
+    assert "gt_mask_bank" in batches[0]
+    accs = {}
+    for d in ("cuda", "cpu"):
+        accs[d] = SegEvalAccumulator()
+        before = (nms_cuda.launches, fused_filter.launches)
+        Evaluator(build_model(cfg, device=d, state_dict=sd), cfg,
+                  device=d).eval_split(batches, acc=accs[d])
+        launched = (nms_cuda.launches - before[0],
+                    fused_filter.launches - before[1])
+        assert launched == ((1, 1) if d == "cuda" else (0, 0))
+    assert accs["cuda"].num_sent == accs["cpu"].num_sent == 9
+    assert accs["cuda"].det_correct == accs["cpu"].det_correct
+    assert abs(accs["cuda"].cum_i - accs["cpu"].cum_i) <= 4

@@ -28,7 +28,8 @@ from lang2seg_tpu.engine.optimizer import (build_optimizer as jbuild_optimizer,
                                            param_multipliers, partition_params)
 from lang2seg_tpu.engine.train_captioner import (
     extract_caption_features as jextract_caption_features)
-from lang2seg_tpu_torch.data.synthetic import synthetic_batch, to_wire
+from lang2seg_tpu_torch.data.synthetic import (FixedBatchLoader,
+                                              synthetic_batch, to_wire)
 from lang2seg_tpu_torch.engine.inference import Inference
 from lang2seg_tpu_torch.engine.optimizer import param_groups
 from lang2seg_tpu_torch.engine.train_captioner import extract_caption_features
@@ -291,7 +292,7 @@ def test_trainer_cycle_response_on_cpu():
     cfg.train.display = 1
     batches = [to_wire(cfg, synthetic_batch(cfg, 2, 4, seed=s))
                for s in range(2)]
-    tr = Trainer(cfg, batches, device="cpu")
+    tr = Trainer(cfg, FixedBatchLoader(batches), device="cpu")
     before = {n: p.detach().clone()
               for n, p in tr.state.model.named_parameters()}
     last = tr.train(2)

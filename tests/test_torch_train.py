@@ -28,7 +28,8 @@ from lang2seg_tpu.engine.optimizer import (build_optimizer as jbuild_optimizer,
 from lang2seg_tpu.models.network import Lang2Seg as JaxLang2Seg
 from lang2seg_tpu.ops.targets import AnchorTargets as JAnchorTargets
 from lang2seg_tpu.ops.targets import ProposalTargets as JProposalTargets
-from lang2seg_tpu_torch.data.synthetic import synthetic_batch, to_wire
+from lang2seg_tpu_torch.data.synthetic import (FixedBatchLoader,
+                                              synthetic_batch, to_wire)
 from lang2seg_tpu_torch.engine.optimizer import lr_schedule
 from lang2seg_tpu_torch.engine.train_state import (apply_update,
                                                    create_train_state,
@@ -362,7 +363,7 @@ def test_trainer_steps_on_cpu(capsys):
     cfg.train.display = 2
     batches = [to_wire(cfg, synthetic_batch(cfg, 2, 4, seed=s))
                for s in range(3)]
-    tr = Trainer(cfg, batches, device="cpu")
+    tr = Trainer(cfg, FixedBatchLoader(batches), device="cpu")
     before = {n: p.detach().clone()
               for n, p in tr.state.model.named_parameters()}
     last = tr.train(3)
