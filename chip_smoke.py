@@ -92,11 +92,33 @@ Phases, each fatal on failure (nothing is caught):
      sigmoid gate, response loss, 8 classes, 600 SGD steps at LR 2e-4
      (x0.1 at 450) from scratch, scored by `eval_split` before and after:
      untrained det acc <= 0.25, trained det acc >= 0.75, trained IoU >=
-     0.5 and at least 0.4 above the untrained one.
+     0.5 and at least 0.4 above the untrained one;
+  14. the detection-only `vgg` preset at full width
+     (`flagship_config("vgg")`: VGG16 in bf16, C4 512, 7 filters, sigmoid
+     gate, normalized response, random weights from a seed): first the
+     gate at (16, 40, 64, 512) bf16, forward through a stride-0 map and a
+     gathered one and backward, to phases 4 and 4b's tolerances and timed
+     beside their bounds; then 3 requests of 4, 8 and 16 expressions
+     through Inference.predict and a detection-only Evaluator.eval_image
+     (each launching NMS and the gate once), and phase 7's training
+     checks on 5 `Trainer` steps of 2 images x 16 expressions (conv1_* and
+     conv2_* frozen bit for bit, no host sync, NMS, the gate and its
+     backward once a step);
+  15. phase 8 for the tiny `vgg` step (VGG16's fc6 / fc7 dropout drawn
+     for both devices from one CPU generator);
+  16. the evaluator's host modes on the card: a mini REFER split
+     (`data/fixtures.py`) scored through `cli.eval` with the flagship
+     `response` model by device paste, by host paste (`--host-paste`: det
+     acc identical, IoU within 1e-3) and in the reference-exact mode
+     (`--reference-exact`: det acc identical, IoU in [0, 1]); one 768 x
+     1024 image, beyond the 640 x 640 paste buffers, pasted back on the
+     host; test mode 'top' at rpn_top_n 5000 on one image of 2
+     expressions (no NMS launch), with its peak memory.
 Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
-shape, its launches from the runs of that shape's path: serving in phase
-5 and phase 12's bucket-16 images, training in phases 7, 9 and 12, the
-eval buckets 8 and 32 in phase 12; the gate's backward's from training)
+shape, its launches from the runs of that shape's path: serving in phases
+5 and 14 and the bucket-16 images of phases 12 and 16, training in phases
+7, 9, 12 and 14, the eval buckets 8 and 32 in phases 12 and 16; the
+gate's backward's from training; the C = 512 gate's from phase 14)
 and, last, the `{"ok": true, ...}` line. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device or
 outside a checkout of the repository.
@@ -118,6 +140,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+from lang2seg_tpu_torch.cli import eval as cli_eval  # noqa: E402
 from lang2seg_tpu_torch.config import Config, apply_variant, flagship_config  # noqa: E402
 from lang2seg_tpu_torch.data.fixtures import mini_refer_split  # noqa: E402
 from lang2seg_tpu_torch.data.loader import GtBatchLoader  # noqa: E402
@@ -156,10 +179,15 @@ record = {}
 # the 16 bucket; training, the response step (phase 7), the cycle_response
 # step (phase 9) and the file-backed run (phase 12)
 LAUNCHED_BY = {"serve": lambda counter: (("serve", counter),
-                                         ("eval_file_16", counter)),
+                                         ("eval_file_16", counter),
+                                         ("host_modes_16", counter)),
                "train": lambda counter: (("train", counter),
                                          ("train_cycle", counter),
                                          ("train_file", counter))}
+# NMS runs at the same shapes in the `vgg` preset (phase 14): its requests
+# and steps count towards the NMS entries, its C = 512 gate to its own
+VGG_NMS_RUNS = {"serve": (("serve_vgg", "nms"),),
+                "train": (("train_vgg", "nms"),)}
 EVAL_BUCKETS = (8, 16, 32)
 
 
@@ -282,7 +310,7 @@ def check_nms(dev):
                "replaces": "lang2seg_tpu/ops/nms_pallas.py:196",
                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound, "bound_by": by, "library_ms": None,
-               "launched_by": LAUNCHED_BY[path]("nms")}
+               "launched_by": LAUNCHED_BY[path]("nms") + VGG_NMS_RUNS[path]}
         csize = nms_cuda.cluster_size(dev, e, n, max_out)
         log(f"[nms] ({e}, {n})->{max_out}: kernel {ms:.4f} ms device time "
             f"({csize} CTAs a lane; back-to-back calls {events_ms:.4f} ms), "
@@ -884,7 +912,8 @@ def check_eval_kernels(dev, regs):
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound, "bound_by": by, "library_ms": None,
                "cluster_size": csize,
-               "launched_by": ((f"eval_file_{e}", "nms"),)}
+               "launched_by": ((f"eval_file_{e}", "nms"),
+                               (f"host_modes_{e}", "nms"))}
         log(f"[eval-kernels] nms ({e}, {n})->{max_out}: bit-identical={same}"
             f" kept/lane={kept}; kernel {ms:.4f} ms device time ({csize} "
             f"CTAs a lane), plain {plain_ms:.2f} ms, bound "
@@ -923,7 +952,8 @@ def check_eval_kernels(dev, regs):
                              "tile_pixels": plan["tile_pixels"],
                              "tiles_per_block": plan["tiles_per_block"]},
                "registers": regs["forward"]["registers"],
-               "launched_by": ((f"eval_file_{e}", "fused_filter"),)}
+               "launched_by": ((f"eval_file_{e}", "fused_filter"),
+                               (f"host_modes_{e}", "fused_filter"))}
         log(f"[eval-kernels] gate ({e}, 40, 64, 1024) bf16 K=7 stride-0 map:"
             f" resp err {resp_err:.3e} (tol {resp_tol:.3e}), gated {ulps} "
             f"bf16 ulp ({ulps_given_resp} given its response); kernel "
@@ -1138,6 +1168,355 @@ def learning_proof():
         "wall_seconds": wall}
 
 
+# ------------------------------------------------------------ phases 14-16
+
+VGG_GATE = (16, 40, 64, 512, 7)          # E, H, W, C, K of the `vgg` gate
+
+
+def vgg_gate_registers():
+    """ptxas's registers a thread of the C = 512 bf16 gate kernels (K=7,
+    sigmoid; the backward at G = C / 4 threads a pixel), None where the
+    build log has no line for one."""
+    regs = kernel_registers(_build.library_path("fused_filter").with_name(
+        "build.log"))
+    want = {"forward": "fused_filter_mma_kernel<7, 512, true>",
+            "backward": "fused_filter_bwd_kernel<__nv_bfloat16, 7, 128, true>"}
+    out = {}
+    for kind, key in want.items():
+        hits = [v[0] for name, v in regs.items() if key in name]
+        out[kind] = hits[0] if len(hits) == 1 else None
+    return out
+
+
+def check_gate_vgg(dev):
+    """Phase 14's kernels: the gate at the `vgg` width, (16, 40, 64, 512)
+    bf16 K=7 sigmoid normalized, forward through a stride-0 map (serving)
+    and a gathered one (training) to phase 4's tolerances, the backward on
+    the gathered map to phase 4b's; each timed beside its bound."""
+    e, h, w, c, k = VGG_GATE
+    regs = vgg_gate_registers()
+    results = []
+    for seed, (maps, path) in enumerate((("broadcast", "serve_vgg"),
+                                         ("gathered", "train_vgg"))):
+        conv, filt, rfilt, d_gated, d_resp = gate_inputs(
+            e, h, w, c, k, maps, dev, seed=30 + seed)
+        args = (conv, filt, rfilt, k, "sigmoid", True)
+        gk, rk = fused_filter.fused_dynamic_filter(*args)
+        gp, rp = fused_dynamic_filter_plain(*args)
+        torch.cuda.synchronize()
+        resp_err = float((rk - rp).abs().max())
+        resp_tol = 1e-5 * float(rp.abs().max())
+        ulps = int(bf16_ulp_distance(gk.float(), gp.float()).max())
+        same_g = (conv.float() * torch.sigmoid(rk)).to(torch.bfloat16)
+        ulps_given_resp = int(bf16_ulp_distance(gk.float(),
+                                                same_g.float()).max())
+        log(f"[vgg-gate] {maps} map ({e}, {h}, {w}, {c}) bf16 K=7: resp err "
+            f"{resp_err:.3e} (tol {resp_tol:.3e}), gated {ulps} bf16 ulp "
+            f"({ulps_given_resp} given its response)")
+        check(resp_err <= resp_tol, "C = 512 gate response out of tolerance")
+        check(ulps <= 1 and ulps_given_resp <= 1,
+              "C = 512 gate gated map beyond 1 bf16 ulp")
+        call = (lambda a=args: fused_filter.fused_dynamic_filter(*a))
+        ms = device_ms(call, 50)
+        plan = fused_filter.plans["forward"]
+        check(plan["grid"][1] == e, "gate forward plan of another shape")
+        plain_ms = time_ms(lambda a=args: fused_dynamic_filter_plain(*a), 5)
+        nmaps = 1 if maps == "broadcast" else e
+        bound, by, byts, ops = gate_bound(e, h, w, c, k, 2, nmaps)
+        res = {"name": f"fused_filter_vgg_{path.split('_')[0]}",
+               "route": "cuda",
+               "source": "lang2seg_tpu_torch/csrc/fused_filter.cu",
+               "replaces": "lang2seg_tpu/ops/pallas_kernels.py:85",
+               "max_abs_err": float((gk.float() - gp.float()).abs().max()),
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": by, "library_ms": None,
+               "tile_plan": {"grid": plan["grid"],
+                             "tile_pixels": plan["tile_pixels"],
+                             "tiles_per_block": plan["tiles_per_block"]},
+               "registers": regs["forward"],
+               "launched_by": ((path, "fused_filter"),)}
+        log(f"[vgg-gate] {maps}: kernel {ms:.4f} ms device time, plain "
+            f"{plain_ms:.3f} ms, bound {bound * 1e3:.2f} us ({by}: {byts} B, "
+            f"{ops} ops); plan {res['tile_plan']}, registers {regs}")
+        record[res["name"]] = dict(res, bytes=byts, ops=ops,
+                                   resp_max_abs_err=resp_err)
+        results.append(res)
+    # the backward on the gathered map, as trained
+    bargs = (conv, filt, rfilt, rk, d_gated, d_resp, k, "sigmoid", True)
+    got = fused_filter.fused_dynamic_filter_bwd(*bargs)
+    want = fused_dynamic_filter_bwd_plain(*bargs)
+    again = fused_filter.fused_dynamic_filter_bwd(*bargs)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps_floored(got[0], want[0])
+    dconv_err = float((got[0].float() - want[0].float()).abs().max())
+    errs = [float((a - b).abs().max()) for a, b in zip(got[1:], want[1:])]
+    tols = [1e-3 * float(b.abs().max()) for b in want[1:]]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"[vgg-gate-bwd] d_conv {ulps:.2f} bf16 ulp (floored), max abs "
+        f"{dconv_err:.3e}; d_filt err {errs[0]:.3e} (tol {tols[0]:.3e}); "
+        f"d_rfilt err {errs[1]:.3e} (tol {tols[1]:.3e}); repeatable={same}")
+    check(ulps <= 2.0, "C = 512 gate backward d_conv beyond 2 bf16 ulps")
+    check(errs[0] <= tols[0] and errs[1] <= tols[1],
+          "C = 512 gate backward d_filt / d_rfilt out of tolerance")
+    check(same, "C = 512 gate backward not repeatable")
+    call = (lambda: fused_filter.fused_dynamic_filter_bwd(*bargs))
+    ms = device_ms(call, 50)
+    plan = fused_filter.plans["backward"]
+    plain_ms = time_ms(lambda: fused_dynamic_filter_bwd_plain(*bargs), 5)
+    bound, by, byts, ops = gate_bwd_bound(e, h, w, c, k, 2, e)
+    res = {"name": "fused_filter_bwd_vgg", "route": "cuda",
+           "source": "lang2seg_tpu_torch/csrc/fused_filter.cu",
+           "replaces": "lang2seg_tpu/ops/pallas_kernels.py:147",
+           "max_abs_err": max([dconv_err] + errs), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": None,
+           "tile_plan": {"grid": plan["grid"],
+                         "tile_pixels": plan["tile_pixels"],
+                         "tiles_per_block": plan["tiles_per_block"]},
+           "registers": regs["backward"],
+           "launched_by": (("train_vgg", "fused_filter_bwd"),)}
+    log(f"[vgg-gate-bwd] kernel {ms:.4f} ms device time, plain "
+        f"{plain_ms:.3f} ms, bound {bound * 1e3:.2f} us ({by}: {byts} B, "
+        f"{ops} ops); plan {res['tile_plan']}")
+    record["fused_filter_bwd_vgg"] = dict(res, bytes=byts, ops=ops,
+                                          d_filt_err=errs[0],
+                                          d_rfilt_err=errs[1])
+    results.append(res)
+    return results
+
+
+def serve_vgg():
+    """Phase 14's serving: the detection-only `vgg` model at full width,
+    3 requests of 4, 8 and 16 expressions through Inference.predict and
+    Evaluator.eval_image, each launching NMS and the gate once; no mask
+    branch (boxes_to_masks refuses)."""
+    cfg = flagship_config("vgg")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"[serve-vgg] vgg model built in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in model.state_dict().values())} weights)")
+    inf, ev = Inference(model, cfg), Evaluator(model, cfg)
+    sizes = ((4, 1), (8, 2), (16, 3))
+    for num_expr, seed in sizes:
+        ev.eval_image(synthetic_eval_request(cfg, num_expr, 100 + seed, 1.6),
+                      SegEvalAccumulator())
+    torch.cuda.synchronize()
+    acc, timings = SegEvalAccumulator(), []
+    torch.cuda.reset_peak_memory_stats()
+    nms_cuda.launches = fused_filter.launches = 0
+    for num_expr, seed in sizes:
+        b = synthetic_eval_request(cfg, num_expr, seed, 1.6)
+        n0, f0 = nms_cuda.launches, fused_filter.launches
+        t0 = time.perf_counter()
+        out = inf.predict(b["images"], b["im_hw"], b["labels"])
+        torch.cuda.synchronize()
+        t_pred = (time.perf_counter() - t0) * 1e3
+        check((nms_cuda.launches - n0, fused_filter.launches - f0) == (1, 1))
+        r = cfg.test.rpn_post_nms_top_n
+        shapes = {"rois": (num_expr, r, 4), "cls_prob": (num_expr, r, 81),
+                  "bbox_pred": (num_expr, r, 324),
+                  "gated_conv": (num_expr, 40, 64, 512),
+                  "response": (num_expr, 40, 64, 1)}
+        for k, shp in shapes.items():
+            check(tuple(out[k].shape) == shp, (k, tuple(out[k].shape)))
+            check(bool(torch.isfinite(out[k].float()).all()), k)
+        n0, f0 = nms_cuda.launches, fused_filter.launches
+        t0 = time.perf_counter()
+        ev.eval_image(b, acc)
+        torch.cuda.synchronize()
+        t_eval = (time.perf_counter() - t0) * 1e3
+        check((nms_cuda.launches - n0, fused_filter.launches - f0) == (1, 1))
+        timings.append({"expressions": num_expr, "predict_ms": t_pred,
+                        "eval_image_ms": t_eval})
+        log(f"[serve-vgg] request E={num_expr}: predict {t_pred:.1f} ms, "
+            f"eval_image (detection-only) {t_eval:.1f} ms")
+    launches = {"nms": nms_cuda.launches,
+                "fused_filter": fused_filter.launches}
+    try:
+        inf.boxes_to_masks(out["gated_conv"], out["rois"][:, :2],
+                           torch.ones((16, 2), dtype=torch.int64))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "a detection-only model served masks")
+    summary = acc.summary()
+    check(acc.num_sent == 28 and acc.seg_total == 0)
+    check(all(0.0 <= float(v) <= 1.0 for v in summary.values()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[serve-vgg] main-path launches {launches}; det acc "
+        f"{summary['det_acc']:.4f}; peak device memory {peak:.2f} GiB")
+    record["serve_vgg"] = {"timings": timings, "launches": launches,
+                           "metrics": {k: float(v) for k, v in
+                                       summary.items()}, "peak_gib": peak}
+    return launches
+
+
+def train_vgg():
+    """Phase 14's training: phase 7's checks on the `vgg` preset; the
+    frozen parameters are exactly conv1_* and conv2_*."""
+    launches, trainer = train_full_width("train_vgg", flagship_config("vgg"))
+    frozen = sorted(n for n, p in trainer.state.model.named_parameters()
+                    if not p.requires_grad)
+    check(frozen == sorted(f"vgg.features.{i}.{p}" for i in (0, 2, 5, 7)
+                           for p in ("weight", "bias")),
+          f"the vgg frozen set is {frozen}")
+    check(all("loss_mask" not in ls for ls in record["train_vgg"]["losses"]))
+    return launches
+
+
+def host_modes():
+    """Phase 16: the evaluator's host paths on the card. The flagship
+    `response` model is first trained 6 steps on the mini REFER split (as
+    in phase 12), so that its masks overlap the GT ones, and saved as a
+    params file for `cli.eval --params`. Returns the launch counts of its
+    eval images by sentence bucket."""
+    info, labels, read = mini_refer_split(
+        ((427, 640), (640, 427)) * 4, (2, 3, 6, 3, 2, 6, 3, 6),
+        ("train",) * 4 + ("val",) * 2 + ("testA",) * 2, seed=0)
+
+    def in_memory(loader_cls, prepro_dir, cfg):
+        loader = loader_cls(info, labels, cfg, seed=cfg.seed, read_image=read)
+        cfg.model.vocab_size = cfg.model.cap_vocab_size = loader.vocab_size
+        return loader
+
+    cfg = flagship_config()
+    cfg.train.images_per_batch, cfg.train.expressions_per_batch = 2, 16
+    cfg.train.display = cfg.train.summary_interval = 10 ** 9
+    trainer = Trainer(cfg, in_memory(GtBatchLoader, None, cfg),
+                      device="cuda", seed=0)
+    trainer.train(6)
+    trained = {k: v.detach().clone()
+               for k, v in trainer.state.model.state_dict().items()}
+    del trainer
+
+    per_image, dispatch = [], Evaluator.dispatch_image
+
+    def counted(self, batch, sent_valid=None):
+        c0 = (nms_cuda.launches, fused_filter.launches)
+        rec = dispatch(self, batch, sent_valid)
+        per_image.append((batch["labels"].shape[0],
+                          nms_cuda.launches - c0[0],
+                          fused_filter.launches - c0[1]))
+        return rec
+
+    real_open = cli_eval.open_loader
+    cli_eval.open_loader = in_memory
+    Evaluator.dispatch_image = counted
+    results, seconds = {}, {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+            params = os.path.join(tmp, "trained.pth")
+            torch.save(trained, params)
+            for mode, flags in (("device_paste", []),
+                                ("host_paste", ["--host-paste"]),
+                                ("reference_exact", ["--reference-exact"])):
+                t0 = time.perf_counter()
+                res = cli_eval.main(
+                    ["--variant", "response", "--output-dir", tmp,
+                     "--params", params, "--splits", "val", "testA",
+                     "--set", "model.normalize_response", "true"] + flags)
+                torch.cuda.synchronize()
+                seconds[mode] = time.perf_counter() - t0
+                results[mode] = {sp: {k: float(v) for k, v in r.items()}
+                                 for sp, r in res.items()}
+                log(f"[host-modes] cli.eval {mode}: "
+                    f"{ {sp: {k: round(v, 4) for k, v in r.items()} for sp, r in results[mode].items()} }"
+                    f" in {seconds[mode]:.1f} s (model build included)")
+    finally:
+        cli_eval.open_loader = real_open
+        Evaluator.dispatch_image = dispatch
+    for sp in ("val", "testA"):
+        dev_r, host_r, ref_r = (results[m][sp] for m in
+                                ("device_paste", "host_paste",
+                                 "reference_exact"))
+        check(dev_r["det_acc"] == host_r["det_acc"] == ref_r["det_acc"],
+              "det acc differs between the paste modes")
+        check(abs(dev_r["overall_iou"] - host_r["overall_iou"]) <= 1e-3,
+              ("host vs device paste IoU", sp, dev_r["overall_iou"],
+               host_r["overall_iou"]))
+        check(all(0.0 <= v <= 1.0 for r in (dev_r, host_r, ref_r)
+                  for v in r.values()))
+    check(all(n == 1 and f == 1 for _, n, f in per_image),
+          "an eval image did not launch NMS and the gate once")
+
+    # one 768 x 1024 image: its original extent exceeds the 640 x 640
+    # device buffers, so its masks are pasted back on the host
+    big_info, big_labels, big_read = mini_refer_split(
+        ((768, 1024),), (3,), ("val",), seed=5)
+    loader = GtBatchLoader(big_info, big_labels, cfg, seed=0,
+                           read_image=big_read)
+    model = build_model(cfg, device="cuda", state_dict=trained)
+    ev = Evaluator(model, cfg)
+    batch = loader.get_test_batch("val", buckets=EVAL_BUCKETS)
+    c0 = (nms_cuda.launches, fused_filter.launches)
+    t0 = time.perf_counter()
+    rec = ev.dispatch_image(batch, batch["sent_valid"])
+    acc = SegEvalAccumulator()
+    ev.drain(rec, acc)
+    t_big = (time.perf_counter() - t0) * 1e3
+    per_image.append((batch["labels"].shape[0],
+                      nms_cuda.launches - c0[0],
+                      fused_filter.launches - c0[1]))
+    check(per_image[-1][1:] == (1, 1))
+    check("probs" in rec and "inter" not in rec,
+          "the large image was not pasted back on the host")
+    # the spread of each sentence's 14 x 14 probabilities: a constant mask
+    # bytescales to all zeros in the reference-exact chain
+    spread = (rec["probs"].amax(dim=(1, 2))
+              - rec["probs"].amin(dim=(1, 2))).float().cpu().tolist()
+    check(acc.seg_total == acc.num_sent == int(batch["sent_valid"].sum()))
+    big = {k: float(v) for k, v in acc.summary().items()}
+    check(all(0.0 <= v <= 1.0 for v in big.values()))
+    log(f"[host-modes] 768 x 1024 image (scaled to {batch['im_hw'][0]}, "
+        f"{acc.num_sent} sentences) pasted back on the host in "
+        f"{t_big:.1f} ms: {big}; max - min of each sentence's mask "
+        f"probabilities {[round(x, 6) for x in spread]}")
+
+    # test mode 'top': the top 5000 anchors by score, no NMS
+    top = flagship_config()
+    top.test.mode = "top"
+    top.model.vocab_size = top.model.cap_vocab_size = cfg.model.vocab_size
+    model.cfg = top
+    ev_top, inf_top = Evaluator(model, top), Inference(model, top)
+    b = synthetic_eval_request(top, 2, seed=9, im_scale=1.6)
+    ev_top.eval_image(b, SegEvalAccumulator())             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = (nms_cuda.launches, fused_filter.launches)
+    t0 = time.perf_counter()
+    out = inf_top.predict(b["images"], b["im_hw"], b["labels"])
+    torch.cuda.synchronize()
+    t_pred = (time.perf_counter() - t0) * 1e3
+    check(tuple(out["rois"].shape) == (2, top.test.rpn_top_n, 4)
+          and bool(out["roi_valid"].all()))
+    check(bool(torch.isfinite(out["cls_prob"]).all()))
+    acc = SegEvalAccumulator()
+    t0 = time.perf_counter()
+    ev_top.eval_image(b, acc)
+    torch.cuda.synchronize()
+    t_eval = (time.perf_counter() - t0) * 1e3
+    top_launches = (nms_cuda.launches - c0[0], fused_filter.launches - c0[1])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(top_launches == (0, 2), "test mode 'top' launched NMS")
+    log(f"[host-modes] test mode 'top' (rpn_top_n {top.test.rpn_top_n}, E = 2):"
+        f" predict {t_pred:.1f} ms, eval_image {t_eval:.1f} ms, peak "
+        f"{peak:.2f} GiB; launches (nms, gate) {top_launches}")
+    record["host_modes"] = {
+        "cli_eval": results, "cli_eval_seconds": seconds,
+        "eval_per_image": per_image, "large_image": big,
+        "large_image_ms": t_big, "large_image_prob_spread": spread,
+        "top_predict_ms": t_pred,
+        "top_eval_image_ms": t_eval, "top_peak_gib": peak,
+        "top_launches": top_launches}
+    runs = {}
+    for b_ in EVAL_BUCKETS:
+        k = sum(1 for s_, _, _ in per_image if s_ == b_)
+        runs[f"host_modes_{b_}"] = {"nms": k, "fused_filter": k}
+    del model, ev, ev_top, inf_top
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1165,6 +1544,11 @@ def main():
     phase7_ms = float(np.mean(record["train"]["step_ms"]))
     runs.update(file_backed_path(phase7_ms))
     learning_proof()
+    kernels += check_gate_vgg(dev)
+    runs["serve_vgg"] = serve_vgg()
+    runs["train_vgg"] = train_vgg()
+    small_train_reference("train_vgg_reference", "vgg")
+    runs.update(host_modes())
     for kr in kernels:
         kr["launches"] = sum(runs[path].get(counter, 0)
                              for path, counter in kr["launched_by"])

@@ -6,9 +6,13 @@ RPN with NMS, ROI crop, layer4 tail, box and selected-class mask heads;
 in training also the anchor and ROI samplers, the five losses and the
 per-group SGD) run in PyTorch, with three hand-written CUDA kernels:
 greedy NMS (`ops/nms_cuda.py`), and the fused conditioning gate and its
-gradient (`ops/fused_filter.py`). Training reads REFER-format data
+gradient (`ops/fused_filter.py`). The detection-only `vgg` variant
+(VGG16, `models/vgg.py`) and the caption-consistency variants train on
+the same kernels. Training reads REFER-format data
 (`data/loader.py`) with snapshots and resume (`engine/trainer.py`),
-evaluation scores whole splits (`engine/evaluator.py::eval_split`), and
+evaluation scores whole splits (`engine/evaluator.py::eval_split`: on
+the device, on the host, detection-only or with the reference's exact
+metric chain), and
 `cli/train.py` / `cli/eval.py` drive both. The module layout
 mirrors `lang2seg_tpu/` so each counterpart is found under the same
 name; public functions keep its NHWC layouts.

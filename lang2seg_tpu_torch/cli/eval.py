@@ -6,9 +6,11 @@ Counterpart of `lang2seg_tpu/cli/eval.py` (reference `tools/eval*.py` +
 score each split with `Evaluator.eval_split` (sentences padded to the
 smallest fitting bucket, masks as the ref-deduped bank), print det acc,
 seg Prec@X and overall IoU, and append the line to
-`<output-dir>/det_results.txt` and `mask_results.txt`
-(tools/eval.py:97-125). `--device cpu` runs the plain PyTorch path; the
-default is the card.
+`<output-dir>/det_results.txt` and, with a mask head, `mask_results.txt`
+(tools/eval.py:97-125). `--reference-exact` scores with the reference's
+own metric chain on the host (loader GT masks included), `--host-paste`
+pastes the masks back on the host. `--device cpu` runs the plain
+PyTorch path; the default is the card.
 """
 
 from __future__ import annotations
@@ -39,17 +41,20 @@ def build_parser():
     p.add_argument("--images-per-dispatch", type=int, default=1,
                    help="only 1 is ported")
     p.add_argument("--reference-exact", action="store_true",
-                   help="the reference's host metric chain (not ported)")
+                   help="the reference's metric chain on the host: the "
+                        "bytescale + bilinear paste-back cut at > 122 and "
+                        "Pillow-NEAREST GT masks, in the loader too")
+    p.add_argument("--host-paste", action="store_true",
+                   help="paste the masks back on the host (recover_masks "
+                        "and nearest_resize) instead of the device")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.reference_exact:
-        raise NotImplementedError(
-            "the reference-exact eval mode is not ported (ROADMAP Queue 1 "
-            "#4)")
     cfg, tag, prepro_dir, output_dir = setup(args)
+    if args.reference_exact:
+        cfg.data.reference_exact_masks = True
 
     from ..data.loader import GtBatchLoader
     loader = open_loader(GtBatchLoader, prepro_dir, cfg)
@@ -77,7 +82,9 @@ def main(argv=None):
     else:
         print("WARNING: no snapshot found, evaluating fresh init")
 
-    evaluator = Evaluator(model, cfg, device=args.device)
+    evaluator = Evaluator(model, cfg, device=args.device,
+                          device_paste=not args.host_paste,
+                          reference_exact=args.reference_exact)
     results = {}
     for split in args.splits:
         res = evaluator.eval_split(
@@ -89,7 +96,9 @@ def main(argv=None):
                 + " ".join(f"{k}={v:.4f}" for k, v in sorted(res.items())))
         print(line)
         os.makedirs(output_dir, exist_ok=True)
-        for name in ("det_results.txt", "mask_results.txt"):
+        names = ("det_results.txt",) + (
+            ("mask_results.txt",) if cfg.model.use_mask_head else ())
+        for name in names:
             with open(os.path.join(output_dir, name), "a") as f:
                 f.write(line + "\n")
         results[split] = res

@@ -209,8 +209,9 @@ class DataConfig:
     wire_uint8_images: bool = True
     wire_packed_masks: bool = True
     # eval wire formats: the ref-deduped mask bank (the port's loader and
-    # Evaluator); the extent crop is not ported yet (ROADMAP), nor the
-    # reference-exact masks (the loader raises for them)
+    # Evaluator); the extent crop is not ported yet (ROADMAP). The
+    # reference-exact masks resize GT masks as the reference's scipy
+    # imresize does (Pillow NEAREST)
     wire_mask_bank: bool = True
     wire_extent_crop: bool = True
     wire_extent_granularity: int = 128
@@ -305,10 +306,10 @@ VARIANTS = ("baseline", "spatial", "response", "vgg", "cycle",
 def apply_variant(cfg: Config, variant: str) -> Config:
     """Named presets of the reference's per-variant entry points
     (tools/train_*.py). The port trains and serves `baseline`, `spatial`,
-    `response`, `cycle` and `cycle_response`; the other presets set their
-    fields the same way, for configs shared with the JAX package, but
-    their paths (VGG, no-language) are not ported yet and the model
-    raises for them."""
+    `response`, `vgg` (VGG16, detection-only), `cycle` and
+    `cycle_response`; `pretrain` sets its fields the same way, for
+    configs shared with the JAX package, but its no-language path is not
+    ported yet and the model raises for it."""
     m, t = cfg.model, cfg.train
     if variant == "baseline":
         m.num_filters = 1
@@ -357,8 +358,10 @@ def flagship_config(variant: str = "response") -> Config:
     1/sqrt(C) response normalization, on the 640x1024 canvas. Another
     `variant` gives that preset at the same width with the normalization,
     as the JAX package's experiments/bench_variants.py builds it (e.g.
-    `cycle_response`, the paper's full model)."""
+    `cycle_response`, the paper's full model). The `vgg` preset keeps its
+    VGG16 (C4 512, detection-only)."""
     cfg = apply_variant(Config(), variant)
-    cfg.model.backbone = "resnet101"
+    if cfg.model.backbone != "vgg16":
+        cfg.model.backbone = "resnet101"
     cfg.model.normalize_response = True
     return cfg

@@ -32,6 +32,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from ..config import Config
+from ..utils.metrics import scipy_imresize
 from . import rle as rle_codec
 
 
@@ -208,12 +209,18 @@ class GtBatchLoader(Loader):
         return canvas, scale, sh, sw
 
     def _ref_mask(self, rid: int, sh: int, sw: int) -> np.ndarray:
-        if self.cfg.data.reference_exact_masks:
-            raise NotImplementedError(
-                "reference-exact masks are not ported (ROADMAP Queue 1 #4)")
+        """A ref's GT mask nearest-resized to the scaled extent, on the
+        canvas: exact-rational nearest, or with cfg.data.
+        reference_exact_masks the reference's scipy imresize (Pillow
+        NEAREST, gt_mrcn_loader.py:210)."""
         d = self.cfg.data
-        return rle_codec.decode_resize_batch([self.Refs[rid]["rle"]],
-                                             d.canvas_h, d.canvas_w,
+        rle = self.Refs[rid]["rle"]
+        if d.reference_exact_masks:
+            out = np.zeros((d.canvas_h, d.canvas_w), np.uint8)
+            out[:sh, :sw] = scipy_imresize(rle_codec.decode(rle), (sh, sw),
+                                           "nearest")
+            return out
+        return rle_codec.decode_resize_batch([rle], d.canvas_h, d.canvas_w,
                                              sh, sw)[0]
 
     # ---- batching ----

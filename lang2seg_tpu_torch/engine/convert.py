@@ -4,7 +4,11 @@ Counterpart of `lang2seg_tpu/engine/convert.py::load_params_file`
 (`:239-257`). The port's keys are the reference network's keys, so:
   * a `.pth` / `.pt` file (the reference's `net.state_dict()`, or the
     port's own) is read as it is; the caller copies what matches with
-    `engine/checkpoint.py::tolerant_restore`;
+    `engine/checkpoint.py::tolerant_restore`. A reference
+    `vgg16_faster_rcnn` file holds `vgg.features.*` and
+    `vgg.classifier.{0,3,6}.*`: the port's VGG16 takes fc6 in the
+    reference's channel-major layout, and `classifier.6` (torchvision's
+    1000-way layer) has no home, as in the JAX package;
   * a `.npz` file (the JAX package's flat `a/b/c` params tree, as its
     `engine/train_captioner.py` saves `model-best.npz`) is unflattened
     and carried over by `weights.from_jax_params`.

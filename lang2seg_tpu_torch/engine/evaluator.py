@@ -1,23 +1,36 @@
 """Referring-expression evaluation.
 
-Counterpart of `lang2seg_tpu/engine/evaluator.py::Evaluator` on its
-device-paste path (reference eval_split, `model/test.py:185-450`): all
-sentences of an image run through one `test_forward`; per sentence the
-per-class boxes are decoded in original-image coordinates and the
-single global argmax over scores[:, 1:] is taken (`_select_fn`); the mask
-branch runs on that box; the 14x14 probs are pasted back on fixed
-(max_orig_h, max_orig_w) buffers, cut at 122/255 and scored against the
-nearest-resized GT mask (`_paste_iou_fn`); the host accumulates det acc,
-Prec@X and overall IoU (`utils/metrics.py::SegEvalAccumulator`). GT masks
-travel per sentence or as the loader's ref-deduped bank (expanded on the
-device), raw, or bit-packed (np.packbits along the width) when the
-canvas width is a multiple of 8. `eval_split` pipelines a split:
-`dispatch_image` enqueues an image's work, `drain` reads it back.
+Counterpart of `lang2seg_tpu/engine/evaluator.py::Evaluator` on one
+device (reference eval_split, `model/test.py:185-450`): all sentences of
+an image run through one `test_forward`; per sentence the per-class boxes
+are decoded in original-image coordinates and the single global argmax
+over scores[:, 1:] is taken (`_select_fn`); the mask branch runs on that
+box; the host accumulates det acc, Prec@X and overall IoU
+(`utils/metrics.py::SegEvalAccumulator`).
 
-Not ported yet (ROADMAP Queue 1 #4): the host paste-back for images
-beyond the paste buffers, the reference-exact mode, the extent-crop
-wire, staged uploads, several images a dispatch (`images_per_dispatch`)
-and multi-device eval.
+The 14x14 mask probabilities are pasted back in one of two places:
+  * on the device (`device_paste`, the default): on fixed (max_orig_h,
+    max_orig_w) buffers, cut at 122/255 and scored against the
+    nearest-resized GT mask (`_paste_iou_fn`), only I / U counts coming
+    back; GT masks travel per sentence or as the loader's ref-deduped
+    bank (expanded on the device), raw, or bit-packed (np.packbits along
+    the width) when the canvas width is a multiple of 8;
+  * on the host (`drain`): `recover_masks` + `nearest_resize`, cut at
+    122/255, or in the reference-exact mode (`reference_exact`, which
+    forces the host) the reference's own chain, `recover_masks_ref` (the
+    bytescale + Pillow-bilinear paste) cut at > 122 and Pillow-NEAREST GT
+    masks (`scipy_imresize`). The host also takes every image whose
+    original extent exceeds the device buffers.
+A detection-only model (no mask head, the `vgg` variant) is scored on
+its boxes alone. In test mode 'top' each image draws its proposals'
+random pad from a generator of its own, seeded from (cfg.seed, the
+image's uid); the uids are given out in dispatch order, on the calling
+thread. `eval_split` pipelines a split: `dispatch_image` enqueues an
+image's work, `drain` reads it back.
+
+Not ported yet (ROADMAP Queue 1 #4): the extent-crop wire, staged
+uploads, several images a dispatch (`images_per_dispatch`) and
+multi-device eval.
 """
 
 from __future__ import annotations
@@ -32,14 +45,36 @@ from ..config import Config
 from ..device import resolve_device
 from ..models.network import Lang2Seg, unpack_mask_bits
 from ..ops.boxes import decode_boxes
-from ..utils.metrics import SegEvalAccumulator
+from ..utils.metrics import (SegEvalAccumulator, nearest_resize,
+                             recover_masks, recover_masks_ref,
+                             scipy_imresize)
+
+
+def _host_expand_bank(batch: Dict) -> Dict:
+    """A batch whose ref-deduped mask bank is expanded to per-sentence
+    `gt_masks` on the host (the host paste-back reads those); a batch
+    without a bank as it is."""
+    if "gt_mask_bank" not in batch or "gt_masks" in batch:
+        return batch
+    out = dict(batch)
+    out["gt_masks"] = np.asarray(out.pop("gt_mask_bank"))[
+        np.asarray(out.pop("mask_ref_idx"), np.int64)]
+    return out
 
 
 class Evaluator:
-    def __init__(self, model: Lang2Seg, cfg: Config, device="cuda"):
+    def __init__(self, model: Lang2Seg, cfg: Config, device="cuda",
+                 device_paste: bool = True, reference_exact: bool = False):
+        """`device_paste` False pastes every mask back on the host;
+        `reference_exact` reproduces the reference's metric chain on the
+        host (pair it with cfg.data.reference_exact_masks for the
+        loader's GT masks)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
+        self.reference_exact = reference_exact
+        self.device_paste = device_paste and not reference_exact
+        self._rng_uid = 0
 
     @staticmethod
     def _extents(batch):
@@ -56,6 +91,13 @@ class Evaluator:
         """Whether an original extent fits the device-paste buffers."""
         return (ih <= self.cfg.data.max_orig_h
                 and iw <= self.cfg.data.max_orig_w)
+
+    def _image_generator(self, uid: int) -> Optional[torch.Generator]:
+        """Test mode 'top''s generator for the image of `uid`: a CPU
+        generator seeded from (cfg.seed, uid); None in mode 'nms'."""
+        if self.cfg.test.mode != "top":
+            return None
+        return torch.Generator().manual_seed((self.cfg.seed << 32) + uid)
 
     @staticmethod
     def _select_fn(rois, deltas, scores, valid, scale, ih, iw):
@@ -151,57 +193,89 @@ class Evaluator:
     @torch.no_grad()
     def dispatch_image(self, batch: Dict[str, np.ndarray],
                        sent_valid: Optional[np.ndarray] = None) -> Dict:
-        """Enqueue all the device work of one image (the forward, the box
-        selection, the mask branch and the paste-back with its I/U
-        counts) and return a record of device tensors for `drain`,
-        without reading anything back. GT masks come per sentence
-        (`gt_masks`) or as the ref-deduped bank (`gt_mask_bank` with
-        `mask_ref_idx`), which is expanded on the device."""
+        """Enqueue all the device work of one image and return a record of
+        device tensors for `drain`, without reading anything back. On the
+        device-paste path that is the forward, the box selection, the
+        mask branch and the paste-back with its I / U counts (GT masks
+        per sentence, `gt_masks`, or as the ref-deduped bank,
+        `gt_mask_bank` with `mask_ref_idx`, expanded on the device); on
+        the host path the forward, the selection and the mask branch's
+        probabilities (none without a mask head)."""
         m, d = self.cfg.model, self.cfg.data
-        if not m.use_mask_head:
-            raise NotImplementedError("detection-only eval is not ported")
         scale, sh, sw, ih, iw = self._extents(batch)
-        if not self._fits(ih, iw):
-            raise NotImplementedError(
-                f"original extent {ih}x{iw} exceeds the paste buffers "
-                f"{d.max_orig_h}x{d.max_orig_w}; host paste-back is not "
-                f"ported")
-        use_bank = "gt_mask_bank" in batch
-        gm = np.asarray(batch["gt_mask_bank" if use_bank else "gt_masks"])
-        packed = gm.shape[-1] % 8 == 0
-        gm_dev = self._put(np.packbits(gm > 0, axis=-1) if packed else gm)
-        if use_bank:
-            gm_dev = gm_dev.index_select(
-                0, self._put(batch["mask_ref_idx"], torch.int64))
+        self._rng_uid += 1
+        gen = self._image_generator(self._rng_uid)
+        rec = {"batch": batch, "scale": scale, "sent_valid": sent_valid,
+               "sh": sh, "sw": sw, "ih": ih, "iw": iw}
+        on_device = m.use_mask_head and self.device_paste and \
+            self._fits(ih, iw)
+        if on_device:
+            use_bank = "gt_mask_bank" in batch
+            gm = np.asarray(batch["gt_mask_bank" if use_bank else "gt_masks"])
+            packed = gm.shape[-1] % 8 == 0
+            gm_dev = self._put(np.packbits(gm > 0, axis=-1) if packed
+                               else gm)
+            if use_bank:
+                gm_dev = gm_dev.index_select(
+                    0, self._put(batch["mask_ref_idx"], torch.int64))
+        elif m.use_mask_head:
+            rec["batch"] = _host_expand_bank(batch)
         out = self.model.test_forward({
             "images": self._put(batch["images"]),
             "im_hw": self._put(batch["im_hw"], torch.float32),
-            "labels": self._put(batch["labels"])})
+            "labels": self._put(batch["labels"])}, gen)
         scale_t, ih_t, iw_t = self._put(np.float32([scale, ih, iw]))
         sel, cls = self._select_fn(
             out["rois"], out["bbox_pred"], out["cls_prob"], out["roi_valid"],
             scale_t, ih_t, iw_t)
+        rec["sel"] = sel
+        if not m.use_mask_head:
+            return rec
         probs = self.model.predict_masks(
             out["gated_conv"], (sel * scale_t)[:, None, :], cls[:, None])[:, 0]
-        inter, union = self._paste_iou_fn(
-            probs, sel, gm_dev, sh, sw, ih, iw,
-            oh=d.max_orig_h, ow=d.max_orig_w, packed=packed)
-        return {"batch": batch, "scale": scale, "sent_valid": sent_valid,
-                "sel": sel, "inter": inter, "union": union}
+        if on_device:
+            rec["inter"], rec["union"] = self._paste_iou_fn(
+                probs, sel, gm_dev, sh, sw, ih, iw,
+                oh=d.max_orig_h, ow=d.max_orig_w, packed=packed)
+        else:
+            rec["probs"] = probs
+        return rec
 
-    @staticmethod
-    def drain(rec: Dict, acc: SegEvalAccumulator) -> None:
-        """Read one dispatched image's results back and accumulate them."""
+    def drain(self, rec: Dict, acc: SegEvalAccumulator) -> None:
+        """Read one dispatched image's results back and accumulate them:
+        detections always; the device's I / U counts, or the masks pasted
+        back here."""
         sel = rec["sel"].cpu().numpy()
-        inter = rec["inter"].cpu().numpy()
-        union = rec["union"].cpu().numpy()
         sent_valid = rec["sent_valid"]
-        for i in range(sel.shape[0]):
-            if sent_valid is not None and not sent_valid[i]:
-                continue
-            gt_box = np.asarray(rec["batch"]["gt_boxes"][i, :4]) / rec["scale"]
+        live = [i for i in range(sel.shape[0])
+                if sent_valid is None or sent_valid[i]]
+        batch, scale = rec["batch"], rec["scale"]
+        for i in live:
+            gt_box = np.asarray(batch["gt_boxes"][i, :4]) / scale
             acc.add_detection(sel[i], gt_box)
-            acc.add_segmentation_iu(int(inter[i]), int(union[i]))
+        if "inter" in rec:
+            inter = rec["inter"].cpu().numpy()
+            union = rec["union"].cpu().numpy()
+            for i in live:
+                acc.add_segmentation_iu(int(inter[i]), int(union[i]))
+        elif "probs" in rec:
+            probs = rec["probs"].float().cpu().numpy()
+            sh, sw, ih, iw = rec["sh"], rec["sw"], rec["ih"], rec["iw"]
+            for i in live:
+                gm = np.asarray(batch["gt_masks"][i])[:sh, :sw]
+                box = sel[i:i + 1].copy()
+                if self.reference_exact:
+                    # bytescale + Pillow-bilinear paste (mask_utils.py:
+                    # 43-72), the > 122 cut (test.py:334), Pillow-NEAREST
+                    # GT resize (test.py:338)
+                    pred = recover_masks_ref(probs[i:i + 1], box, ih,
+                                             iw)[0] > 122.0
+                    gt = scipy_imresize(gm, (ih, iw), "nearest")
+                else:
+                    pred = recover_masks(probs[i:i + 1], box, ih,
+                                         iw)[0] * 255.0 > 122.0
+                    gt = nearest_resize(gm, ih, iw)
+                acc.add_segmentation(pred.astype(np.uint8), gt)
 
     def eval_image(self, batch: Dict[str, np.ndarray],
                    acc: SegEvalAccumulator,

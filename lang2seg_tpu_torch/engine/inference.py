@@ -4,7 +4,9 @@ Counterpart of `lang2seg_tpu/engine/inference.py::Inference` (reference
 mrcn wrappers `lib/mrcn/inference.py:46-345`): `extract_head` (C4
 features), `predict` (test-mode forward), `boxes_to_masks` (mask probs
 for given boxes and labels), `box_to_spatial_fc7` (pooled ROI features),
-`head_to_prediction` (scores and deltas for ROI features).
+`head_to_prediction` (scores and deltas for ROI features). A
+detection-only model (the `vgg` variant) serves everything but
+`boxes_to_masks`.
 
 Inputs may be numpy arrays or tensors; outputs are tensors on the
 service's device (the gated map stays there for `boxes_to_masks`).
@@ -37,7 +39,7 @@ class Inference:
     def extract_head(self, images) -> torch.Tensor:
         """(B, H, W, 3) canvas -> (B, H/16, W/16, C) C4 features
         (reference extract_head, network.py:619)."""
-        return self.model.resnet.head(self.model._images(self._in(images)))
+        return self.model.backbone.head(self.model._images(self._in(images)))
 
     def predict(self, images, im_hw, labels) -> Dict[str, torch.Tensor]:
         """Full test-mode forward (reference mrcn predict)."""
@@ -47,15 +49,16 @@ class Inference:
 
     def boxes_to_masks(self, gated_conv, boxes, labels) -> torch.Tensor:
         """(E, B, 4) boxes + (E, B) class labels -> (E, B, S, S) mask
-        probs (reference boxes_to_masks)."""
+        probs (reference boxes_to_masks). Raises ValueError for a
+        detection-only model (no mask head)."""
         return self.model.predict_masks(self._in(gated_conv),
                                         self._in(boxes).float(),
                                         self._in(labels))
 
     @torch.no_grad()
     def box_to_spatial_fc7(self, gated_conv, rois) -> torch.Tensor:
-        """(E, R, 4) rois -> (E, R, 7, 7, D) pooled tail features
-        (reference box_to_spatial_fc7)."""
+        """(E, R, 4) rois -> (E, R, 7, 7, 2048) pooled tail features, or
+        (E, R, 1, 1, 4096) for VGG16 (reference box_to_spatial_fc7)."""
         return self.model._roi_features(self._in(gated_conv),
                                         self._in(rois).float())
 

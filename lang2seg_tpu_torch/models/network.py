@@ -6,18 +6,20 @@ Expressions are the batch axis. In serving an image's C4 map is computed
 once and broadcast (stride 0, no copy) over its expressions; in training
 each expression gathers its image's map (`img_idx`), and the gather's
 backward sums the expressions' gradients per image. The state_dict
-carries the reference network's keys (`resnet.*`, `rnn_encoder.*`, `dynamic_fc_0..6`, `response_fc`,
-`rpn_net`, `cls_score_net`, `mask_up_sampling`, ...), so the JAX
-package's `engine/convert.py::convert_torch_state_dict` maps it onto the
-JAX params tree.
+carries the reference network's keys (`resnet.*` or `vgg.*`,
+`rnn_encoder.*`, `dynamic_fc_0..6`, `response_fc`, `rpn_net`,
+`cls_score_net`, `mask_up_sampling`, ...), so the JAX package's
+`engine/convert.py::convert_torch_state_dict` maps it onto the JAX params
+tree.
 
-Ported: ResNet backbones, the language path, `num_filters` 1 or 7, both
-gates, test mode 'nms', pooling mode 'crop', the detection, mask and
-response losses, and the caption-consistency loss of the `cycle` and
-`cycle_response` variants (the att2in2 captioner, `caption_model.*`). The
-rest (VGG, MobileNet, no-language mode, 'top' proposals, 'pool' crops,
-the attribute head, `expr_uid` key folding) raises NotImplementedError
-here.
+Ported: the ResNet backbones and VGG16 (the detection-only `vgg` variant:
+C4 512, a 4096-wide fc6/fc7 tail, no mask head), the language path,
+`num_filters` 1 or 7, both gates, test modes 'nms' and 'top', pooling
+mode 'crop', the detection, mask and response losses, and the
+caption-consistency loss of the `cycle` and `cycle_response` variants
+(the att2in2 captioner, `caption_model.*`). The rest (MobileNet,
+no-language mode, 'pool' crops, the attribute head, `expr_uid` key
+folding) raises NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from torch import nn
 from ..config import Config
 from ..device import device_constant, resolve_device
 from ..ops.anchors import shifted_anchors
-from ..ops.proposals import proposal_layer
+from ..ops.proposals import proposal_layer, proposal_top_layer
 from ..ops.roi_align import roi_crop_pool
 from ..ops.targets import anchor_targets, proposal_targets
 from .caption_zoo import setup_captioner
@@ -39,6 +41,7 @@ from .dynamic_filter import DynamicFilterGen
 from .heads import BoxHead, MaskHead, RPNHead
 from .lang_encoder import RNNEncoder
 from .resnet import ResNetC4
+from .vgg import VGG16
 
 
 def smooth_l1(pred, target, inside_w, outside_w, sigma: float):
@@ -92,7 +95,7 @@ class Lang2Seg(nn.Module):
         super().__init__()
         self.cfg = cfg
         m = cfg.model
-        if not m.backbone.startswith("resnet"):
+        if not (m.backbone.startswith("resnet") or m.backbone == "vgg16"):
             raise NotImplementedError(f"backbone {m.backbone!r} is not ported")
         if not m.use_language:
             raise NotImplementedError("no-language mode is not ported")
@@ -100,8 +103,16 @@ class Lang2Seg(nn.Module):
             raise NotImplementedError("the attribute head is not ported")
         self.compute_dtype = (torch.bfloat16 if m.compute_dtype == "bfloat16"
                               else torch.float32)
-        self.resnet = ResNetC4(m.backbone, self.compute_dtype)
-        self.resnet.freeze(m.fixed_blocks)
+        # the reference names the backbone `vgg` or `resnet`; `backbone`
+        # reaches either
+        if m.backbone == "vgg16":
+            self.vgg = VGG16(self.compute_dtype)
+            self.vgg.freeze()
+            tail_dim = 4096
+        else:
+            self.resnet = ResNetC4(m.backbone, self.compute_dtype)
+            self.resnet.freeze(m.fixed_blocks)
+            tail_dim = 2048
         self.rnn_encoder = RNNEncoder(
             m.vocab_size, m.word_embedding_size, m.word_vec_size,
             m.rnn_hidden_size, m.bidirectional, m.word_drop_out)
@@ -114,9 +125,9 @@ class Lang2Seg(nn.Module):
             hidden, m.c4_feat_dim, m.num_filters, m.response_gate,
             m.normalize_response))
         self._set_head("rpn_head", RPNHead(m.c4_feat_dim, num_anchors))
-        self._set_head("box_head", BoxHead(2048, m.num_classes))
+        self._set_head("box_head", BoxHead(tail_dim, m.num_classes))
         if m.use_mask_head:
-            self._set_head("mask_head", MaskHead(2048, m.num_classes))
+            self._set_head("mask_head", MaskHead(tail_dim, m.num_classes))
         if m.use_caption_loss:
             self.caption_model = setup_captioner(m)
 
@@ -124,6 +135,11 @@ class Lang2Seg(nn.Module):
         for child_name, child in head.named_children():
             self.add_module(child_name, child)
         object.__setattr__(self, name, head)
+
+    @property
+    def backbone(self) -> nn.Module:
+        """The `ResNetC4` or `VGG16` (`head`, `tail`)."""
+        return self.vgg if self.cfg.model.backbone == "vgg16" else self.resnet
 
     # ---------- building blocks ----------
 
@@ -135,17 +151,24 @@ class Lang2Seg(nn.Module):
         _, hidden, _ = self.rnn_encoder(labels, generator)
         return self.filter_gen(net_conv, hidden)
 
-    def _roi_features(self, gated: torch.Tensor, rois: torch.Tensor
+    def _roi_features(self, gated: torch.Tensor, rois: torch.Tensor,
+                      generator: Optional[torch.Generator] = None
                       ) -> torch.Tensor:
         """gated: (E, h, w, C); rois: (E, R, 4) in scaled-image coords.
-        Returns spatial_fc7 (E, R, 7, 7, 2048)."""
+        Returns spatial_fc7 (E, R, 7, 7, 2048) (ResNet) or (E, R, 1, 1,
+        4096) (VGG16, whose tail draws its dropout masks from `generator`
+        in train mode)."""
         m = self.cfg.model
         if m.pooling_mode != "crop":
             raise NotImplementedError("pooling_mode 'pool' is not ported")
         crops = roi_crop_pool(gated, rois, m.pooling_size,
                               1.0 / m.feat_stride, m.max_pool)
         e, r = crops.shape[:2]
-        fc7 = self.resnet.tail(crops.reshape(e * r, *crops.shape[2:]))
+        flat = crops.reshape(e * r, *crops.shape[2:])
+        if m.backbone == "vgg16":
+            fc7 = self.vgg.tail(flat, generator)
+        else:
+            fc7 = self.resnet.tail(flat)
         return fc7.reshape(e, r, *fc7.shape[1:])
 
     def _gt_masks(self, gt_masks: torch.Tensor, canvas_w: int
@@ -199,8 +222,9 @@ class Lang2Seg(nn.Module):
         `targets` injects (AnchorTargets, ProposalTargets), either of them
         None to compute it, as the JAX package's train_forward does.
         `generator` draws, in this order: the word-dropout mask, the anchor
-        sampling priorities, the ROI sampling priorities, then the
-        captioner's dropout masks (and its scheduled-sampling draws).
+        sampling priorities, the ROI sampling priorities, then VGG16's fc6
+        and fc7 dropout masks (the `vgg` variant), then the captioner's
+        dropout masks (and its scheduled-sampling draws).
         Returns the loss dict with `total_loss`, all scalars on the
         device."""
         m, t = self.cfg.model, self.cfg.train
@@ -220,7 +244,7 @@ class Lang2Seg(nn.Module):
             gt_valid = torch.ones(gt_boxes.shape[:2], dtype=torch.bool,
                                   device=gt_boxes.device)
 
-        net_conv_img = self.resnet.head(images)               # (I, h, w, C)
+        net_conv_img = self.backbone.head(images)             # (I, h, w, C)
         net_conv = net_conv_img.index_select(0, img_idx).contiguous()
         gated, response = self._condition(net_conv, batch["labels"],
                                           generator)
@@ -267,7 +291,7 @@ class Lang2Seg(nn.Module):
         rpn_loss_box = torch.sum(rpn_l1) / e
 
         # ---- ROI heads ----
-        spatial_fc7 = self._roi_features(gated, pt.rois)
+        spatial_fc7 = self._roi_features(gated, pt.rois, generator)
         r = spatial_fc7.shape[1]
         cls_score, bbox_pred = self.box_head(
             spatial_fc7.reshape(e * r, *spatial_fc7.shape[2:]))
@@ -358,20 +382,24 @@ class Lang2Seg(nn.Module):
     # ---------- inference ----------
 
     @torch.no_grad()
-    def test_forward(self, batch: Dict[str, torch.Tensor]
+    def test_forward(self, batch: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator] = None
                      ) -> Dict[str, torch.Tensor]:
         """Single-image, batched-expression inference.
 
         batch: images (1, H, W, 3), im_hw (1, 2), labels (E, T), all on
         the model's device. Returns per-expression rois / scores / boxes
         and the gated conv map for the follow-up mask prediction
-        (reference test_image, network.py:625-642)."""
+        (reference test_image, network.py:625-642). In test mode 'top'
+        with fewer anchors than `rpn_top_n`, `generator` draws the
+        proposals' random pad (default: a CPU generator seeded with
+        cfg.seed, as the JAX package keys it without an image uid)."""
         cfg, m, ts = self.cfg, self.cfg.model, self.cfg.test
-        if ts.mode != "nms":
-            raise NotImplementedError("test mode 'top' is not ported")
+        if ts.mode not in ("nms", "top"):
+            raise ValueError(f"unknown test mode {ts.mode!r}")
         labels = batch["labels"]
         e = labels.shape[0]
-        net_conv_img = self.resnet.head(self._images(batch["images"]))
+        net_conv_img = self.backbone.head(self._images(batch["images"]))
         net_conv = net_conv_img.contiguous().expand(
             e, *net_conv_img.shape[1:])
         gated, response = self._condition(net_conv, labels)
@@ -382,9 +410,17 @@ class Lang2Seg(nn.Module):
         n = anchors.shape[0]
         hw = batch["im_hw"][0].float()
         score_pos = torch.softmax(rpn_cls.reshape(e, n, 2), dim=-1)[..., 1]
-        props = proposal_layer(score_pos, rpn_box.reshape(e, n, 4), anchors,
-                               hw[0], hw[1], ts.rpn_pre_nms_top_n,
-                               ts.rpn_post_nms_top_n, ts.rpn_nms_thresh)
+        if ts.mode == "top":
+            if generator is None and n < ts.rpn_top_n:
+                generator = torch.Generator().manual_seed(cfg.seed)
+            props = proposal_top_layer(score_pos, rpn_box.reshape(e, n, 4),
+                                       anchors, hw[0], hw[1], ts.rpn_top_n,
+                                       generator)
+        else:
+            props = proposal_layer(score_pos, rpn_box.reshape(e, n, 4),
+                                   anchors, hw[0], hw[1],
+                                   ts.rpn_pre_nms_top_n,
+                                   ts.rpn_post_nms_top_n, ts.rpn_nms_thresh)
         spatial_fc7 = self._roi_features(gated, props.rois)
         r = spatial_fc7.shape[1]
         cls_score, bbox_pred = self.box_head(
@@ -409,6 +445,9 @@ class Lang2Seg(nn.Module):
 
         gated_conv: (E, h, w, C); boxes: (E, B, 4) scaled coords; labels:
         (E, B) int class ids. Returns (E, B, S, S) in [0, 1]."""
+        if not self.cfg.model.use_mask_head:
+            raise ValueError("predict_masks: this model has no mask head "
+                             "(a detection-only variant such as `vgg`)")
         s = self.cfg.model.mask_size
         fc7 = self._roi_features(gated_conv, boxes)
         e, b = fc7.shape[:2]

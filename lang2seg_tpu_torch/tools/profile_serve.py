@@ -55,7 +55,7 @@ def staged_request(model, cfg, b, dev):
     labels = torch.from_numpy(b["labels"]).to(dev)
     hw = torch.from_numpy(b["im_hw"]).to(dev)[0]
     st.mark("upload")
-    conv = model.resnet.head(model._images(images)).contiguous()
+    conv = model.backbone.head(model._images(images)).contiguous()
     st.mark("backbone_head")
     e = labels.shape[0]
     gated, _ = model._condition(conv.expand(e, *conv.shape[1:]), labels)
@@ -75,7 +75,7 @@ def staged_request(model, cfg, b, dev):
                           1.0 / m.feat_stride, m.max_pool)
     st.mark("roi_crop")
     r = crops.shape[1]
-    fc7 = model.resnet.tail(crops.reshape(e * r, *crops.shape[2:]))
+    fc7 = model.backbone.tail(crops.reshape(e * r, *crops.shape[2:]))
     st.mark("layer4_tail")
     model.box_head(fc7)
     st.mark("box_head")

@@ -11,9 +11,10 @@ two warm-up steps, then times one step in three stages with CUDA events
 update). With the caption loss (`cycle`, `cycle_response`) the caption
 branch is then timed alone on that step's own inputs, in four stages:
 layer4 on both full maps with the pools, the captioner's teacher-forced
-loop, its backward, and the backward through layer4. It profiles one
-more step with
-`torch.profiler`: the device's busy time against the host window, the
+loop, its backward, and the backward through layer4. With VGG16 (`vgg`)
+its tail, fc6 and fc7, is timed alone forward and backward on the step's
+number of ROI crops. It profiles one more step with `torch.profiler`:
+the device's busy time against the host window, the
 time of the port's three hand kernels, and the twelve largest
 device-time entries. A last step records its NMS input: per lane the
 boxes kept and the last box examined, the kernel's device time alone on
@@ -69,7 +70,7 @@ def caption_stages(model, batch, generator):
     graph), its four stages timed with CUDA events."""
     with torch.no_grad():
         images = model._images(batch["images"])
-        net_conv = model.resnet.head(images).index_select(
+        net_conv = model.backbone.head(images).index_select(
             0, batch["img_idx"].long())
         gated, _ = model._condition(net_conv, batch["labels"], generator)
         gt_masks = model._gt_masks(batch["gt_masks"], images.shape[2])
@@ -101,6 +102,28 @@ def caption_stages(model, batch, generator):
     model.zero_grad(set_to_none=True)
     return {name: a.elapsed_time(b)
             for (_, a), (name, b) in zip(marks, marks[1:])}
+
+
+def vgg_tail_stages(model, rois, generator):
+    """VGG16's tail (fc6 and fc7 in f32, with their dropout) alone on a
+    step's number of ROI crops (rois x 7 x 7 x 512 of the compute dtype),
+    forward and backward timed with CUDA events: fc6's share of the
+    step."""
+    crops = torch.randn((rois, 7, 7, 512), device="cuda").to(
+        model.compute_dtype).requires_grad_(True)
+    times = {}
+    for _ in range(2):                            # the first is a warm-up
+        a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        a.record()
+        out = model.vgg.tail(crops, generator)
+        b.record()
+        out.sum().backward()
+        c.record()
+        torch.cuda.synchronize()
+        times = {"vgg_tail_forward": a.elapsed_time(b),
+                 "vgg_tail_backward": b.elapsed_time(c)}
+    model.zero_grad(set_to_none=True)
+    return times
 
 
 def _device_us(evt):
@@ -139,6 +162,12 @@ def main(argv=None):
         caption = caption_stages(state.model, batches[2], gen)
         for k, v in caption.items():
             print(f"[caption] {k:22s} {v:9.3f} ms")
+    tail = {}
+    if cfg.model.backbone == "vgg16":
+        tail = vgg_tail_stages(state.model, args.expressions
+                               * cfg.train.roi_batch_size, gen)
+        for k, v in tail.items():
+            print(f"[vgg-tail] {k:22s} {v:9.3f} ms")
     torch.cuda.reset_peak_memory_stats()
     train_step(state, batches[2], gen)
     torch.cuda.synchronize()
@@ -195,7 +224,8 @@ def main(argv=None):
           f"tile {cycles}")
     print(json.dumps({"device": smi, "variant": args.variant, "images": 2,
                       "expressions": args.expressions, "stages_ms": stages,
-                      "caption_stages_ms": caption, "peak_gib": peak_gib,
+                      "caption_stages_ms": caption,
+                      "vgg_tail_stages_ms": tail, "peak_gib": peak_gib,
                       "window_ms": window_ms, "device_busy_ms": busy_ms,
                       "hand_kernels_ms": hand,
                       "nms_kept_per_lane": kept,

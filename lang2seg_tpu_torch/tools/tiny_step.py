@@ -3,9 +3,11 @@ card's kernels against their plain versions end to end.
 
     python -m lang2seg_tpu_torch.tools.tiny_step [--variant response]
 
-The step runs at the tiny test config (resnet26, 128x192 canvas, f32,
-normalized response, 2 images x 4 expressions) from the same weights, the
-same dropout draws (a CPU generator feeds both devices) and the same
+The step runs at the tiny test config (resnet26, or VGG16 for `--variant
+vgg`, 128x192 canvas, f32, normalized response, 2 images x 4
+expressions) from the same weights, the same dropout draws (a CPU
+generator feeds both devices: word dropout, VGG16's fc6 / fc7 dropout and
+the captioner's) and the same
 injected anchor and ROI targets (the port's samplers on jittered GT
 boxes), so that the two runs differ only by their kernels and by f32
 summation order. The LR is 1, so that each update stands far above the
@@ -34,9 +36,12 @@ from ..weights import init_params
 
 
 def tiny_config(variant: str = "response") -> Config:
+    """The variant's preset at the tiny size; ResNet presets get the
+    resnet26 depth, `vgg` keeps its VGG16 (whose depth is fixed)."""
     cfg = apply_variant(Config(), variant)
     cfg.data.canvas_h, cfg.data.canvas_w = 128, 192
-    cfg.model.backbone = "resnet26"
+    if cfg.model.backbone != "vgg16":
+        cfg.model.backbone = "resnet26"
     cfg.model.vocab_size = 100
     cfg.model.compute_dtype = "float32"
     cfg.model.normalize_response = True

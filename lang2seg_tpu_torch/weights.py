@@ -15,9 +15,11 @@ what `models.network.Lang2Seg` holds:
   dicts of numpy arrays) into that state_dict: the inverse of the JAX
   package's `engine/convert.py::convert_torch_state_dict` (conv
   HWIO -> OIHW, Dense (I, O) -> (O, I), the RPN class-major channel
-  order, the fused `dynamic_fc` split into `dynamic_fc_0..6`, the
-  flipped ConvTranspose kernel, the LSTM's transposed gate matrices, the
-  captioner's raw `*_w` / `*_b` params back to its reference layers).
+  order, VGG16's fc6 input rows from (7, 7, C) back to the reference's
+  channel-major (C, 7, 7), the fused `dynamic_fc` split into
+  `dynamic_fc_0..6`, the flipped ConvTranspose kernel, the LSTM's
+  transposed gate matrices, the captioner's raw `*_w` / `*_b` params
+  back to its reference layers).
 """
 
 from __future__ import annotations
@@ -31,6 +33,12 @@ import torch
 
 from .config import Config
 from .models.resnet import STAGE_BLOCKS
+
+# vgg16 `features` index -> the JAX package's conv name
+VGG_FEATURES = {0: "conv1_1", 2: "conv1_2", 5: "conv2_1", 7: "conv2_2",
+                10: "conv3_1", 12: "conv3_2", 14: "conv3_3", 17: "conv4_1",
+                19: "conv4_2", 21: "conv4_3", 24: "conv5_1", 26: "conv5_2",
+                28: "conv5_3"}
 
 # flax's lecun_normal draws a standard normal truncated to [-2, 2] and
 # divides the scale by that distribution's std, so the result has
@@ -148,6 +156,20 @@ def _resnet(out, p, depth):
                 _bn(out, f"{tb}.downsample.1", blk["downsample_bn"])
 
 
+def _vgg(out, p):
+    for idx, name in VGG_FEATURES.items():
+        out[f"vgg.features.{idx}.weight"] = _conv(p[name]["kernel"])
+        out[f"vgg.features.{idx}.bias"] = _t(p[name]["bias"])
+    # JAX fc6 reads the crop flattened (7, 7, C); the reference (C, 7, 7)
+    w6 = np.asarray(p["fc6"]["kernel"]).T                  # (O, 7 * 7 * C)
+    o = w6.shape[0]
+    out["vgg.classifier.0.weight"] = _t(
+        w6.reshape(o, 7, 7, -1).transpose(0, 3, 1, 2).reshape(o, -1))
+    out["vgg.classifier.0.bias"] = _t(p["fc6"]["bias"])
+    out["vgg.classifier.3.weight"] = _lin(p["fc7"]["kernel"])
+    out["vgg.classifier.3.bias"] = _t(p["fc7"]["bias"])
+
+
 def _encoder(out, p):
     out["rnn_encoder.embedding.weight"] = _t(p["embedding"]["embedding"])
     out["rnn_encoder.mlp.0.weight"] = _lin(p["mlp"]["kernel"])
@@ -237,7 +259,10 @@ def from_jax_params(params, cfg: Config) -> Dict[str, torch.Tensor]:
     m = cfg.model
     out: Dict[str, torch.Tensor] = OrderedDict()
     if "backbone" in params:
-        _resnet(out, params["backbone"], m.backbone)
+        if m.backbone == "vgg16":
+            _vgg(out, params["backbone"])
+        else:
+            _resnet(out, params["backbone"], m.backbone)
     if "encoder" in params:
         _encoder(out, params["encoder"])
     if "filter_gen" in params:

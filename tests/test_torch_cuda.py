@@ -319,10 +319,41 @@ def test_gate_bwd_takes_a_zero_d_resp(dev, normalize):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
 
 
-@pytest.mark.parametrize("variant", ["response", "cycle", "cycle_response"])
+@pytest.mark.parametrize("maps", ["broadcast", "gathered"])
+def test_gate_kernels_at_vgg_width(dev, maps):
+    """The `vgg` variant's gate at full width, (16, 40, 64, 512) bf16, K=7
+    sigmoid normalized, through a stride-0 map (serving) and a map
+    gathered from 2 images (training), to chip_smoke phases 4 and 4b's
+    tolerances: the response within 1e-5 of its max, the gated map 1 bf16
+    ulp given the kernel's response and of the plain version's, d_conv 2
+    bf16 ulps (floored), d_filt and d_rfilt 1e-3 of their max."""
+    from lang2seg_tpu_torch.tools.profile_gate import (bf16_ulp_distance,
+                                                       gate_inputs)
+    e, h, w, c, k = 16, 40, 64, 512, 7
+    conv, filt, rfilt, d_gated, d_resp = gate_inputs(e, h, w, c, k, maps,
+                                                     dev, seed=5)
+    gk, rk = fused_filter.fused_dynamic_filter(conv, filt, rfilt, k,
+                                               "sigmoid", True)
+    gp, rp = fused_dynamic_filter_plain(conv, filt, rfilt, k, "sigmoid", True)
+    assert float((rk - rp).abs().max()) <= 1e-5 * float(rp.abs().max())
+    same_g = (conv.float() * torch.sigmoid(rk)).to(torch.bfloat16)
+    assert int(bf16_ulp_distance(gk.float(), same_g.float()).max()) <= 1
+    assert int(bf16_ulp_distance(gk.float(), gp.float()).max()) <= 1
+    args = (conv, filt, rfilt, rk, d_gated, d_resp, k, "sigmoid", True)
+    got = fused_filter.fused_dynamic_filter_bwd(*args)
+    want = fused_dynamic_filter_bwd_plain(*args)
+    assert float(bf16_ulps_floored(got[0], want[0])) <= 2.0
+    for a, b in zip(got[1:], want[1:]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("variant", ["response", "cycle", "cycle_response",
+                                     "vgg"])
 def test_tiny_train_step_card_vs_cpu(dev, variant):
-    """One tiny f32 step (`tools/tiny_step.py`) on the card and on the CPU
-    from the same weights, draws and injected targets: the losses within
+    """One tiny f32 step (`tools/tiny_step.py`; VGG16 for `vgg`, its fc6
+    / fc7 dropout drawn for both devices from one CPU generator) on the
+    card and on the CPU from the same weights, draws and injected
+    targets: the losses within
     1e-4 relative, the updates within 1e-3 in relative L2 norm and those
     whose exact gradient is zero within 1e-8 in norm (chip_smoke phases 8
     and 10); the card's step launches the gate and its backward once

@@ -1,6 +1,6 @@
-"""Box math, anchors, ROI crop and the proposal layer of the PyTorch port
-(lang2seg_tpu_torch.ops) against their JAX counterparts, on the same
-seeded numpy inputs. IoU, clipping and anchors are elementwise f32 in the
+"""Box math, anchors, ROI crop and the proposal layers (NMS and test mode
+'top') of the PyTorch port (lang2seg_tpu_torch.ops) against their JAX
+counterparts, on the same seeded numpy inputs. IoU, clipping and anchors are elementwise f32 in the
 same operation order, so they must agree bit for bit; encode / decode
 differ only through exp / log (an ulp); the crop is two contractions
 summed in another order, held at 1e-4."""
@@ -9,16 +9,20 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from lang2seg_tpu.ops import anchors as janchors
 from lang2seg_tpu.ops import boxes as jboxes
 from lang2seg_tpu.ops.proposals import proposal_layer as jproposal_layer
+from lang2seg_tpu.ops.proposals import (
+    proposal_top_layer as jproposal_top_layer)
 from lang2seg_tpu.ops.roi_align import crop_and_resize as jcrop
 from lang2seg_tpu.ops.roi_align import roi_crop_pool as jroi_crop_pool
 from lang2seg_tpu_torch.ops import anchors as panchors
 from lang2seg_tpu_torch.ops import boxes as pboxes
-from lang2seg_tpu_torch.ops.proposals import proposal_layer
+from lang2seg_tpu_torch.ops.proposals import (proposal_layer,
+                                              proposal_top_layer)
 from lang2seg_tpu_torch.ops.roi_align import crop_and_resize, roi_crop_pool
 
 
@@ -138,3 +142,72 @@ def test_proposal_layer_keep_sets_match_jax(rng):
     np.testing.assert_array_equal(
         big.rois[0][pad].numpy(),
         np.broadcast_to(big.rois[0, 0].numpy(), (int(pad.sum()), 4)))
+
+
+def _top_inputs(rng, e=3):
+    anchors = janchors._shifted_anchors_np(8, 12, 16, (4, 8, 16, 32),
+                                           (0.5, 1.0, 2.0))
+    n = anchors.shape[0]
+    scores = rng.uniform(0, 1, (e, n)).astype(np.float32)
+    scores[0, 10:40] = scores[0, 7]                 # ties: index order
+    deltas = (rng.randn(e, n, 4) * 0.3).astype(np.float32)
+    return anchors, scores, deltas
+
+
+def _assert_top_matches(got, want, i):
+    np.testing.assert_array_equal(got.scores[i].numpy(),
+                                  np.asarray(want.scores))
+    w = np.asarray(want.rois)
+    # decode goes through exp: 2 f32 ulps, as in test_box_math_bit_identical
+    np.testing.assert_allclose(got.rois[i].numpy(), w, rtol=2.5e-7,
+                               atol=2.5e-7 * float(np.abs(w).max()))
+    assert bool(got.valid[i].all()) and bool(np.asarray(want.valid).all())
+
+
+def test_proposal_top_layer_topk_matches_jax(rng):
+    """Test mode 'top' with at least top_n anchors: the same top_n anchors
+    in the same order as lax.top_k (ties in ascending index order, a
+    stable sort), decoded and clipped; every row valid."""
+    anchors, scores, deltas = _top_inputs(rng)
+    im_h, im_w = 120.0, 180.0
+    got = proposal_top_layer(T(scores), T(deltas), T(anchors),
+                             torch.tensor(im_h), torch.tensor(im_w), 300)
+    assert got.rois.shape == (3, 300, 4)
+    for i in range(3):
+        want = jproposal_top_layer(
+            jnp.asarray(scores[i]), jnp.asarray(deltas[i]),
+            jnp.asarray(anchors), jnp.float32(im_h), jnp.float32(im_w), 300,
+            jax.random.PRNGKey(0))
+        _assert_top_matches(got, want, i)
+
+
+def test_proposal_top_layer_random_pad_matches_jax_given_indices(rng):
+    """Fewer anchors than top_n: the reference draws top_n indices
+    uniformly with replacement. Given the JAX draws as `order`, the port
+    selects, decodes and clips the same rows; its own draws come from the
+    generator, in range, reproducibly, and differ between seeds."""
+    anchors, scores, deltas = _top_inputs(rng)
+    n, top_n = anchors.shape[0], 2000
+    keys = jax.random.split(jax.random.PRNGKey(3), 3)
+    order = np.stack([np.asarray(jax.random.randint(k, (top_n,), 0, n))
+                      for k in keys])
+    got = proposal_top_layer(T(scores), T(deltas), T(anchors), 120.0, 180.0,
+                             top_n, order=T(order))
+    for i in range(3):
+        want = jproposal_top_layer(
+            jnp.asarray(scores[i]), jnp.asarray(deltas[i]),
+            jnp.asarray(anchors), jnp.float32(120.0), jnp.float32(180.0),
+            top_n, keys[i])
+        _assert_top_matches(got, want, i)
+
+    def draw(seed):
+        return proposal_top_layer(
+            T(scores), T(deltas), T(anchors), 120.0, 180.0, top_n,
+            torch.Generator().manual_seed(seed)).scores
+
+    a = draw(5)
+    assert a.shape == (3, top_n)
+    assert torch.equal(a, draw(5)) and not torch.equal(a, draw(6))
+    with pytest.raises(ValueError, match="Generator"):
+        proposal_top_layer(T(scores), T(deltas), T(anchors), 120.0, 180.0,
+                           top_n)

@@ -191,8 +191,10 @@ def test_port_imports_no_jax():
     assert len(files) > 15
     names = {f.name for f in files}
     assert {"captioner.py", "caption_zoo.py", "train_captioner.py",
-            "loader.py", "tiny_step.py"} <= names
-    banned = ("jax", "jaxlib", "flax", "optax", "lang2seg_tpu")
+            "loader.py", "tiny_step.py", "vgg.py", "metrics.py"} <= names
+    # the card's machine has no Pillow: the port keeps its own copies of
+    # Pillow's resizes (utils/metrics.py)
+    banned = ("jax", "jaxlib", "flax", "optax", "lang2seg_tpu", "PIL")
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]

@@ -375,3 +375,28 @@ def test_trainer_steps_on_cpu(capsys):
     for n, p in tr.state.model.named_parameters():
         same = torch.equal(before[n], p.detach())
         assert same != p.requires_grad, n
+
+
+def test_clip_by_global_norm_accurate_on_large_tensors():
+    """The global norm over VGG16-sized gradients (fc6 is 4096 x 25088):
+    the port's clipping against optax.clip_by_global_norm and a float64
+    norm, within 1e-6 relative. One f32 accumulation over a whole tensor
+    (torch's CPU vector_norm) is off by ~1% at this size."""
+    from lang2seg_tpu_torch.engine.optimizer import clip_by_global_norm_
+    g = torch.Generator().manual_seed(0)
+    grads = [torch.randn((4096, 25088), generator=g) * 1e-3,
+             torch.randn((512, 256, 3, 3), generator=g) * 1e-2,
+             torch.randn((4096,), generator=g)]
+    want_norm = float(torch.sqrt(sum(torch.sum(x.double() ** 2)
+                                     for x in grads)))
+    clip = optax.clip_by_global_norm(10.0)
+    jgrads = [jnp.asarray(x.numpy()) for x in grads]
+    want, _ = clip.update(jgrads, clip.init(jgrads))
+    got = [x.clone() for x in grads]
+    norm = float(clip_by_global_norm_(got, 10.0))
+    assert _rel(norm, want_norm) <= 1e-6
+    assert _rel(float(torch.linalg.vector_norm(grads[0])),
+                float(torch.linalg.vector_norm(grads[0].double()))) > 1e-4
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-6,
+                                   atol=1e-12)
