@@ -113,12 +113,39 @@ Phases, each fatal on failure (nothing is caught):
      (`--reference-exact`: det acc identical, IoU in [0, 1]); one 768 x
      1024 image, beyond the 640 x 640 paste buffers, pasted back on the
      host; test mode 'top' at rpn_top_n 5000 on one image of 2
-     expressions (no NMS launch), with its peak memory.
+     expressions (no NMS launch), with its peak memory;
+  17. the Mask R-CNN pretraining stage at full width
+     (`flagship_config("pretrain")`: ResNet-101-C4 in bf16, no language,
+     M = 8 GT boxes and masks an image, random weights from a seed): (a)
+     NMS bit for bit against its plain version at the step's (2, 12000)
+     -> 2000 (one lane an image) on an RPN draw, timed beside its bound
+     with the cluster size launched; (b) a raw REFER tree and a COCO-style
+     instances.json (`data/fixtures.py::write_mini_refer`: 8 REFER images
+     of 427x640 and 640x427, 4 of them val / testA, and 4 COCO images
+     without refs; polygon, uncompressed-RLE, crowd and degenerate
+     annotations) in a temporary directory; `make_coco_minus_refer` must
+     drop exactly the val / testA images; `CocoDetectionLoader` (flips on)
+     -> `to_wire` -> `train_step`; (c) a warm-up step, one under the sync
+     debug mode (no host sync inside `train_step`) and three timed steps
+     (upload to sync), with the loader's host ms a batch and the peak
+     memory; (d) every step launches NMS once, with 2 lanes, and the gate
+     and its backward never, gives finite losses with `loss_mask` and no
+     `loss_response`; frozen parameters bit-identical, every SGD group
+     moves; (e) a loader restored from its state_dict draws the same next
+     batch; (f) the pretrain state_dict goes into a `response` `Trainer`
+     through `load_pretrained`: every pretrain tensor taken as it is, only
+     language keys missing; (g) that Trainer runs one full-width step (NMS,
+     the gate and its backward once) on a `GtBatchLoader` over the same
+     raw tree prepro'd in memory (`REFER` -> `prepro_data`, no h5py);
+  18. phase 8 for the tiny `pretrain` step (2 images with 4 GT boxes and
+     masks each; with targets injected and no language it launches no
+     kernel).
 Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
 shape, its launches from the runs of that shape's path: serving in phases
 5 and 14 and the bucket-16 images of phases 12 and 16, training in phases
-7, 9, 12 and 14, the eval buckets 8 and 32 in phases 12 and 16; the
-gate's backward's from training; the C = 512 gate's from phase 14)
+7, 9, 12, 14 and 17g, the eval buckets 8 and 32 in phases 12 and 16, the
+pretraining shape (2, 12000) -> 2000 in phase 17's steps; the gate's
+backward's from training; the C = 512 gate's from phase 14)
 and, last, the `{"ok": true, ...}` line. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device or
 outside a checkout of the repository.
@@ -142,8 +169,14 @@ sys.path.insert(0, REPO)
 
 from lang2seg_tpu_torch.cli import eval as cli_eval  # noqa: E402
 from lang2seg_tpu_torch.config import Config, apply_variant, flagship_config  # noqa: E402
-from lang2seg_tpu_torch.data.fixtures import mini_refer_split  # noqa: E402
+from lang2seg_tpu_torch.data.coco_detection import (  # noqa: E402
+    CocoDetectionLoader, make_coco_minus_refer)
+from lang2seg_tpu_torch.data.fixtures import (  # noqa: E402
+    mini_refer_split, write_mini_refer)
 from lang2seg_tpu_torch.data.loader import GtBatchLoader  # noqa: E402
+from lang2seg_tpu_torch.data.prepro import (  # noqa: E402
+    DEFAULT_MAX_LENGTH, prepro_data)
+from lang2seg_tpu_torch.data.refer import REFER  # noqa: E402
 from lang2seg_tpu_torch.data.synthetic import (  # noqa: E402
     FixedBatchLoader, synthetic_batch, synthetic_eval_request, to_wire)
 from lang2seg_tpu_torch.engine.checkpoint import CheckpointManager  # noqa: E402
@@ -152,10 +185,11 @@ from lang2seg_tpu_torch.engine.inference import Inference  # noqa: E402
 from lang2seg_tpu_torch.engine.train_captioner import (  # noqa: E402
     captioner_train_step, extract_caption_features, init_captioner_state)
 from lang2seg_tpu_torch.engine.train_state import (  # noqa: E402
-    to_device, train_step)
+    create_train_state, to_device, train_step)
 from lang2seg_tpu_torch.engine.trainer import Trainer  # noqa: E402
 from lang2seg_tpu_torch.models.network import build_model  # noqa: E402
-from lang2seg_tpu_torch.ops import _build, fused_filter, nms_cuda  # noqa: E402
+from lang2seg_tpu_torch.ops import (  # noqa: E402
+    _build, fused_filter, nms_cuda, proposals)
 from lang2seg_tpu_torch.ops.fused_filter import (  # noqa: E402
     fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain)
 from lang2seg_tpu_torch.ops.nms import nms_padded  # noqa: E402
@@ -177,13 +211,15 @@ record = {}
 # the main-path runs whose launches of a kernel's counter a `kernels` entry
 # of that path reports: serving (phase 5) and phase 12's eval images of
 # the 16 bucket; training, the response step (phase 7), the cycle_response
-# step (phase 9) and the file-backed run (phase 12)
+# step (phase 9), the file-backed run (phase 12) and phase 17's response
+# step on the pretrain weights
 LAUNCHED_BY = {"serve": lambda counter: (("serve", counter),
                                          ("eval_file_16", counter),
                                          ("host_modes_16", counter)),
                "train": lambda counter: (("train", counter),
                                          ("train_cycle", counter),
-                                         ("train_file", counter))}
+                                         ("train_file", counter),
+                                         ("recipe_link", counter))}
 # NMS runs at the same shapes in the `vgg` preset (phase 14): its requests
 # and steps count towards the NMS entries, its C = 512 gate to its own
 VGG_NMS_RUNS = {"serve": (("serve_vgg", "nms"),),
@@ -760,28 +796,30 @@ def train_full_width(path, cfg):
 
 # ------------------------------------------------------------ phases 8, 10
 
-def small_train_reference(path, variant):
+def small_train_reference(path, variant, launches=(0, 1, 1),
+                          min_tensors=40):
     """One tiny f32 SGD step on the card (kernels) and on the CPU (plain
     versions) from the same weights, dropout draws and injected targets
     (`tools/tiny_step.py`): the losses within 1e-4 relative, each update
     within 1e-3 in relative L2 norm (a tensor whose exact gradient is zero,
-    `tiny_step.ROUNDING_ONLY`, within 1e-8 in norm instead), nothing
-    moved on the card only; the
-    card's step launches the gate and its backward once (NMS is skipped by
-    the injected targets)."""
+    `tiny_step.ROUNDING_ONLY`, within 1e-8 in norm instead) over at least
+    `min_tensors` tensors, nothing moved on the card only; the card's step
+    makes `launches` (NMS, gate, gate backward): the gate and its backward
+    once with language, nothing without (NMS is skipped by the injected
+    targets)."""
     errs, launched = card_vs_cpu(variant)
     loss_err = errs["loss_rel_err"]
     log(f"[{path}] card vs CPU, tiny f32 {variant} step: loss rel err max "
         f"{max(loss_err.values()):.2e} over {sorted(loss_err)}; update rel "
         f"L2 err max {errs['update_rel_err_max']:.2e} ({errs['worst']}) over "
         f"{errs['tensors']} tensors; card launches {launched}")
-    check(launched == (0, 1, 1), "the tiny step did not launch both gate "
-          "kernels once")
+    check(launched == launches, f"the tiny step launched {launched}, not "
+          f"{launches}")
     check(max(loss_err.values()) <= 1e-4, ("losses", loss_err))
     check(errs["update_rel_err_max"] <= 1e-3,
           ("updates", errs["worst"], errs["update_rel_err_max"]))
-    check(not errs["moved_on_card_only"] and errs["tensors"] >= 40,
-          errs["moved_on_card_only"])
+    check(not errs["moved_on_card_only"] and errs["tensors"] >= min_tensors,
+          (errs["moved_on_card_only"], errs["tensors"]))
     # the attention logits' bias has a zero gradient in exact arithmetic:
     # its update is rounding, ~1e-12 on the CPU, where the smallest real
     # captioner update is ~1e-6
@@ -1517,6 +1555,270 @@ def host_modes():
     return runs
 
 
+# ------------------------------------------------------------ phases 17-18
+
+# the pretraining step's NMS: one lane an image, (lanes, boxes, draw seed,
+# thresh, max_out)
+PRETRAIN_NMS = (2, 12000, 6, 0.7, 2000)
+# the mini REFER tree of phase 17: COCO's common sizes; 4 train images, 2
+# val and 2 testA (which coco_minus_refer must drop), and 4 COCO images
+# without refs
+PRETRAIN_TREE = dict(image_hw=((427, 640), (640, 427)) * 4,
+                     refs_per_image=(2, 3, 4, 3, 2, 3, 3, 2),
+                     splits=("train",) * 4 + ("val",) * 2 + ("testA",) * 2,
+                     extra_image_hw=((480, 640), (640, 480)) * 2,
+                     sents_per_ref=3, seed=17)
+
+
+def check_nms_pretrain(dev):
+    """Phase 17a: NMS bit for bit against its plain version at the
+    pretraining step's (2, 12000) -> 2000 on an RPN draw, timed beside its
+    bound with the cluster size it is launched with."""
+    e, n, seed, thr, max_out = PRETRAIN_NMS
+    boxes = rpn_draw(e, n, seed, dev)
+    valid = torch.ones((e, n), dtype=torch.bool, device=dev)
+    ki, km = nms_cuda.nms_batched(boxes, valid, thr, max_out)
+    pi, pm = nms_padded(boxes, valid, thr, max_out)
+    torch.cuda.synchronize()
+    same = torch.equal(ki, pi) and torch.equal(km, pm)
+    err = max(float((ki - pi).abs().max()), float((km != pm).sum()))
+    kept, last = lane_stats(ki, km, n, max_out)
+    check(same, f"NMS kernel differs from its plain version at ({e}, {n})")
+    call = (lambda: nms_cuda.nms_batched(boxes, valid, thr, max_out))
+    ms = device_ms(call, 50)
+    plain_ms = time_ms(lambda: nms_padded(boxes, valid, thr, max_out), 2)
+    bound, by, byts, ops = nms_bound(ki, km, n, max_out)
+    csize = nms_cuda.cluster_size(dev, e, n, max_out)
+    res = {"name": f"nms_{e}x{n}_{max_out}", "route": "cuda",
+           "source": "lang2seg_tpu_torch/csrc/nms.cu",
+           "replaces": "lang2seg_tpu/ops/nms_pallas.py:196",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "cluster_size": csize, "launched_by": (("pretrain", "nms"),)}
+    log(f"[pretrain] nms ({e}, {n})->{max_out}: bit-identical={same} "
+        f"kept/lane={kept} last examined/lane={last}; kernel {ms:.4f} ms "
+        f"device time ({csize} CTAs a lane), plain {plain_ms:.2f} ms, bound "
+        f"{bound * 1e3:.3f} us ({by}: {byts} B, {ops} ops, "
+        f"{bound / ms:.1%} of it)")
+    record[res["name"]] = dict(res, bytes=byts, ops=ops, kept=kept)
+    return [res]
+
+
+def record_nms_lanes():
+    """Wraps the proposal layer's NMS so that each call's (lanes, boxes,
+    max_out) is kept; returns (calls, undo)."""
+    calls, real = [], proposals.nms_batched
+
+    def recorded(boxes, valid, thresh, max_out):
+        calls.append((boxes.shape[0], boxes.shape[1], max_out))
+        return real(boxes, valid, thresh, max_out)
+
+    proposals.nms_batched = recorded
+
+    def undo():
+        proposals.nms_batched = real
+    return calls, undo
+
+
+def same_batch(a, b):
+    return set(a) == set(b) and all(np.array_equal(np.asarray(a[k]),
+                                                   np.asarray(b[k]))
+                                    for k in a)
+
+
+def pretrain_stage(dev):
+    """Phases 17b-g: the reference's stages before lang2seg training, at
+    full width (`flagship_config("pretrain")`, random weights from a
+    seed). The raw REFER tree and a COCO instances.json are written to a
+    temporary directory; coco_minus_refer drops the REFER val / test
+    images; CocoDetectionLoader (flips on, M = 8) -> to_wire -> train_step:
+    a warm-up step, one under the sync debug mode, three timed; the loader
+    round trip; the pretrain weights into a `response` Trainer over the
+    in-memory prepro of the same tree, one step. Returns the launch counts
+    of the pretraining steps and of the response step."""
+    cfg = flagship_config("pretrain")
+    check(not cfg.model.use_language and cfg.data.max_gt_per_image == 8)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pretrain_") as tmp:
+        coco, read = write_mini_refer(tmp, **PRETRAIN_TREE)
+        minus = os.path.join(tmp, "coco_minus_refer", "instances.json")
+        kept = make_coco_minus_refer(coco, [(tmp, "refcoco", "unc")], minus)
+        with open(coco) as f:
+            full = {im["id"] for im in json.load(f)["images"]}
+        with open(minus) as f:
+            left = {im["id"] for im in json.load(f)["images"]}
+        held = {1000 + i for i, s in enumerate(PRETRAIN_TREE["splits"])
+                if s != "train"}
+        log(f"[pretrain] coco_minus_refer kept {kept} of {len(full)} images;"
+            f" dropped {sorted(full - left)} (the val / test images "
+            f"{sorted(held)})")
+        check(full - left == held and kept == len(left),
+              "coco_minus_refer did not drop exactly the val / test images")
+
+        loader = CocoDetectionLoader(minus, tmp, cfg, use_flipped=True,
+                                     seed=cfg.seed, read_image=read)
+        t0 = time.perf_counter()
+        state = create_train_state(cfg, device=dev, seed=0)
+        model = state.model
+        check(not any(k.startswith(("rnn_encoder.", "dynamic_fc",
+                                    "response_fc."))
+                      for k in model.state_dict()))
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        torch.cuda.synchronize()
+        log(f"[pretrain] model and SGD built in "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"({sum(p.numel() for p in model.state_dict().values())} "
+            f"weights, {len(state.optimizer.param_groups)} groups, lr "
+            f"{cfg.train.learning_rate})")
+
+        host_ms, step_ms, steps, per_step, n_gt = [], [], [], [], []
+        lanes, undo = record_nms_lanes()
+        nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
+        try:
+            for i in range(5):
+                t0 = time.perf_counter()
+                batch = to_wire(cfg, loader.get_batch())
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                check(batch["gt_masks"].shape == (
+                    2, 8, cfg.data.canvas_h, cfg.data.canvas_w // 8))
+                n_gt.append(int(batch["gt_valid"].sum()))
+                if i == 2:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                c0 = launch_counts()
+                t0 = time.perf_counter()
+                dev_batch = to_device(batch, dev)
+                if i == 1:
+                    losses, syncs = host_syncs(
+                        lambda: train_step(state, dev_batch, gen))
+                    _, control = host_syncs(
+                        lambda: float(losses["total_loss"]))
+                    log(f"[pretrain] step 2 under the sync debug mode: "
+                        f"{len(syncs)} host synchronisations {syncs[:3]} "
+                        f"(control, a loss read: {len(control)})")
+                    check(control, "the sync debug mode did not report a "
+                          "loss read")
+                    check(not syncs, "the pretrain step synchronises with "
+                          "the host")
+                else:
+                    losses = train_step(state, dev_batch, gen)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                per_step.append(tuple(b - a for a, b in
+                                      zip(c0, launch_counts())))
+                steps.append({k: float(v) for k, v in losses.items()})
+        finally:
+            undo()
+        launched = launch_counts()
+        runs["pretrain"] = dict(zip(("nms", "fused_filter",
+                                     "fused_filter_bwd"), launched))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[pretrain] loader host ms a batch "
+            f"{[round(x, 1) for x in host_ms]}; GT boxes a batch {n_gt}; "
+            f"step ms {[round(x, 2) for x in step_ms]} (mean "
+            f"{sum(step_ms) / len(step_ms):.2f}, upload to sync); peak device "
+            f"memory {peak:.2f} GiB; launches per step (nms, gate, gate bwd) "
+            f"{per_step}; NMS calls (lanes, boxes, max_out) {lanes}")
+        for i, ls in enumerate(steps):
+            log(f"[pretrain] step {i + 1} losses "
+                f"{ {k: round(v, 4) for k, v in sorted(ls.items())} }")
+            check(all(np.isfinite(v) for v in ls.values()),
+                  f"non-finite loss at pretrain step {i + 1}")
+            check("loss_mask" in ls and "loss_response" not in ls
+                  and "loss_caption" not in ls, sorted(ls))
+        check(all(c == (1, 0, 0) for c in per_step),
+              "a pretrain step did not launch NMS once and the gate never")
+        check(lanes == [PRETRAIN_NMS[:2] + PRETRAIN_NMS[4:]] * 5,
+              f"the pretrain step's NMS ran at {lanes}")
+        after = dict(model.named_parameters())
+        frozen = [n for n, p in after.items() if not p.requires_grad]
+        check(frozen and all(torch.equal(before[n], after[n])
+                             for n in frozen), "a frozen parameter changed")
+        moved = {}
+        for grp in state.optimizer.param_groups:
+            n_moved = sum(int(not torch.equal(before[n], p))
+                          for n, p in zip(grp["names"], grp["params"]))
+            moved[f"x{grp['lr_mult']:g} wd {grp['weight_decay']:g}"] = \
+                f"{n_moved}/{len(grp['params'])}"
+            check(n_moved > 0, f"SGD group {grp['lr_mult']} did not move")
+        log(f"[pretrain] {len(frozen)} frozen parameters bit-identical; "
+            f"moved per group {moved}")
+
+        # (e) the loader's state_dict round trip draws the same next batch
+        saved = loader.state_dict()
+        want = loader.get_batch()
+        other = CocoDetectionLoader(minus, tmp, cfg, seed=cfg.seed + 1,
+                                    read_image=read)
+        other.load_state_dict(saved)
+        resumed = same_batch(other.get_batch(), want)
+        log(f"[pretrain] loader resumed from its state_dict draws the same "
+            f"batch: {resumed}")
+        check(resumed, "the loader's state_dict round trip drew another "
+              "batch")
+
+        # (f, g) the recipe link: the prepro of the raw tree in memory (no
+        # h5py), a `response` Trainer over it, initialized from the
+        # pretrain weights, one step
+        pre_sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del state, model, before, after, gen
+        t0 = time.perf_counter()
+        info, labels = prepro_data(REFER(tmp), DEFAULT_MAX_LENGTH["refcoco"],
+                                   count_threshold=0)
+        t_prepro = (time.perf_counter() - t0) * 1e3
+        rcfg = flagship_config()
+        rcfg.train.images_per_batch, rcfg.train.expressions_per_batch = 2, 16
+        rcfg.train.display = rcfg.train.summary_interval = 10 ** 9
+        gt_loader = GtBatchLoader(info, labels, rcfg, seed=rcfg.seed,
+                                  read_image=read)
+        rcfg.model.vocab_size = rcfg.model.cap_vocab_size = \
+            gt_loader.vocab_size
+        trainer = Trainer(rcfg, gt_loader, device=dev, seed=0)
+        skipped = trainer.load_pretrained(pre_sd)
+        sd = trainer.state.model.state_dict()
+        missing = skipped["missing"]
+        taken = all(torch.equal(sd[k], v) for k, v in pre_sd.items())
+        log(f"[pretrain] prepro in memory: {len(info['images'])} images, "
+            f"{len(info['refs'])} refs, {len(labels)} sentences, vocabulary "
+            f"{gt_loader.vocab_size}, in {t_prepro:.1f} ms; the response "
+            f"model took {len(pre_sd)} pretrain tensors (all equal: {taken});"
+            f" missing {len(missing)} (language), mismatched "
+            f"{skipped['mismatched']}, unexpected {skipped['unexpected']}")
+        check(taken and set(sd) - set(missing) == set(pre_sd),
+              "a pretrain tensor was not taken as it is")
+        check(missing and all(k.startswith(("rnn_encoder.", "dynamic_fc",
+                                            "response_fc."))
+                              for k in missing),
+              f"non-language keys missing: {missing}")
+        check(not skipped["mismatched"] and not skipped["unexpected"])
+        nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
+        t0 = time.perf_counter()
+        rlosses = trainer.train(1)
+        torch.cuda.synchronize()
+        t_resp = (time.perf_counter() - t0) * 1e3
+        rl = launch_counts()
+        runs["recipe_link"] = dict(zip(("nms", "fused_filter",
+                                        "fused_filter_bwd"), rl))
+        log(f"[pretrain] response step on the pretrain weights and the "
+            f"prepro'd batch: {t_resp:.1f} ms (first step, loader "
+            f"included), launches {rl}, losses "
+            f"{ {k: round(v, 4) for k, v in sorted(rlosses.items())} }")
+        check(rl == (1, 1, 1), "the response step did not launch each "
+              "kernel once")
+        check(all(np.isfinite(v) for v in rlosses.values())
+              and "loss_response" in rlosses)
+        del trainer
+    record["pretrain"] = {
+        "kept_images": kept, "loader_host_ms": host_ms, "step_ms": step_ms,
+        "peak_gib": peak, "launches_per_step": per_step, "nms_calls": lanes,
+        "losses": steps, "moved_per_group": moved, "host_syncs": len(syncs),
+        "loader_resumed": resumed, "prepro_ms": t_prepro,
+        "recipe_missing": len(missing), "recipe_response_losses": rlosses,
+        "recipe_response_ms": t_resp}
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1549,6 +1851,10 @@ def main():
     runs["train_vgg"] = train_vgg()
     small_train_reference("train_vgg_reference", "vgg")
     runs.update(host_modes())
+    kernels += check_nms_pretrain(dev)
+    runs.update(pretrain_stage(dev))
+    small_train_reference("pretrain_reference", "pretrain", launches=(0, 0, 0),
+                          min_tensors=20)
     for kr in kernels:
         kr["launches"] = sum(runs[path].get(counter, 0)
                              for path, counter in kr["launched_by"])

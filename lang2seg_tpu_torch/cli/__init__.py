@@ -1,7 +1,9 @@
 """Command-line entry points of the port: `python -m
-lang2seg_tpu_torch.cli.train` and `python -m lang2seg_tpu_torch.cli.eval`.
-Both take the flags of `add_common_flags` and derive their config and
-paths from them with `setup`."""
+lang2seg_tpu_torch.cli.train` and `python -m lang2seg_tpu_torch.cli.eval`
+take the flags of `add_common_flags` and derive their config and paths
+from them with `setup`; the offline tools `cli.prepro` (REFER ->
+data.json + data.h5) and `cli.make_coco_minus_refer` (the pretraining
+instances) take their own."""
 
 from __future__ import annotations
 

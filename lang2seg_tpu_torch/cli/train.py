@@ -8,11 +8,15 @@ Counterpart of `lang2seg_tpu/cli/train.py` (the reference's per-variant
       --dataset refcoco --split-by unc --id exp0 --max-iters 600000 \\
       --cfg experiments/res101.yml --set train.learning_rate 1e-4
 
-reads `<prepro-dir>/data.json` and `data.h5` (the JAX package's prepro
-writes them) and the images under `--image-dir`, trains with snapshots
-under `<output-dir>/ckpt/iter_<n>/` and resumes from the newest one.
-`--device cpu` runs the plain PyTorch path (a small config via `--set`);
-the default is the card.
+reads `<prepro-dir>/data.json` and `data.h5` (`python -m
+lang2seg_tpu_torch.cli.prepro` writes them) and the images under
+`--image-dir`, trains with snapshots under `<output-dir>/ckpt/iter_<n>/`
+and resumes from the newest one. `--variant pretrain` trains the plain
+Mask R-CNN (no language) over the same REFER batches, each expression's
+GT box and mask its one target and its words ignored, as the JAX
+package's CLI runs it; `--pretrained` then carries its weights into a
+language variant. `--device cpu` runs the plain PyTorch path (a small
+config via `--set`); the default is the card.
 """
 
 from __future__ import annotations

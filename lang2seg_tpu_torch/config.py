@@ -307,9 +307,8 @@ def apply_variant(cfg: Config, variant: str) -> Config:
     """Named presets of the reference's per-variant entry points
     (tools/train_*.py). The port trains and serves `baseline`, `spatial`,
     `response`, `vgg` (VGG16, detection-only), `cycle` and
-    `cycle_response`; `pretrain` sets its fields the same way, for
-    configs shared with the JAX package, but its no-language path is not
-    ported yet and the model raises for it."""
+    `cycle_response`, and trains `pretrain` (the plain Mask R-CNN, no
+    language), which it cannot serve, as the JAX package cannot."""
     m, t = cfg.model, cfg.train
     if variant == "baseline":
         m.num_filters = 1
@@ -359,7 +358,9 @@ def flagship_config(variant: str = "response") -> Config:
     `variant` gives that preset at the same width with the normalization,
     as the JAX package's experiments/bench_variants.py builds it (e.g.
     `cycle_response`, the paper's full model). The `vgg` preset keeps its
-    VGG16 (C4 512, detection-only)."""
+    VGG16 (C4 512, detection-only); `pretrain` is ResNet-101-C4 in bf16
+    without language, with up to cfg.data.max_gt_per_image (8) GT boxes
+    and masks an image."""
     cfg = apply_variant(Config(), variant)
     if cfg.model.backbone != "vgg16":
         cfg.model.backbone = "resnet101"

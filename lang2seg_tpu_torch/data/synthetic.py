@@ -187,3 +187,38 @@ def synthetic_learnable_set(cfg: Config, num_images: int = 4,
             "im_scale": np.float32(1.0),
         })
     return train_batch, eval_batches
+
+
+def synthetic_detection_batch(cfg: Config, num_images: int,
+                              num_gt: int = 3,
+                              seed: int = 0) -> Dict[str, np.ndarray]:
+    """A no-language batch (the `pretrain` mode): I images, each with
+    `num_gt` of its cfg.data.max_gt_per_image GT slots filled (a box, a
+    class and the box's filled mask), the rest padding (gt_valid False);
+    img_idx is the identity, each example an image."""
+    rng = np.random.RandomState(seed)
+    d, m = cfg.data, cfg.model
+    h, w = d.canvas_h, d.canvas_w
+    mg = d.max_gt_per_image
+
+    images = rng.randn(num_images, h, w, 3).astype(np.float32) * 30.0
+    im_hw = np.stack([
+        rng.uniform(h * 0.8, h, num_images),
+        rng.uniform(w * 0.8, w, num_images)], axis=1).astype(np.float32)
+    gt_boxes = np.zeros((num_images, mg, 5), np.float32)
+    gt_valid = np.zeros((num_images, mg), bool)
+    gt_masks = np.zeros((num_images, mg, h, w), np.uint8)
+    for i in range(num_images):
+        ih, iw = im_hw[i]
+        for g in range(min(num_gt, mg)):
+            x1 = rng.uniform(0, iw * 0.5)
+            y1 = rng.uniform(0, ih * 0.5)
+            x2 = min(x1 + rng.uniform(iw * 0.15, iw * 0.4), iw - 1)
+            y2 = min(y1 + rng.uniform(ih * 0.15, ih * 0.4), ih - 1)
+            gt_boxes[i, g] = [x1, y1, x2, y2, rng.randint(1, m.num_classes)]
+            gt_valid[i, g] = True
+            gt_masks[i, g, int(y1):int(y2) + 1, int(x1):int(x2) + 1] = 1
+    return {"images": images, "im_hw": im_hw,
+            "img_idx": np.arange(num_images, dtype=np.int32),
+            "gt_boxes": gt_boxes, "gt_valid": gt_valid,
+            "gt_masks": gt_masks}

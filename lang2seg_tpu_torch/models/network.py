@@ -15,11 +15,14 @@ tree.
 Ported: the ResNet backbones and VGG16 (the detection-only `vgg` variant:
 C4 512, a 4096-wide fc6/fc7 tail, no mask head), the language path,
 `num_filters` 1 or 7, both gates, test modes 'nms' and 'top', pooling
-mode 'crop', the detection, mask and response losses, and the
+mode 'crop', the detection, mask and response losses, the
 caption-consistency loss of the `cycle` and `cycle_response` variants
-(the att2in2 captioner, `caption_model.*`). The rest (MobileNet,
-no-language mode, 'pool' crops, the attribute head, `expr_uid` key
-folding) raises NotImplementedError here.
+(the att2in2 captioner, `caption_model.*`), and the no-language plain
+Mask R-CNN of the `pretrain` variant (no `rnn_encoder` / `dynamic_fc*` /
+`response_fc`; the backbone map goes straight to the RPN, each example
+an image with up to M GT boxes and masks), which trains but, as in the
+JAX package, cannot be served. The rest (MobileNet, 'pool' crops, the
+attribute head, `expr_uid` key folding) raises NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -97,8 +100,6 @@ class Lang2Seg(nn.Module):
         m = cfg.model
         if not (m.backbone.startswith("resnet") or m.backbone == "vgg16"):
             raise NotImplementedError(f"backbone {m.backbone!r} is not ported")
-        if not m.use_language:
-            raise NotImplementedError("no-language mode is not ported")
         if m.use_attribute_head:
             raise NotImplementedError("the attribute head is not ported")
         self.compute_dtype = (torch.bfloat16 if m.compute_dtype == "bfloat16"
@@ -113,17 +114,18 @@ class Lang2Seg(nn.Module):
             self.resnet = ResNetC4(m.backbone, self.compute_dtype)
             self.resnet.freeze(m.fixed_blocks)
             tail_dim = 2048
-        self.rnn_encoder = RNNEncoder(
-            m.vocab_size, m.word_embedding_size, m.word_vec_size,
-            m.rnn_hidden_size, m.bidirectional, m.word_drop_out)
-        hidden = m.rnn_hidden_size * (2 if m.bidirectional else 1)
-        num_anchors = len(m.anchor_scales) * len(m.anchor_ratios)
         # The heads group layers that the reference keeps at the top level
         # of its state_dict: their layers are registered here under their
         # own names, and the heads are kept as plain attributes.
-        self._set_head("filter_gen", DynamicFilterGen(
-            hidden, m.c4_feat_dim, m.num_filters, m.response_gate,
-            m.normalize_response))
+        if m.use_language:
+            self.rnn_encoder = RNNEncoder(
+                m.vocab_size, m.word_embedding_size, m.word_vec_size,
+                m.rnn_hidden_size, m.bidirectional, m.word_drop_out)
+            hidden = m.rnn_hidden_size * (2 if m.bidirectional else 1)
+            self._set_head("filter_gen", DynamicFilterGen(
+                hidden, m.c4_feat_dim, m.num_filters, m.response_gate,
+                m.normalize_response))
+        num_anchors = len(m.anchor_scales) * len(m.anchor_ratios)
         self._set_head("rpn_head", RPNHead(m.c4_feat_dim, num_anchors))
         self._set_head("box_head", BoxHead(tail_dim, m.num_classes))
         if m.use_mask_head:
@@ -209,8 +211,8 @@ class Lang2Seg(nn.Module):
           images   (I, H, W, 3) f32 mean-subtracted BGR, or the raw uint8
                    BGR canvas (the means are subtracted here)
           im_hw    (I, 2) f32 true scaled extents
-          labels   (E, T) int token ids, 0 pad
-          img_idx  (E,) int image index per expression
+          labels   (E, T) int token ids, 0 pad (language mode only)
+          img_idx  (E,) int image index per example
           gt_boxes (E, M, 5) f32 [x1 y1 x2 y2 cls] scaled coords, or (E, 5)
           gt_valid (E, M) bool, optional (default all valid)
           gt_masks (E, M, Hc, Wc) uint8 {0, 1} canvas masks (or (E, Hc,
@@ -219,12 +221,17 @@ class Lang2Seg(nn.Module):
           cap_labels (E, T') int BOS/EOS-framed caption tokens and
           cap_masks  (E, T') f32 (`data/loader.py::caption_targets`),
                    with cfg.model.use_caption_loss
+        In language mode each example is an expression with its one GT
+        ref (M = 1); without language (`pretrain`) an example is an image
+        with its padded GT set, and the backbone map feeds the RPN as it
+        is (no response or caption loss).
         `targets` injects (AnchorTargets, ProposalTargets), either of them
         None to compute it, as the JAX package's train_forward does.
-        `generator` draws, in this order: the word-dropout mask, the anchor
-        sampling priorities, the ROI sampling priorities, then VGG16's fc6
-        and fc7 dropout masks (the `vgg` variant), then the captioner's
-        dropout masks (and its scheduled-sampling draws).
+        `generator` draws, in this order: the word-dropout mask (with
+        language), the anchor sampling priorities, the ROI sampling
+        priorities, then VGG16's fc6 and fc7 dropout masks (the `vgg`
+        variant), then the captioner's dropout masks (and its
+        scheduled-sampling draws).
         Returns the loss dict with `total_loss`, all scalars on the
         device."""
         m, t = self.cfg.model, self.cfg.train
@@ -246,8 +253,11 @@ class Lang2Seg(nn.Module):
 
         net_conv_img = self.backbone.head(images)             # (I, h, w, C)
         net_conv = net_conv_img.index_select(0, img_idx).contiguous()
-        gated, response = self._condition(net_conv, batch["labels"],
-                                          generator)
+        if m.use_language:
+            gated, response = self._condition(net_conv, batch["labels"],
+                                              generator)
+        else:
+            gated, response = net_conv, None
         rpn_cls, rpn_box = self.rpn_head(gated)               # (E,h,w,A,2|4)
         _, h, w, a, _ = rpn_cls.shape
         anchors = shifted_anchors(h, w, m.feat_stride, m.anchor_scales,
@@ -323,7 +333,7 @@ class Lang2Seg(nn.Module):
             losses["loss_mask"] = torch.sum(bce * mw) / denom
 
         # ---- response loss (network_7f_response.py:411-428) ----
-        if m.use_response_loss:
+        if m.use_response_loss and m.use_language:
             stride = m.feat_stride
             tgt = response_target(gt_masks[:, 0], stride, h, w)
             ys = torch.arange(h, device=gated.device)[None, :, None] * stride
@@ -336,7 +346,7 @@ class Lang2Seg(nn.Module):
                                                      min=1.0))
 
         # ---- caption (cycle-consistency) loss ----
-        if m.use_caption_loss:
+        if m.use_caption_loss and m.use_language:
             losses["loss_caption"] = m.cap_loss_weight * self._caption_loss(
                 net_conv, gated, batch, gt_masks, generator)
 
@@ -395,6 +405,12 @@ class Lang2Seg(nn.Module):
         proposals' random pad (default: a CPU generator seeded with
         cfg.seed, as the JAX package keys it without an image uid)."""
         cfg, m, ts = self.cfg, self.cfg.model, self.cfg.test
+        if not m.use_language:
+            raise NotImplementedError(
+                "a no-language (`pretrain`) model cannot be served: the JAX "
+                "package's Lang2Seg.test_forward conditions on expressions "
+                "unconditionally (lang2seg_tpu/models/network.py:446), and "
+                "the port keeps its behaviour")
         if ts.mode not in ("nms", "top"):
             raise ValueError(f"unknown test mode {ts.mode!r}")
         labels = batch["labels"]

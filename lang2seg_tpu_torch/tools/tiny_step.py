@@ -5,12 +5,12 @@ card's kernels against their plain versions end to end.
 
 The step runs at the tiny test config (resnet26, or VGG16 for `--variant
 vgg`, 128x192 canvas, f32, normalized response, 2 images x 4
-expressions) from the same weights, the same dropout draws (a CPU
+expressions; `--variant pretrain`: 2 images with 4 GT boxes and masks
+each, no language) from the same weights, the same dropout draws (a CPU
 generator feeds both devices: word dropout, VGG16's fc6 / fc7 dropout and
-the captioner's) and the same
-injected anchor and ROI targets (the port's samplers on jittered GT
-boxes), so that the two runs differ only by their kernels and by f32
-summation order. The LR is 1, so that each update stands far above the
+the captioner's) and the same injected anchor and ROI targets (the port's
+samplers on jittered GT boxes), so that the two runs differ only by their
+kernels and by f32 summation order. The LR is 1, so that each update stands far above the
 parameters' own f32 rounding. `compare` gives the losses' relative error
 and each updated tensor's relative L2 error, except for the tensors whose
 exact gradient is zero (`ROUNDING_ONLY`), whose update norm it reports
@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from ..config import Config, apply_variant
-from ..data.synthetic import synthetic_batch, to_wire
+from ..data.synthetic import (synthetic_batch, synthetic_detection_batch,
+                              to_wire)
 from ..engine.train_state import create_train_state, to_device, train_step
 from ..ops import fused_filter, nms_cuda
 from ..ops.anchors import shifted_anchors
@@ -49,28 +50,42 @@ def tiny_config(variant: str = "response") -> Config:
     cfg.train.grad_clip_norm = 10.0
     cfg.train.learning_rate = 1.0
     cfg.train.roi_batch_size = 32
+    cfg.data.max_gt_per_image = 4
     return cfg
 
 
-def tiny_inputs(cfg: Config, seed: int = 5):
+def tiny_inputs(cfg: Config, seed: int = 5, num_gt: int = 4):
     """(batch in the wire formats, (AnchorTargets, ProposalTargets)) on the
-    CPU: 2 images x 4 expressions, targets from the port's samplers on 64
-    rois jittered around each GT box."""
-    batch = to_wire(cfg, synthetic_batch(cfg, 2, 4, seed=seed))
+    CPU: 2 images x 4 expressions, or without language 2 images with
+    `num_gt` of their cfg.data.max_gt_per_image GT slots filled; targets
+    from the port's samplers on 64 rois an example jittered around its GT
+    boxes (the same number around each)."""
+    if cfg.model.use_language:
+        batch = to_wire(cfg, synthetic_batch(cfg, 2, 4, seed=seed))
+        gt = torch.from_numpy(batch["gt_boxes"])[:, None]
+        valid = torch.ones(gt.shape[:2], dtype=torch.bool)
+    else:
+        batch = to_wire(cfg, synthetic_detection_batch(cfg, 2, num_gt,
+                                                       seed=seed))
+        gt = torch.from_numpy(batch["gt_boxes"])
+        valid = torch.from_numpy(batch["gt_valid"])
     g = torch.Generator().manual_seed(seed + 1)
-    e = 4
-    gt = torch.from_numpy(batch["gt_boxes"])[:, None]
-    valid = torch.ones((e, 1), dtype=torch.bool)
+    e = gt.shape[0]
     im_hw = torch.from_numpy(batch["im_hw"][batch["img_idx"]])
     anchors = shifted_anchors(cfg.data.canvas_h // 16, cfg.data.canvas_w // 16,
                               16, cfg.model.anchor_scales,
                               cfg.model.anchor_ratios)
     at = anchor_targets(anchors, gt, valid, im_hw[:, 0], im_hw[:, 1],
                         generator=g)
-    rois = gt[:, :, :4] + torch.randn((e, 64, 4), generator=g) * 6.0
+    # 64 rois an example, spread evenly over its valid GT boxes
+    n_gt = int(valid[0].sum())
+    src = gt[:, torch.arange(64) % n_gt, :4]
+    rois = src + torch.randn((e, 64, 4), generator=g) * 6.0
     rois = torch.clamp(rois, min=0.0)
     rois[..., 2:] = torch.maximum(rois[..., 2:], rois[..., :2] + 4.0)
-    masks = np.unpackbits(batch["gt_masks"], axis=-1)[:, None]
+    masks = np.unpackbits(batch["gt_masks"], axis=-1)
+    if masks.ndim == 3:
+        masks = masks[:, None]
     pt = proposal_targets(rois, torch.ones((e, 64), dtype=torch.bool), gt,
                           valid, torch.from_numpy(masks), generator=g,
                           num_rois=cfg.train.roi_batch_size)

@@ -467,3 +467,93 @@ def test_eval_split_bucketed_image_on_card(dev):
     assert accs["cuda"].num_sent == accs["cpu"].num_sent == 9
     assert accs["cuda"].det_correct == accs["cpu"].det_correct
     assert abs(accs["cuda"].cum_i - accs["cpu"].cum_i) <= 4
+
+
+def test_nms_kernel_at_the_pretrain_shape(dev):
+    """The pretraining step's NMS: 2 lanes (an example is an image) at
+    12000 -> 2000, on an RPN draw: bit-identical, one launch."""
+    from lang2seg_tpu_torch.tools.profile_nms import rpn_draw
+    boxes = rpn_draw(2, 12000, 5, dev)
+    valid = torch.ones((2, 12000), dtype=torch.bool, device=dev)
+    before = nms_cuda.launches
+    ki, km = nms_cuda.nms_batched(boxes, valid, 0.7, 2000)
+    assert nms_cuda.launches == before + 1
+    pi, pm = nms_padded(boxes, valid, 0.7, 2000)
+    assert torch.equal(ki, pi) and torch.equal(km, pm)
+
+
+def test_tiny_pretrain_step_card_vs_cpu(dev):
+    """The tiny no-language step (2 images, 4 GT boxes and masks each,
+    injected targets) on the card and on the CPU: losses within 1e-4
+    relative, updates within 1e-3 in relative L2 norm (chip_smoke phase
+    18); with targets injected and no language it launches no kernel."""
+    from lang2seg_tpu_torch.tools.tiny_step import card_vs_cpu
+    torch.backends.cudnn.allow_tf32 = False
+    errs, launched = card_vs_cpu("pretrain")
+    assert launched == (0, 0, 0)
+    assert max(errs["loss_rel_err"].values()) <= 1e-4, errs["loss_rel_err"]
+    assert errs["update_rel_err_max"] <= 1e-3, errs["worst"]
+    assert not errs["moved_on_card_only"] and errs["tensors"] >= 20
+
+
+def _tiny_raw_tree(root):
+    """The raw REFER + COCO trees written by
+    `data/fixtures.py::write_mini_refer` under `root`: (COCO instances
+    path, read_image)."""
+    from lang2seg_tpu_torch.data.fixtures import write_mini_refer
+    coco, read = write_mini_refer(
+        str(root), ((120, 160), (160, 120), (120, 160), (160, 120)),
+        (2, 2, 3, 3), ("train", "train", "train", "val"), ((100, 140),),
+        seed=4)
+    return coco, read
+
+
+def test_pretrain_step_from_the_coco_loader_on_card(dev, tmp_path):
+    """CocoDetectionLoader (flips on, M = 4) -> to_wire -> train_step of
+    the tiny `pretrain` model on the card: NMS launched once with 2
+    lanes, the gate never; finite losses with loss_mask."""
+    from lang2seg_tpu_torch.data.coco_detection import CocoDetectionLoader
+    from lang2seg_tpu_torch.data.synthetic import to_wire
+    from lang2seg_tpu_torch.engine.train_state import (create_train_state,
+                                                       to_device, train_step)
+    from lang2seg_tpu_torch.tools.tiny_step import tiny_config
+    coco, read = _tiny_raw_tree(tmp_path)
+    cfg = tiny_config("pretrain")
+    cfg.train.learning_rate = 1e-5
+    cfg.train.rpn_pre_nms_top_n, cfg.train.rpn_post_nms_top_n = 512, 128
+    loader = CocoDetectionLoader(coco, str(tmp_path), cfg, read_image=read)
+    state = create_train_state(cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    before = (nms_cuda.launches, fused_filter.launches,
+              fused_filter.bwd_launches)
+    losses = train_step(state, to_device(to_wire(cfg, loader.get_batch()),
+                                         "cuda"), g)
+    after = (nms_cuda.launches, fused_filter.launches,
+             fused_filter.bwd_launches)
+    assert tuple(b - a for a, b in zip(before, after)) == (1, 0, 0)
+    assert "loss_mask" in losses and "loss_response" not in losses
+    assert all(np.isfinite(float(v)) for v in losses.values())
+
+
+def test_prepro_in_memory_feeds_a_response_step_on_card(dev, tmp_path):
+    """The raw REFER tree -> REFER -> prepro_data (no h5py) ->
+    GtBatchLoader -> one tiny `response` Trainer step on the card (NMS,
+    the gate and its backward once)."""
+    from lang2seg_tpu_torch.data.loader import GtBatchLoader
+    from lang2seg_tpu_torch.data.prepro import prepro_data
+    from lang2seg_tpu_torch.data.refer import REFER
+    from lang2seg_tpu_torch.engine.trainer import Trainer
+    _, read = _tiny_raw_tree(tmp_path)
+    cfg, _, _, _ = _tiny_refer()
+    info, labels = prepro_data(REFER(str(tmp_path)), cfg.data.max_len,
+                               count_threshold=0)
+    cfg.model.vocab_size = len(info["word_to_ix"])
+    tr = Trainer(cfg, GtBatchLoader(info, labels, cfg, read_image=read),
+                 device="cuda")
+    before = (nms_cuda.launches, fused_filter.launches,
+              fused_filter.bwd_launches)
+    losses = tr.train(1)
+    after = (nms_cuda.launches, fused_filter.launches,
+             fused_filter.bwd_launches)
+    assert tuple(b - a for a, b in zip(before, after)) == (1, 1, 1)
+    assert all(np.isfinite(v) for v in losses.values())

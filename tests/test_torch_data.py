@@ -3,9 +3,11 @@ canvas resize against cv2, the REFER loaders' train and test batches
 (bucketed, with the ref-deduped mask bank), the cycle and caption
 loaders, the prefetcher, the timer and the learnable synthetic set.
 
-The mini REFER split is the JAX package's `make_mini_refer` + `run_prepro`
-(the port has no prepro yet); both packages' loaders read the same
-data.json / data.h5 with the same seed and must draw the same batches.
+The mini REFER split is the JAX package's `make_mini_refer`, prepro'd by
+each package's `run_prepro`: each loader reads its own package's data.json
+/ data.h5 with the same seed, and both must draw the same batches; one
+test feeds the JAX prepro's files to the port's loader, so that the file
+format stays held.
 """
 
 import os
@@ -25,7 +27,7 @@ from lang2seg_tpu.data.caption_loader import \
 from lang2seg_tpu.data.fixtures import make_mini_refer
 from lang2seg_tpu.data.loader import CycleBatchLoader as JCycleBatchLoader
 from lang2seg_tpu.data.loader import GtBatchLoader as JGtBatchLoader
-from lang2seg_tpu.data.prepro import run_prepro
+from lang2seg_tpu.data.prepro import run_prepro as jrun_prepro
 from lang2seg_tpu.data.synthetic import \
     synthetic_learnable_set as jsynthetic_learnable_set
 from lang2seg_tpu_torch.data import rle
@@ -33,6 +35,7 @@ from lang2seg_tpu_torch.data.caption_loader import CaptionBatchLoader
 from lang2seg_tpu_torch.data.loader import (CycleBatchLoader, GtBatchLoader,
                                             resize_linear, xywh_to_xyxy)
 from lang2seg_tpu_torch.data.prefetch import Prefetcher
+from lang2seg_tpu_torch.data.prepro import run_prepro
 from lang2seg_tpu_torch.data.synthetic import synthetic_learnable_set
 from lang2seg_tpu_torch.utils.timer import Timer
 from tests.test_network import tiny_config
@@ -63,9 +66,13 @@ def refer(tmp_path_factory):
     bank of 8 rows."""
     root = str(tmp_path_factory.mktemp("torch_refer"))
     make_mini_refer(root, num_images=6, refs_per_image=3, sents_per_ref=3)
-    jp, hp = run_prepro(root, "refcoco", "unc", os.path.join(root, "prepro"),
-                        count_threshold=0)
-    return root, jp, hp
+    jax_files = jrun_prepro(root, "refcoco", "unc",
+                            os.path.join(root, "prepro_jax"),
+                            count_threshold=0)
+    port_files = run_prepro(root, "refcoco", "unc",
+                            os.path.join(root, "prepro"),
+                            count_threshold=0)
+    return root, jax_files, port_files
 
 
 def make_cfg(root, canvas=(128, 192), **data_kw):
@@ -79,11 +86,15 @@ def make_cfg(root, canvas=(128, 192), **data_kw):
     return cfg
 
 
-def loaders(refer, cls=GtBatchLoader, jcls=JGtBatchLoader, seed=3, **kw):
-    root, jp, hp = refer
+def loaders(refer, cls=GtBatchLoader, jcls=JGtBatchLoader, seed=3,
+            files="port", **kw):
+    """(JAX loader on the JAX prepro's files, port loader on the port
+    prepro's files, or on the JAX prepro's with files="jax")."""
+    root, jax_files, port_files = refer
     cfg = make_cfg(root, **kw)
-    return jcls(jp, hp, cfg, seed=seed), cls(jp, hp, to_port_cfg(cfg),
-                                             seed=seed)
+    mine = port_files if files == "port" else jax_files
+    return jcls(*jax_files, cfg, seed=seed), cls(*mine, to_port_cfg(cfg),
+                                                 seed=seed)
 
 
 def assert_canvas_close(got, want):
@@ -208,8 +219,9 @@ def test_train_batches_match_jax(refer, wire):
 
 
 def test_loader_state_dict_matches_jax(refer):
-    """The iterator state is interchangeable with the JAX loader's."""
-    jl, pl = loaders(refer, seed=7)
+    """The iterator state is interchangeable with the JAX loader's; the
+    port's loader reads the JAX prepro's files."""
+    jl, pl = loaders(refer, seed=7, files="jax")
     for _ in range(3):
         jl.get_batch("train")
     pl.load_state_dict(jl.state_dict())
@@ -256,7 +268,7 @@ def test_loader_from_memory(refer):
     callable give the file-backed loader's batches."""
     import json
     import h5py
-    root, jp, hp = refer
+    root, _, (jp, hp) = refer
     cfg = to_port_cfg(make_cfg(root))
     with open(jp) as f:
         info = json.load(f)

@@ -22,12 +22,13 @@ import jax
 
 from lang2seg_tpu.data.fixtures import make_mini_refer
 from lang2seg_tpu.data.loader import GtBatchLoader as JGtBatchLoader
-from lang2seg_tpu.data.prepro import run_prepro
+from lang2seg_tpu.data.prepro import run_prepro as jrun_prepro
 from lang2seg_tpu.engine.evaluator import Evaluator as JaxEvaluator
 from lang2seg_tpu.utils.metrics import SegEvalAccumulator as JaxAccumulator
 from lang2seg_tpu_torch.cli import eval as cli_eval
 from lang2seg_tpu_torch.cli import train as cli_train
 from lang2seg_tpu_torch.data.loader import GtBatchLoader
+from lang2seg_tpu_torch.data.prepro import run_prepro
 from lang2seg_tpu_torch.engine.evaluator import Evaluator
 from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator
 from tests.test_torch_weights import (response_config, shared_weights,
@@ -52,13 +53,18 @@ def _two_torch_threads():
 def setup(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("torch_eval_data"))
     make_mini_refer(root)
-    jp, hp = run_prepro(root, "refcoco", "unc", os.path.join(root, "prepro"),
-                        count_threshold=0)
+    # each package's loader reads its own prepro's files (the CLIs read
+    # the port's, from <root>/prepro)
+    port_files = run_prepro(root, "refcoco", "unc",
+                            os.path.join(root, "prepro"), count_threshold=0)
+    jax_files = jrun_prepro(root, "refcoco", "unc",
+                            os.path.join(root, "prepro_jax"),
+                            count_threshold=0)
     cfg = response_config()
     cfg.data.image_dir = os.path.join(root, "images", "train2014")
     cfg.model.vocab_size = 64
     model, jmodel, params = shared_weights(cfg, seed=2, scale_rpn_cls=100.0)
-    return root, jp, hp, cfg, model, jmodel, params
+    return root, port_files, jax_files, cfg, model, jmodel, params
 
 
 _PORT_EVALS = {}
@@ -76,11 +82,11 @@ def _port_eval(setup, pipeline_depth=4, ev_kw=None, **data_kw):
 
 
 def _run_port_eval(setup, pipeline_depth=4, ev_kw=None, **data_kw):
-    _, jp, hp, cfg, model, _, _ = setup
+    _, port_files, jax_files, cfg, model, _, _ = setup
     pcfg = to_port_cfg(cfg)
     for k, v in data_kw.items():
         setattr(pcfg.data, k, v)
-    loader = GtBatchLoader(jp, hp, pcfg, seed=3)
+    loader = GtBatchLoader(*port_files, pcfg, seed=3)
     acc = SegEvalAccumulator()
     ev = Evaluator(model, pcfg, device="cpu", **(ev_kw or {}))
     for split in SPLITS:
@@ -98,9 +104,9 @@ def test_eval_split_matches_jax(setup):
     """Every image of three splits through both evaluators: the same
     sentences, det_correct and seg_correct, and I / U pixel counts within
     4 an image (pixels on the 122/255 cut)."""
-    _, jp, hp, cfg, _, jmodel, params = setup
+    _, port_files, jax_files, cfg, _, jmodel, params = setup
     acc = _port_eval(setup)
-    jl = JGtBatchLoader(jp, hp, cfg, seed=3)
+    jl = JGtBatchLoader(*jax_files, cfg, seed=3)
     jev = JaxEvaluator(jmodel, cfg)
     jacc = JaxAccumulator()
     n_images = 0
@@ -134,11 +140,11 @@ def test_eval_split_mask_bank_and_pipeline(setup):
 
 
 def test_eval_split_restores_mode_and_refuses_chunks(setup):
-    _, jp, hp, cfg, model, _, _ = setup
+    _, port_files, jax_files, cfg, model, _, _ = setup
     pcfg = to_port_cfg(cfg)
     ev = Evaluator(model, pcfg, device="cpu")
     model.train()
-    loader = GtBatchLoader(jp, hp, pcfg, seed=3)
+    loader = GtBatchLoader(*port_files, pcfg, seed=3)
     s = ev.eval_split(loader.iter_test_batches("val", buckets=BUCKETS))
     assert model.training
     model.eval()
@@ -151,11 +157,11 @@ def _jax_eval(setup, ev_kw, **data_kw):
     """The JAX Evaluator over the same splits, image by image; returns its
     accumulator and the records its dispatch made (host paths keep the
     mask probabilities there)."""
-    _, jp, hp, cfg, _, jmodel, params = setup
+    _, port_files, jax_files, cfg, _, jmodel, params = setup
     cfg = copy.deepcopy(cfg)
     for k, v in data_kw.items():
         setattr(cfg.data, k, v)
-    jl = JGtBatchLoader(jp, hp, cfg, seed=3)
+    jl = JGtBatchLoader(*jax_files, cfg, seed=3)
     jev = JaxEvaluator(jmodel, cfg, **ev_kw)
     jacc, recs = JaxAccumulator(), []
     with jax.default_matmul_precision("float32"):
@@ -236,7 +242,7 @@ def test_top_mode_draws_per_image(setup):
     seeded from (cfg.seed, its uid), the uids given out in dispatch
     order. Two runs score the same; the images' generators differ; a
     scored split stays in range."""
-    _, jp, hp, cfg, model, _, _ = setup
+    _, port_files, jax_files, cfg, model, _, _ = setup
     pcfg = to_port_cfg(cfg)
     pcfg.test.mode, pcfg.test.rpn_top_n = "top", 256
     pcfg.data.canvas_h = pcfg.data.canvas_w = 64
@@ -245,7 +251,7 @@ def test_top_mode_draws_per_image(setup):
         runs = []
         for _ in range(2):
             ev = Evaluator(model, pcfg, device="cpu")
-            loader = GtBatchLoader(jp, hp, pcfg, seed=3)
+            loader = GtBatchLoader(*port_files, pcfg, seed=3)
             runs.append(ev.eval_split(loader.iter_test_batches(
                 "val", buckets=BUCKETS)))
         assert ev._rng_uid == len(loader.split_ix["val"])

@@ -14,9 +14,10 @@ import pytest
 from lang2seg_tpu.config import Config
 from lang2seg_tpu.data.fixtures import make_mini_refer
 from lang2seg_tpu.data.loader import GtBatchLoader as JGtBatchLoader
-from lang2seg_tpu.data.prepro import run_prepro
+from lang2seg_tpu.data.prepro import run_prepro as jrun_prepro
 from lang2seg_tpu.utils import metrics as jmetrics
 from lang2seg_tpu_torch.data.loader import GtBatchLoader
+from lang2seg_tpu_torch.data.prepro import run_prepro
 from lang2seg_tpu_torch.utils import metrics
 from tests.test_torch_weights import to_port_cfg
 
@@ -118,9 +119,12 @@ def mini_refer(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("torch_ref_exact_data"))
     make_mini_refer(root, num_images=3, refs_per_image=2, sents_per_ref=2,
                     img_hw=(60, 80), seed=9)
-    jp, hp = run_prepro(root, "refcoco", "unc", os.path.join(root, "prepro"),
-                        count_threshold=0)
-    return root, jp, hp
+    port_files = run_prepro(root, "refcoco", "unc",
+                            os.path.join(root, "prepro"), count_threshold=0)
+    jax_files = jrun_prepro(root, "refcoco", "unc",
+                            os.path.join(root, "prepro_jax"),
+                            count_threshold=0)
+    return root, port_files, jax_files
 
 
 @pytest.mark.parametrize("bank", [True, False])
@@ -130,14 +134,14 @@ def test_reference_exact_masks_match_jax_loader(mini_refer, bank):
     and without the ref-deduped bank) and a training batch equal the JAX
     loader's bit for bit, and differ from the default exact-rational
     resize only on a few boundary pixels."""
-    root, jp, hp = mini_refer
+    root, port_files, jax_files = mini_refer
     cfg = Config()
     cfg.data.image_dir = os.path.join(root, "images", "train2014")
     cfg.data.canvas_h, cfg.data.canvas_w = 128, 192
     cfg.data.wire_mask_bank = bank
     cfg.data.reference_exact_masks = True
-    got = GtBatchLoader(jp, hp, to_port_cfg(cfg), seed=7)
-    want = JGtBatchLoader(jp, hp, cfg, seed=7)
+    got = GtBatchLoader(*port_files, to_port_cfg(cfg), seed=7)
+    want = JGtBatchLoader(*jax_files, cfg, seed=7)
     key = "gt_mask_bank" if bank else "gt_masks"
     for split in ("train", "val"):
         g, w = got.get_test_batch(split), want.get_test_batch(split)
@@ -146,9 +150,9 @@ def test_reference_exact_masks_match_jax_loader(mini_refer, bank):
     g, w = got.get_batch("train"), want.get_batch("train")
     np.testing.assert_array_equal(g["gt_masks"], w["gt_masks"])
     cfg.data.reference_exact_masks = False
-    fast = GtBatchLoader(jp, hp, to_port_cfg(cfg), seed=7).get_test_batch(
+    fast = GtBatchLoader(*port_files, to_port_cfg(cfg), seed=7).get_test_batch(
         "train")[key]
-    exact = GtBatchLoader(jp, hp, to_port_cfg(
+    exact = GtBatchLoader(*port_files, to_port_cfg(
         dict_set(cfg, reference_exact_masks=True)), seed=7).get_test_batch(
         "train")[key]
     assert exact.shape == fast.shape and (exact != fast).mean() < 0.02

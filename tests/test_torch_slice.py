@@ -191,7 +191,9 @@ def test_port_imports_no_jax():
     assert len(files) > 15
     names = {f.name for f in files}
     assert {"captioner.py", "caption_zoo.py", "train_captioner.py",
-            "loader.py", "tiny_step.py", "vgg.py", "metrics.py"} <= names
+            "loader.py", "tiny_step.py", "vgg.py", "metrics.py", "rle.py",
+            "refer.py", "prepro.py", "coco_detection.py", "det_eval.py",
+            "make_coco_minus_refer.py", "fixtures.py"} <= names
     # the card's machine has no Pillow: the port keeps its own copies of
     # Pillow's resizes (utils/metrics.py)
     banned = ("jax", "jaxlib", "flax", "optax", "lang2seg_tpu", "PIL")
