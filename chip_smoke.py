@@ -139,13 +139,45 @@ Phases, each fatal on failure (nothing is caught):
      raw tree prepro'd in memory (`REFER` -> `prepro_data`, no h5py);
   18. phase 8 for the tiny `pretrain` step (2 images with 4 GT boxes and
      masks each; with targets injected and no language it launches no
-     kernel).
+     kernel);
+  19. the attribute head at full width (`flagship_config()` with
+     `use_attribute_head`, 50 attributes, random weights from a seed): a
+     raw REFER tree (`write_mini_refer`) with a 50-word attribute file
+     (`write_attribute_file`) prepro'd in memory -> `GtBatchLoader` (2
+     images x 16 expressions with `att_labels` / `att_valid`) -> phase 7's
+     checks on a `Trainer` (NMS, the gate and its backward once a step,
+     no host sync, frozen tensors fixed, every SGD group moving), with a
+     finite `loss_att` every step and `att_head` moving; then
+     `eval_attributes` over `iter_attribute_batches` (16 refs an image)
+     with `predict_attribute_scores` on the card: scores in [0, 1],
+     P / R / F1 each -1 or in [0, 1], ms an image;
+  20. comprehension at full width (the `response` model, random weights):
+     `ComprehensionEvaluator.eval_split` over phase 12's val and testA
+     images at the sentence buckets 8 / 16 / 32 (candidates: the distinct
+     GT boxes), then `eval_split_dets` over a dets file in the
+     reference's flat format written here (none for the first images of
+     buckets 8 and 32, `max_cands` 32, so that the other bucket-32 image
+     scores 32 x 32 candidates): the gate once an image and NMS never,
+     finite scores, `n` the valid sentences less `skipped_no_dets`; ms an
+     image by bucket;
+  21. the caption side at full width (`cycle_response`: captioner 512
+     wide, vocabulary 2000, 10 words): (a) captioner pretraining on phase
+     11's features for each of `show_tell`, `fc`, `topdown`,
+     `show_attend_tell` and `adaatt`, three Adam steps each (finite
+     losses, every parameter moves); (b) phase 9's checks on
+     `cycle_response` with the `topdown` decoder; (c)
+     `cli.eval_captions.score_caption_split` (att2in2, beam 10) over phase
+     12's val images: BLEU-1..4, ROUGE_L, CIDEr and METEOR, finite, ms an
+     image;
+  22. phase 8 for the tiny `response_att` (attribute labels injected)
+     and `topdown` steps.
 Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
 shape, its launches from the runs of that shape's path: serving in phases
-5 and 14 and the bucket-16 images of phases 12 and 16, training in phases
-7, 9, 12, 14 and 17g, the eval buckets 8 and 32 in phases 12 and 16, the
-pretraining shape (2, 12000) -> 2000 in phase 17's steps; the gate's
-backward's from training; the C = 512 gate's from phase 14)
+5 and 14 and the bucket-16 images of phases 12, 16 and 20, training in
+phases 7, 9, 12, 14, 17g, 19 and 21b, the eval buckets 8 and 32 in phases
+12, 16 and 20, the pretraining shape (2, 12000) -> 2000 in phase 17's
+steps; the gate's backward's from training; the C = 512 gate's from phase
+14)
 and, last, the `{"ok": true, ...}` line. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device or
 outside a checkout of the repository.
@@ -168,18 +200,24 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from lang2seg_tpu_torch.cli import eval as cli_eval  # noqa: E402
+from lang2seg_tpu_torch.cli import eval_captions  # noqa: E402
 from lang2seg_tpu_torch.config import Config, apply_variant, flagship_config  # noqa: E402
 from lang2seg_tpu_torch.data.coco_detection import (  # noqa: E402
     CocoDetectionLoader, make_coco_minus_refer)
 from lang2seg_tpu_torch.data.fixtures import (  # noqa: E402
-    mini_refer_split, write_mini_refer)
-from lang2seg_tpu_torch.data.loader import GtBatchLoader  # noqa: E402
+    mini_refer_split, write_attribute_file, write_mini_refer)
+from lang2seg_tpu_torch.data.loader import (  # noqa: E402
+    CycleBatchLoader, GtBatchLoader)
 from lang2seg_tpu_torch.data.prepro import (  # noqa: E402
     DEFAULT_MAX_LENGTH, prepro_data)
 from lang2seg_tpu_torch.data.refer import REFER  # noqa: E402
 from lang2seg_tpu_torch.data.synthetic import (  # noqa: E402
     FixedBatchLoader, synthetic_batch, synthetic_eval_request, to_wire)
+from lang2seg_tpu_torch.engine.attributes import (  # noqa: E402
+    attribute_scorer, eval_attributes)
 from lang2seg_tpu_torch.engine.checkpoint import CheckpointManager  # noqa: E402
+from lang2seg_tpu_torch.engine.comprehension import (  # noqa: E402
+    ComprehensionEvaluator, DetsLoader)
 from lang2seg_tpu_torch.engine.evaluator import Evaluator  # noqa: E402
 from lang2seg_tpu_torch.engine.inference import Inference  # noqa: E402
 from lang2seg_tpu_torch.engine.train_captioner import (  # noqa: E402
@@ -209,22 +247,30 @@ from lang2seg_tpu_torch.weights import init_params  # noqa: E402
 OUT = os.path.join(REPO, "chiprun_out")
 record = {}
 # the main-path runs whose launches of a kernel's counter a `kernels` entry
-# of that path reports: serving (phase 5) and phase 12's eval images of
-# the 16 bucket; training, the response step (phase 7), the cycle_response
-# step (phase 9), the file-backed run (phase 12) and phase 17's response
-# step on the pretrain weights
+# of that path reports: serving (phase 5) and the eval images of the 16
+# bucket (phases 12, 16 and 20); training, the response step (phase 7),
+# the cycle_response step (phase 9), the file-backed run (phase 12), phase
+# 17's response step on the pretrain weights, the attribute head's steps
+# (phase 19) and the topdown cycle_response steps (phase 21b)
 LAUNCHED_BY = {"serve": lambda counter: (("serve", counter),
                                          ("eval_file_16", counter),
-                                         ("host_modes_16", counter)),
+                                         ("host_modes_16", counter),
+                                         ("comprehension_16", counter)),
                "train": lambda counter: (("train", counter),
                                          ("train_cycle", counter),
                                          ("train_file", counter),
-                                         ("recipe_link", counter))}
+                                         ("recipe_link", counter),
+                                         ("train_att", counter),
+                                         ("train_topdown", counter))}
 # NMS runs at the same shapes in the `vgg` preset (phase 14): its requests
 # and steps count towards the NMS entries, its C = 512 gate to its own
 VGG_NMS_RUNS = {"serve": (("serve_vgg", "nms"),),
                 "train": (("train_vgg", "nms"),)}
 EVAL_BUCKETS = (8, 16, 32)
+# the mini REFER split of phases 12, 20 and 21c: (image sizes, refs an
+# image, splits); 8 images, 4 of them val / testA with 6 to 18 sentences
+FILE_SPLIT = (((427, 640), (640, 427)) * 4, (2, 3, 6, 3, 2, 6, 3, 6),
+              ("train",) * 4 + ("val",) * 2 + ("testA",) * 2)
 
 
 def log(*a):
@@ -680,15 +726,17 @@ def record_gate_bwd_inputs():
     return calls, undo
 
 
-def train_full_width(path, cfg):
+def train_full_width(path, cfg, batches=None):
     """`Trainer` at full width, 2 images x 16 expressions (uint8 canvases,
     bit-packed masks), random weights from a seed, at the config's LR: a
     warm-up step (its gate-backward inputs recorded), one step under the
     sync debug mode, three timed steps, the launch counts set to 0 before
-    and read after. Returns (launches, trainer, record entry)."""
+    and read after. `batches` (4 in the wire formats, default synthetic
+    ones) are taken in turn. Returns (launches, trainer)."""
     num_images, num_expr = 2, 16
-    batches = [to_wire(cfg, synthetic_batch(cfg, num_images, num_expr,
-                                            seed=s)) for s in range(4)]
+    if batches is None:
+        batches = [to_wire(cfg, synthetic_batch(cfg, num_images, num_expr,
+                                                seed=s)) for s in range(4)]
     t0 = time.perf_counter()
     trainer = Trainer(cfg, FixedBatchLoader(batches), device="cuda", seed=0)
     model = trainer.state.model
@@ -790,6 +838,14 @@ def train_full_width(path, cfg):
         check(all(n.startswith("caption_model.fc_embed.") for n in unmoved),
               f"captioner parameters did not move: {unmoved}")
         entry["captioner_unmoved"] = unmoved
+    if cfg.model.use_attribute_head:
+        check(all("loss_att" in ls for ls in steps), "a step without loss_att")
+        head = {n: not torch.equal(before[n], p) for n, p in after.items()
+                if n.startswith("att_head.")}
+        log(f"[{path}] loss_att by step "
+            f"{[round(ls['loss_att'], 4) for ls in steps]}; att_head moved: "
+            f"{head}")
+        check(len(head) == 2 and all(head.values()), "att_head did not move")
     record[path] = entry
     return launches, trainer
 
@@ -834,7 +890,8 @@ def pretrain_captioner(cfg, model):
     """Captioner pretraining and decoding at full width: the 'res5_2'
     features of 16 expressions over 2 images from the phase-9 network,
     three Adam steps of a fresh captioner (the second under the sync
-    debug mode), then greedy and beam-10 decodes."""
+    debug mode), then greedy and beam-10 decodes. Returns the features
+    and captions (fc, att, seq, mask)."""
     batch = to_device(to_wire(cfg, synthetic_batch(cfg, 2, 16, seed=7)),
                       "cuda")
     t0 = time.perf_counter()
@@ -912,6 +969,7 @@ def pretrain_captioner(cfg, model):
                            "greedy_ms": t_greedy, "beam10_ms": t_beam,
                            "greedy_rescore_err": greedy_err,
                            "beam_rescore_err": beam_err}
+    return fc, att, seq, mask
 
 
 # --------------------------------------------------------------- phase 12
@@ -951,7 +1009,8 @@ def check_eval_kernels(dev, regs):
                "bound_ms": bound, "bound_by": by, "library_ms": None,
                "cluster_size": csize,
                "launched_by": ((f"eval_file_{e}", "nms"),
-                               (f"host_modes_{e}", "nms"))}
+                               (f"host_modes_{e}", "nms"),
+                               (f"comprehension_{e}", "nms"))}
         log(f"[eval-kernels] nms ({e}, {n})->{max_out}: bit-identical={same}"
             f" kept/lane={kept}; kernel {ms:.4f} ms device time ({csize} "
             f"CTAs a lane), plain {plain_ms:.2f} ms, bound "
@@ -991,7 +1050,8 @@ def check_eval_kernels(dev, regs):
                              "tiles_per_block": plan["tiles_per_block"]},
                "registers": regs["forward"]["registers"],
                "launched_by": ((f"eval_file_{e}", "fused_filter"),
-                               (f"host_modes_{e}", "fused_filter"))}
+                               (f"host_modes_{e}", "fused_filter"),
+                               (f"comprehension_{e}", "fused_filter"))}
         log(f"[eval-kernels] gate ({e}, 40, 64, 1024) bf16 K=7 stride-0 map:"
             f" resp err {resp_err:.3e} (tol {resp_tol:.3e}), gated {ulps} "
             f"bf16 ulp ({ulps_given_resp} given its response); kernel "
@@ -1033,9 +1093,7 @@ def file_backed_path(phase7_ms):
     t = cfg.train
     t.images_per_batch, t.expressions_per_batch = 2, 16
     t.snapshot_iters, t.display, t.summary_interval = 3, 1, 10 ** 9
-    info, labels, read = mini_refer_split(
-        ((427, 640), (640, 427)) * 4, (2, 3, 6, 3, 2, 6, 3, 6),
-        ("train",) * 4 + ("val",) * 2 + ("testA",) * 2, seed=0)
+    info, labels, read = mini_refer_split(*FILE_SPLIT, seed=0)
 
     def loader(seed):
         return GtBatchLoader(info, labels, cfg, seed=seed, read_image=read)
@@ -1819,6 +1877,232 @@ def pretrain_stage(dev):
     return runs
 
 
+# ------------------------------------------------------------ phases 19-22
+
+ZOO_DECODERS = ("show_tell", "fc", "topdown", "show_attend_tell", "adaatt")
+
+
+def attribute_head():
+    """Phase 19: the attribute head at full width. Returns the launch
+    counts of its training run."""
+    cfg = flagship_config()
+    m = cfg.model
+    m.use_attribute_head, m.num_attributes = True, 50
+    cfg.train.images_per_batch, cfg.train.expressions_per_batch = 2, 16
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_att_") as tmp:
+        _, read = write_mini_refer(tmp, **PRETRAIN_TREE)
+        att_json = write_attribute_file(tmp, m.num_attributes)
+        info, labels = prepro_data(REFER(tmp), DEFAULT_MAX_LENGTH["refcoco"],
+                                   count_threshold=0, att_json=att_json)
+    loader = GtBatchLoader(info, labels, cfg, seed=cfg.seed, read_image=read)
+    m.vocab_size = m.cap_vocab_size = loader.vocab_size
+    check(len(loader.att_to_ix) == m.num_attributes,
+          f"attribute vocabulary of {len(loader.att_to_ix)} words")
+    # the Trainer's batches, without the loader's expr_uid (train_step
+    # takes them as they are)
+    batches = [{k: v for k, v in loader.get_batch("train").items()
+                if k != "expr_uid"} for _ in range(4)]
+    for b in batches:
+        check(b["att_labels"].shape == (16, 50)
+              and b["att_valid"].dtype == bool)
+    n_valid = [int(b["att_valid"].sum()) for b in batches]
+    log(f"[attributes] {len(info['refs'])} refs, {len(loader.att_to_ix)} "
+        f"attribute words; valid expressions a batch {n_valid}")
+    launches, trainer = train_full_width("train_att", cfg, batches)
+
+    model = trainer.state.model
+    score = attribute_scorer(model, device="cuda")
+    seen, times = [], []
+
+    def timed(images, boxes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = score(images, boxes)
+        times.append((time.perf_counter() - t0) * 1e3)
+        seen.append(out)
+        return out
+    results = {split: eval_attributes(loader, timed, split, max_refs=16)
+               for split in ("train", "val", "testA")}
+    scores = np.concatenate([x.reshape(-1) for x in seen])
+    summary = {k: (r["n_refs"], {n: round(v, 4)
+                                 for n, v in r["overall"].items()})
+               for k, r in results.items()}
+    log(f"[attributes] eval_attributes (refs, P / R / F1) {summary}; "
+        f"{len(times)} images, ms an image {[round(t, 2) for t in times]}; "
+        f"scores in [{scores.min():.4f}, {scores.max():.4f}]")
+    check(len(seen) == len(times) > 0 and all(
+        x.shape == (1, 16, 50) for x in seen))
+    check(bool(np.isfinite(scores).all() and (scores >= 0).all()
+               and (scores <= 1).all()), "attribute scores outside [0, 1]")
+    for r in results.values():
+        check(r["n_refs"] > 0)
+        for v in r["overall"].values():
+            check(v == -1.0 or 0.0 <= v <= 1.0, r["overall"])
+    record["train_att"].update(
+        attribute_eval={k: dict(r) for k, r in results.items()},
+        attribute_ms_per_image=times)
+    del trainer, model, score
+    return launches
+
+
+def comprehension():
+    """Phase 20: comprehension over GT boxes and over detections at full
+    width. Returns the gate's and NMS's launches by bucket."""
+    cfg = flagship_config()
+    info, labels, read = mini_refer_split(*FILE_SPLIT, seed=0)
+    loader = GtBatchLoader(info, labels, cfg, seed=cfg.seed, read_image=read)
+    cfg.model.vocab_size = cfg.model.cap_vocab_size = loader.vocab_size
+    batches = [b for split in ("val", "testA")
+               for b in loader.iter_test_batches(split, buckets=EVAL_BUCKETS)]
+    check(sorted({b["labels"].shape[0] for b in batches})
+          == list(EVAL_BUCKETS))
+    ev = ComprehensionEvaluator(build_model(cfg, device="cuda", seed=0), cfg)
+    per_image, scores, real = [], [], ev.score_boxes
+
+    def counted(images, labels, boxes):
+        c0 = (nms_cuda.launches, fused_filter.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(images, labels, boxes)
+        torch.cuda.synchronize()
+        per_image.append((labels.shape[0], (time.perf_counter() - t0) * 1e3,
+                          nms_cuda.launches - c0[0],
+                          fused_filter.launches - c0[1]))
+        scores.append(out)
+        return out
+    ev.score_boxes = counted
+    ev.eval_split(batches[:1])                  # warm-up, not counted
+    per_image.clear()
+    scores.clear()
+    nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
+    gt_res = ev.eval_split(batches)
+    gt_runs = list(per_image)
+    n_valid = sum(int(b["sent_valid"].sum()) for b in batches)
+    # detections in the reference's flat format: each image's GT boxes
+    # jittered and 40 random boxes, none for the first images of buckets 8
+    # and 32 (so that a 32 bucket image scores 32 x 32 candidates)
+    r = np.random.RandomState(20)
+    dets = []
+    no_dets = {next(int(b["image_id"]) for b in batches
+                    if b["labels"].shape[0] == e) for e in (8, 32)}
+    for b in batches:
+        if int(b["image_id"]) in no_dets:
+            continue
+        gt = b["gt_boxes"][b["sent_valid"], :4] / b["im_scale"]
+        xy = r.uniform(0, 300, (40, 2))
+        boxes = np.concatenate([gt + r.randn(*gt.shape) * 4.0,
+                                np.concatenate([xy, xy + r.uniform(
+                                    30, 200, (40, 2))], 1)])
+        for box in boxes:
+            x1, y1, x2, y2 = (float(v) for v in box)
+            dets.append({"det_id": len(dets) + 1,
+                         "image_id": int(b["image_id"]),
+                         "box": [x1, y1, x2 - x1 + 1, y2 - y1 + 1],
+                         "category_id": 1, "category_name": "person",
+                         "score": float(r.uniform(0.05, 1.0))})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dets_") as tmp:
+        path = os.path.join(tmp, "dets.json")
+        with open(path, "w") as f:
+            json.dump({"dets": dets}, f)
+        dets_loader = DetsLoader(path)
+    dets_res = ev.eval_split_dets(batches, dets_loader, max_cands=32)
+    launched = (nms_cuda.launches, fused_filter.launches,
+                fused_filter.bwd_launches)
+    skipped = sum(int(b["sent_valid"].sum()) for b in batches
+                  if int(b["image_id"]) in no_dets)
+    by_bucket = {}
+    for e, ms, _, _ in per_image:
+        by_bucket.setdefault(e, []).append(ms)
+    log(f"[comprehension] over GT boxes {gt_res}; over detections "
+        f"{dets_res} ({len(dets)} boxes, {len(no_dets)} images without); "
+        f"(bucket, ms, nms, gate) an image "
+        f"{[(e, round(ms, 2), n, g) for e, ms, n, g in per_image]}; "
+        f"launches (nms, gate, gate bwd) {launched}")
+    check(all(n == 0 and g == 1 for _, _, n, g in per_image),
+          "a comprehension image did not launch the gate once and NMS never")
+    check(launched == (0, len(per_image), 0))
+    check(len(gt_runs) == len(batches)
+          and len(per_image) == 2 * len(batches) - len(no_dets))
+    check(all(bool(torch.isfinite(x).all()) for x in scores),
+          "non-finite comprehension scores")
+    check(gt_res["n"] == n_valid and 0.0 <= gt_res["comprehension_acc"] <= 1)
+    check(dets_res["skipped_no_dets"] == skipped
+          and dets_res["n"] == n_valid - skipped)
+    record["comprehension"] = {
+        "gt": gt_res, "dets": dets_res, "per_image": per_image,
+        "ms_by_bucket": by_bucket}
+    runs = {}
+    for b in EVAL_BUCKETS:
+        k = sum(1 for e, _, _, _ in per_image if e == b)
+        runs[f"comprehension_{b}"] = {"nms": 0, "fused_filter": k}
+    del ev
+    return runs
+
+
+def caption_side(cfg, feats):
+    """Phase 21: (a) captioner pretraining of each zoo decoder on phase
+    11's features, (b) phase 9's checks on `cycle_response` with the
+    `topdown` decoder, (c) the caption metrics of att2in2's beam-10
+    decodes over phase 12's val images. Returns (b)'s launches."""
+    fc, att, seq, mask = feats
+    zoo = {}
+    for name in ZOO_DECODERS:
+        zcfg = copy.deepcopy(cfg)
+        zcfg.model.caption_model = name
+        state = init_captioner_state(zcfg, device="cuda", seed=0)
+        before = {k: v.detach().clone()
+                  for k, v in state.captioner.state_dict().items()}
+        losses, times = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = captioner_train_step(state, fc, att, seq, mask)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        after = state.captioner.state_dict()
+        unmoved = sorted(k for k, v in before.items()
+                         if torch.equal(v, after[k]))
+        zoo[name] = {"losses": losses, "adam_step_ms": times,
+                     "tensors": len(before), "unmoved": unmoved}
+        log(f"[caption-zoo] {name}: {len(before)} tensors, losses "
+            f"{[round(v, 4) for v in losses]}, Adam steps "
+            f"{[round(t, 2) for t in times]} ms; unmoved {unmoved}")
+        check(all(np.isfinite(v) for v in losses), f"{name}: non-finite loss")
+        check(not unmoved, f"{name}: parameters did not move: {unmoved}")
+        del state
+    record["caption_zoo"] = zoo
+
+    tcfg = copy.deepcopy(cfg)
+    tcfg.model.caption_model = "topdown"
+    launches, trainer = train_full_width("train_topdown", tcfg)
+    del trainer
+
+    info, labels, read = mini_refer_split(*FILE_SPLIT, seed=0)
+    ccfg = flagship_config("cycle_response")
+    loader = CycleBatchLoader(info, labels, ccfg, seed=ccfg.seed,
+                              read_image=read)
+    ccfg.model.vocab_size = ccfg.model.cap_vocab_size = loader.vocab_size
+    model = build_model(ccfg, device="cuda", seed=0)
+    eval_captions.score_caption_split(model, loader, "val", 10,
+                                      max_images=1)          # warm-up
+    n_images = len(loader.split_ix["val"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = eval_captions.score_caption_split(model, loader, "val", 10)
+    ms = (time.perf_counter() - t0) * 1e3 / n_images
+    log(f"[caption-metrics] att2in2 beam 10 over {n_images} val images: "
+        f"{ {k: round(v, 4) for k, v in scores.items()} }; {ms:.1f} ms an "
+        f"image (loader and metrics included)")
+    check(list(scores) == ["Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4",
+                           "ROUGE_L", "CIDEr", "METEOR"], list(scores))
+    check(all(np.isfinite(v) for v in scores.values()), scores)
+    record["caption_metrics"] = {"scores": scores, "ms_per_image": ms,
+                                 "images": n_images}
+    del model
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1840,7 +2124,7 @@ def main():
     cfg = flagship_config("cycle_response")
     runs["train_cycle"], trainer = train_full_width("train_cycle", cfg)
     small_train_reference("train_cycle_reference", "cycle")
-    pretrain_captioner(cfg, trainer.state.model)
+    feats = pretrain_captioner(cfg, trainer.state.model)
     del trainer
     kernels += check_eval_kernels(dev, regs)
     phase7_ms = float(np.mean(record["train"]["step_ms"]))
@@ -1855,6 +2139,12 @@ def main():
     runs.update(pretrain_stage(dev))
     small_train_reference("pretrain_reference", "pretrain", launches=(0, 0, 0),
                           min_tensors=20)
+    runs["train_att"] = attribute_head()
+    runs.update(comprehension())
+    runs["train_topdown"] = caption_side(cfg, feats)
+    del feats
+    small_train_reference("att_reference", "response_att")
+    small_train_reference("topdown_reference", "topdown")
     for kr in kernels:
         kr["launches"] = sum(runs[path].get(counter, 0)
                              for path, counter in kr["launched_by"])

@@ -1,9 +1,10 @@
 """Command-line entry points of the port: `python -m
-lang2seg_tpu_torch.cli.train` and `python -m lang2seg_tpu_torch.cli.eval`
-take the flags of `add_common_flags` and derive their config and paths
-from them with `setup`; the offline tools `cli.prepro` (REFER ->
-data.json + data.h5) and `cli.make_coco_minus_refer` (the pretraining
-instances) take their own."""
+lang2seg_tpu_torch.cli.train`, `python -m lang2seg_tpu_torch.cli.eval` and
+`python -m lang2seg_tpu_torch.cli.eval_captions` (the caption metrics of a
+caption variant's decodes) take the flags of `add_common_flags` and derive
+their config and paths from them with `setup`; the offline tools
+`cli.prepro` (REFER -> data.json + data.h5) and
+`cli.make_coco_minus_refer` (the pretraining instances) take their own."""
 
 from __future__ import annotations
 

@@ -156,7 +156,8 @@ class ModelConfig:
     num_attributes: int = 50
     att_loss_weight: float = 1.0
 
-    # captioner (att2in2; reference tools/opt_cycle.py:81-117)
+    # captioner (reference tools/opt_cycle.py:81-117): att2in2, or another
+    # decoder of models/caption_zoo.py (teacher-forced only)
     caption_model: str = "att2in2"
     cap_vocab_size: int = 2000
     cap_seq_length: int = 10

@@ -13,6 +13,9 @@ images come from the `read_image` callable each function returns.
   `data/refer.py::REFER` and `data/prepro.py`) and a COCO-style
   `<root>/coco/instances_train2014.json` over the same images and a few
   without refs (for `data/coco_detection.py`).
+* `write_attribute_file`: a refer-parser2-style attribute file
+  (`{ref_id: [word, ...]}`) beside a `write_mini_refer` tree, for the
+  prepro's `att_json`.
 """
 
 from __future__ import annotations
@@ -231,3 +234,30 @@ def write_mini_refer(root: str, image_hw: Sequence[Tuple[int, int]],
         return pixels.get(os.path.basename(path))
 
     return coco_path, read_image
+
+
+def write_attribute_file(root: str, n_words: int, dataset: str = "refcoco",
+                         split_by: str = "unc", seed: int = 0) -> str:
+    """`<root>/<dataset>/attributes.json` for the refs of the tree that
+    `write_mini_refer` wrote: every fourth ref has no attribute word, the
+    others 1 to 3 of `n_words` distinct words, each of which some ref
+    carries (so the prepro's top-k vocabulary, k >= n_words, is exactly
+    `n_words` wide). Returns its path."""
+    with open(os.path.join(root, dataset, f"refs({split_by}).p"), "rb") as f:
+        ref_ids = [r["ref_id"] for r in pickle.load(f)]
+    tagged = [rid for i, rid in enumerate(ref_ids) if i % 4 != 3]
+    if not tagged:
+        raise ValueError("the tree has no ref to carry attribute words")
+    rng = np.random.RandomState(seed)
+    vocab = [f"attr{i:02d}" for i in range(n_words)]
+    atts: Dict[str, List[str]] = {str(rid): [] for rid in ref_ids}
+    for j, w in enumerate(vocab):               # every word on some ref
+        atts[str(tagged[j % len(tagged)])].append(w)
+    for rid in tagged:
+        for w in rng.choice(vocab, rng.randint(1, 4), replace=False):
+            if w not in atts[str(rid)]:
+                atts[str(rid)].append(str(w))
+    path = os.path.join(root, dataset, "attributes.json")
+    with open(path, "w") as f:
+        json.dump(atts, f)
+    return path

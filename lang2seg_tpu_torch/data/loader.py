@@ -13,7 +13,10 @@ Counterpart of `lang2seg_tpu/data/loader.py` (reference loaders
     each ref's RLE and nearest-resized onto the canvas. Train batches
     hold I images and E expressions drawn from their (ref, sentence)
     pool; test batches one image with all its sentences of a split,
-    padded to a sentence bucket, with the ref-deduped mask bank;
+    padded to a sentence bucket, with the ref-deduped mask bank; with an
+    attribute vocabulary (`att_to_ix`) and cfg.model.use_attribute_head,
+    train batches carry `att_labels` / `att_valid`, and
+    `iter_attribute_batches` gives each image's attribute-bearing refs;
   * `CycleBatchLoader`: caption targets always on.
 
 `data_json` is a path or the parsed dict, `data_h5` a path or the label
@@ -116,6 +119,9 @@ class Loader:
         self.Refs = {r["ref_id"]: r for r in self.refs}
         self.Images = {i["image_id"]: i for i in self.images}
         self.sent_to_h5 = {s["sent_id"]: s["h5_id"] for s in self.sentences}
+        # the attribute vocabulary (a prepro run with att_json)
+        self.att_to_ix: Dict[str, int] = info.get("att_to_ix", {})
+        self.ix_to_att = {i: w for w, i in self.att_to_ix.items()}
 
         if isinstance(data_h5, str):
             import h5py
@@ -134,6 +140,19 @@ class Loader:
 
     def fetch_seq(self, sent_id) -> np.ndarray:
         return self.labels[self.sent_to_h5[sent_id]]
+
+    def decode_labels(self, labels: np.ndarray) -> List[str]:
+        """(N, L) token ids -> N sentences, the 0s left out."""
+        return [" ".join(self.ix_to_word[int(i)] for i in row if int(i) != 0)
+                for row in labels]
+
+    def att_multihot(self, ref_id) -> np.ndarray:
+        """(len(att_to_ix),) f32 multi-hot of a ref's attribute words."""
+        out = np.zeros((len(self.att_to_ix),), np.float32)
+        for w in self.Refs[ref_id].get("att_wds", []):
+            if w in self.att_to_ix:
+                out[self.att_to_ix[w]] = 1.0
+        return out
 
 
 class GtBatchLoader(Loader):
@@ -309,6 +328,10 @@ class GtBatchLoader(Loader):
                  "im_scales": scales, "wrapped": wrapped}
         if m.use_caption_loss:
             batch.update(caption_targets(labels))
+        if m.use_attribute_head and self.att_to_ix:
+            att_labels = np.stack([self.att_multihot(p[1]) for p in take])
+            batch["att_labels"] = att_labels
+            batch["att_valid"] = att_labels.sum(axis=1) > 0
         return batch
 
     def get_test_batch(self, split: str, max_sents: Optional[int] = None,
@@ -375,6 +398,35 @@ class GtBatchLoader(Loader):
                 gt_masks[i] = self._ref_mask(rid, sh, sw)
             batch["gt_masks"] = gt_masks
         return batch
+
+    def iter_attribute_batches(self, split: str, max_refs: int = 16):
+        """Per image of the split, in the test iteration's order: the
+        canvas and the scaled GT boxes (padded to `max_refs`) of its refs
+        in the split that carry attribute words, with `ref_valid`,
+        `ref_ids` and their `gd_att_wds` (reference getAttributeBatch,
+        eval_easy_utils.py:41-80); images without such refs are
+        skipped."""
+        self.reset_iterator(split)
+        for _ in range(len(self.split_ix[split])):
+            img_ids, _ = self._next_image_ids(split, 1)
+            rec = self.Images[img_ids[0]]
+            rids = [rid for rid in rec["ref_ids"]
+                    if self.Refs[rid]["split"] == split
+                    and self.Refs[rid].get("att_wds")]
+            if not rids:
+                continue
+            canvas, scale, _, _ = self._image_to_canvas(self._image(rec))
+            rids = rids[:max_refs]
+            boxes = np.zeros((max_refs, 4), np.float32)
+            valid = np.zeros((max_refs,), bool)
+            for i, rid in enumerate(rids):
+                boxes[i] = xywh_to_xyxy(
+                    np.asarray(self.Refs[rid]["box"], np.float32)) * scale
+                valid[i] = True
+            yield {"images": canvas[None], "boxes": boxes[None],
+                   "ref_valid": valid, "ref_ids": rids,
+                   "gd_att_wds": [self.Refs[rid]["att_wds"]
+                                  for rid in rids]}
 
     def iter_test_batches(self, split: str, max_sents: int = 32,
                           buckets: Optional[Tuple[int, ...]] = None):

@@ -1,7 +1,7 @@
 """Captioner pretraining.
 
 Counterpart of `lang2seg_tpu/engine/train_captioner.py`. The reference
-trains the att2in2 captioner on its own (README steps 3 and 5:
+trains the captioner on its own (README steps 3 and 5:
 `caption_log_res5_2/`, `caption_log_response/` produce `model-best.pth`,
 which `caption_models/__init__.py:45-52` restores into the cycle
 network). Here: region features from the network's backbone
@@ -10,6 +10,9 @@ Adam (optax.adam's defaults: lr 5e-4, betas (0.9, 0.999), eps 1e-8), the
 reference's scheduled-sampling annealing, a validation NLL with the best
 checkpoint kept (`torch.save` of the `caption_model.*` state_dict), and
 `restore_captioner`, which grafts that checkpoint into a full state_dict.
+Any decoder of `models/caption_zoo.py::setup_captioner` trains here; the
+zoo's decoders other than att2in2 have no scheduled sampling and raise
+for a probability above 0.
 """
 
 from __future__ import annotations
@@ -20,11 +23,11 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
+from torch import nn
 
 from ..config import Config
 from ..device import resolve_device
 from ..models.caption_zoo import setup_captioner
-from ..models.captioner import Att2In2Captioner
 from ..models.network import Lang2Seg
 
 PREFIX = "caption_model."
@@ -61,7 +64,7 @@ def scheduled_sampling_prob(epoch: int, start: int = -1,
 
 @dataclass
 class CaptionerTrainState:
-    captioner: Att2In2Captioner
+    captioner: nn.Module             # a decoder of setup_captioner
     optimizer: torch.optim.Adam
     generator: torch.Generator       # dropout and scheduled-sampling draws
     step: int = 0
@@ -102,7 +105,7 @@ def captioner_train_step(state: CaptionerTrainState, fc, att, seq, mask,
 
 
 @torch.no_grad()
-def validation_nll(captioner: Att2In2Captioner, fc, att, seq, mask) -> float:
+def validation_nll(captioner: nn.Module, fc, att, seq, mask) -> float:
     """The teacher-forced NLL in eval mode (no dropout, no sampling)."""
     was_training = captioner.training
     captioner.eval()
@@ -147,7 +150,7 @@ def run_captioner_training(cfg: Config, batch_iter: Iterator,
     return {"state": state, "history": history, "best_val": best_val}
 
 
-def captioner_state_dict(captioner: Att2In2Captioner
+def captioner_state_dict(captioner: nn.Module
                          ) -> Dict[str, torch.Tensor]:
     """The captioner's weights on the CPU under the network's
     `caption_model.*` keys."""

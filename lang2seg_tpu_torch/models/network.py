@@ -21,8 +21,10 @@ caption-consistency loss of the `cycle` and `cycle_response` variants
 Mask R-CNN of the `pretrain` variant (no `rnn_encoder` / `dynamic_fc*` /
 `response_fc`; the backbone map goes straight to the RPN, each example
 an image with up to M GT boxes and masks), which trains but, as in the
-JAX package, cannot be served. The rest (MobileNet, 'pool' crops, the
-attribute head, `expr_uid` key folding) raises NotImplementedError here.
+JAX package, cannot be served, and the attribute head (`att_head`: a
+multi-label BCE on the un-gated map cropped at each expression's GT box,
+`predict_attribute_scores`). The rest (MobileNet, 'pool' crops,
+`expr_uid` key folding) raises NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -100,8 +102,6 @@ class Lang2Seg(nn.Module):
         m = cfg.model
         if not (m.backbone.startswith("resnet") or m.backbone == "vgg16"):
             raise NotImplementedError(f"backbone {m.backbone!r} is not ported")
-        if m.use_attribute_head:
-            raise NotImplementedError("the attribute head is not ported")
         self.compute_dtype = (torch.bfloat16 if m.compute_dtype == "bfloat16"
                               else torch.float32)
         # the reference names the backbone `vgg` or `resnet`; `backbone`
@@ -132,6 +132,10 @@ class Lang2Seg(nn.Module):
             self._set_head("mask_head", MaskHead(tail_dim, m.num_classes))
         if m.use_caption_loss:
             self.caption_model = setup_captioner(m)
+        if m.use_attribute_head:
+            # multi-label attribute scores from pooled ROI features
+            # (MAttNet's attribute branch, eval_easy_utils.py:54-57)
+            self.att_head = nn.Linear(tail_dim, m.num_attributes)
 
     def _set_head(self, name: str, head: nn.Module) -> None:
         for child_name, child in head.named_children():
@@ -221,6 +225,10 @@ class Lang2Seg(nn.Module):
           cap_labels (E, T') int BOS/EOS-framed caption tokens and
           cap_masks  (E, T') f32 (`data/loader.py::caption_targets`),
                    with cfg.model.use_caption_loss
+          att_labels (E, A) f32 multi-hot attribute words and
+          att_valid  (E,) bool, optional (default all valid), with
+                   cfg.model.use_attribute_head (no `loss_att` without
+                   att_labels)
         In language mode each example is an expression with its one GT
         ref (M = 1); without language (`pretrain`) an example is an image
         with its padded GT set, and the backbone map feeds the RPN as it
@@ -230,8 +238,8 @@ class Lang2Seg(nn.Module):
         `generator` draws, in this order: the word-dropout mask (with
         language), the anchor sampling priorities, the ROI sampling
         priorities, then VGG16's fc6 and fc7 dropout masks (the `vgg`
-        variant), then the captioner's dropout masks (and its
-        scheduled-sampling draws).
+        variant; those of the attribute head's GT crops next), then the
+        captioner's dropout masks (and its scheduled-sampling draws).
         Returns the loss dict with `total_loss`, all scalars on the
         device."""
         m, t = self.cfg.model, self.cfg.train
@@ -345,6 +353,23 @@ class Lang2Seg(nn.Module):
                                        / torch.clamp(torch.sum(vmask),
                                                      min=1.0))
 
+        # ---- attribute loss (multi-label BCE on GT-box features) ----
+        if m.use_attribute_head and "att_labels" in batch:
+            # the un-gated map cropped at the GT box: attributes belong to
+            # the referred object, not to the expression
+            gt_fc7 = self._roi_features(net_conv, gt_boxes[:, :1, :4],
+                                        generator)            # (E,1,S,S,D)
+            att_logits = self.att_head(
+                gt_fc7[:, 0].mean(dim=(1, 2)).float())       # (E, A)
+            att_bce = bce_with_logits(att_logits,
+                                      batch["att_labels"].float())
+            av = batch.get("att_valid")
+            av = (torch.ones((e,), device=att_logits.device) if av is None
+                  else av.float())
+            denom = torch.clamp(torch.sum(av), min=1.0) * att_logits.shape[1]
+            losses["loss_att"] = m.att_loss_weight * \
+                torch.sum(att_bce * av[:, None]) / denom
+
         # ---- caption (cycle-consistency) loss ----
         if m.use_caption_loss and m.use_language:
             losses["loss_caption"] = m.cap_loss_weight * self._caption_loss(
@@ -452,6 +477,22 @@ class Lang2Seg(nn.Module):
                 "cls_score": cls_score, "cls_prob": cls_prob,
                 "bbox_pred": bbox_pred.reshape(e, r, -1),
                 "gated_conv": gated, "response": response}
+
+    @torch.no_grad()
+    def predict_attribute_scores(self, images: torch.Tensor,
+                                 boxes: torch.Tensor) -> torch.Tensor:
+        """Sigmoid attribute scores of given boxes (reference
+        eval_easy_utils.py:54-57 thresholds them at 0.5).
+
+        images: (1, H, W, 3) uint8 BGR canvas or mean-subtracted f32;
+        boxes: (1, B, 4) scaled coords. Returns (1, B, num_attributes) f32
+        in [0, 1]."""
+        if not self.cfg.model.use_attribute_head:
+            raise ValueError("predict_attribute_scores: this model has no "
+                             "attribute head (model.use_attribute_head)")
+        net_conv = self.backbone.head(self._images(images))
+        fc7 = self._roi_features(net_conv, boxes.float())
+        return torch.sigmoid(self.att_head(fc7.mean(dim=(2, 3)).float()))
 
     @torch.no_grad()
     def predict_masks(self, gated_conv: torch.Tensor, boxes: torch.Tensor,

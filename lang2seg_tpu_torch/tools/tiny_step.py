@@ -6,8 +6,10 @@ card's kernels against their plain versions end to end.
 The step runs at the tiny test config (resnet26, or VGG16 for `--variant
 vgg`, 128x192 canvas, f32, normalized response, 2 images x 4
 expressions; `--variant pretrain`: 2 images with 4 GT boxes and masks
-each, no language) from the same weights, the same dropout draws (a CPU
-generator feeds both devices: word dropout, VGG16's fc6 / fc7 dropout and
+each, no language; `--variant response_att`: `response` with the
+attribute head and attribute labels; `--variant topdown`:
+`cycle_response` with the topdown caption decoder) from the same
+weights, the same dropout draws (a CPU generator feeds both devices: word dropout, VGG16's fc6 / fc7 dropout and
 the captioner's) and the same injected anchor and ROI targets (the port's
 samplers on jittered GT boxes), so that the two runs differ only by their
 kernels and by f32 summation order. The LR is 1, so that each update stands far above the
@@ -36,10 +38,21 @@ from ..ops.targets import anchor_targets, proposal_targets
 from ..weights import init_params
 
 
+# steps beyond the presets: (preset, model overrides)
+VARIANTS = {"response_att": ("response", {"use_attribute_head": True,
+                                          "num_attributes": 6}),
+            "topdown": ("cycle_response", {"caption_model": "topdown"})}
+
+
 def tiny_config(variant: str = "response") -> Config:
     """The variant's preset at the tiny size; ResNet presets get the
-    resnet26 depth, `vgg` keeps its VGG16 (whose depth is fixed)."""
-    cfg = apply_variant(Config(), variant)
+    resnet26 depth, `vgg` keeps its VGG16 (whose depth is fixed).
+    `response_att` is `response` with the attribute head (6 attributes),
+    `topdown` is `cycle_response` with the topdown caption decoder."""
+    preset, overrides = VARIANTS.get(variant, (variant, {}))
+    cfg = apply_variant(Config(), preset)
+    for k, v in overrides.items():
+        setattr(cfg.model, k, v)
     cfg.data.canvas_h, cfg.data.canvas_w = 128, 192
     if cfg.model.backbone != "vgg16":
         cfg.model.backbone = "resnet26"
@@ -56,8 +69,10 @@ def tiny_config(variant: str = "response") -> Config:
 
 def tiny_inputs(cfg: Config, seed: int = 5, num_gt: int = 4):
     """(batch in the wire formats, (AnchorTargets, ProposalTargets)) on the
-    CPU: 2 images x 4 expressions, or without language 2 images with
-    `num_gt` of their cfg.data.max_gt_per_image GT slots filled; targets
+    CPU: 2 images x 4 expressions (with seeded attribute labels, the
+    second expression invalid, when the model has the attribute head),
+    or without language 2 images with `num_gt` of their
+    cfg.data.max_gt_per_image GT slots filled; targets
     from the port's samplers on 64 rois an example jittered around its GT
     boxes (the same number around each)."""
     if cfg.model.use_language:
@@ -69,8 +84,13 @@ def tiny_inputs(cfg: Config, seed: int = 5, num_gt: int = 4):
                                                        seed=seed))
         gt = torch.from_numpy(batch["gt_boxes"])
         valid = torch.from_numpy(batch["gt_valid"])
-    g = torch.Generator().manual_seed(seed + 1)
     e = gt.shape[0]
+    if cfg.model.use_attribute_head:
+        r = np.random.RandomState(seed + 2)
+        batch["att_labels"] = (r.rand(e, cfg.model.num_attributes)
+                               < 0.4).astype(np.float32)
+        batch["att_valid"] = np.arange(e) != 1
+    g = torch.Generator().manual_seed(seed + 1)
     im_hw = torch.from_numpy(batch["im_hw"][batch["img_idx"]])
     anchors = shifted_anchors(cfg.data.canvas_h // 16, cfg.data.canvas_w // 16,
                               16, cfg.model.anchor_scales,

@@ -10,7 +10,9 @@ what `models.network.Lang2Seg` holds:
   Dense layers, normal(0.01) RPN/cls/mask heads, normal(0.001) box
   deltas, normal(1/sqrt(D)) embeddings, uniform [0, 1/sqrt(H)) LSTM
   weights, zero biases and identity frozen BatchNorm; the captioner's
-  word embedding normal(0.01), its other matrices lecun-normal.
+  word embedding normal(0.01), its other matrices lecun-normal (a zoo
+  decoder's raw (in, out) matrices by their first axis), the attribute
+  head lecun-normal.
 * `from_jax_params(params, cfg)` converts a JAX params tree (nested
   dicts of numpy arrays) into that state_dict: the inverse of the JAX
   package's `engine/convert.py::convert_torch_state_dict` (conv
@@ -18,8 +20,10 @@ what `models.network.Lang2Seg` holds:
   order, VGG16's fc6 input rows from (7, 7, C) back to the reference's
   channel-major (C, 7, 7), the fused `dynamic_fc` split into
   `dynamic_fc_0..6`, the flipped ConvTranspose kernel, the LSTM's
-  transposed gate matrices, the captioner's raw `*_w` / `*_b` params
-  back to its reference layers).
+  transposed gate matrices, the att2in2 captioner's raw `*_w` / `*_b`
+  params back to its reference layers; a zoo decoder's raw params as
+  they are, its Dense layers as Linear ones; the attribute head's
+  Dense as `att_head`).
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ VGG_FEATURES = {0: "conv1_1", 2: "conv1_2", 5: "conv2_1", 7: "conv2_2",
                 10: "conv3_1", 12: "conv3_2", 14: "conv3_3", 17: "conv4_1",
                 19: "conv4_2", 21: "conv4_3", 24: "conv5_1", 26: "conv5_2",
                 28: "conv5_3"}
+
+CAPTION_PREFIX = "caption_model."
 
 # flax's lecun_normal draws a standard normal truncated to [-2, 2] and
 # divides the scale by that distribution's std, so the result has
@@ -60,8 +66,20 @@ def _lecun_normal(shape, g):
     return _trunc_normal(shape, math.sqrt(1.0 / fan_in) / _TRUNC_STD, g)
 
 
+def _lecun_normal_in_out(shape, g):
+    """lecun-normal of a raw (in, out) matrix, as the JAX tree holds it."""
+    return _trunc_normal(shape, math.sqrt(1.0 / shape[0]) / _TRUNC_STD, g)
+
+
 def _normal(std):
     return lambda shape, g: torch.empty(shape).normal_(0.0, std, generator=g)
+
+
+def _zoo_raw(key: str) -> bool:
+    """A raw parameter of a caption-zoo decoder (`caption_model.i2h_w`),
+    as against a layer's entry (`caption_model.fc_embed.weight`)."""
+    return key.startswith(CAPTION_PREFIX) and \
+        "." not in key[len(CAPTION_PREFIX):]
 
 
 def _initializer(key: str, cfg: Config):
@@ -82,13 +100,18 @@ def _initializer(key: str, cfg: Config):
         bound = 1.0 / math.sqrt(cfg.model.rnn_hidden_size)
         return lambda shape, g: torch.empty(shape).uniform_(
             0.0, bound, generator=g)
-    if key == "caption_model.embed.0.weight":
+    if key in ("caption_model.embed.0.weight", "caption_model.embed_w"):
         return _normal(0.01)
+    if _zoo_raw(key):
+        if leaf == "b" or leaf.endswith("_b"):
+            return lambda shape, g: torch.zeros(shape)
+        return _lecun_normal_in_out
     if key.startswith(("rpn_", "cls_score_net", "mask_")):
         return _normal(0.01)
     if key.startswith("bbox_pred_net"):
         return _normal(0.001)
-    return _lecun_normal       # mlp, dynamic_fc*, response_fc, captioner
+    # mlp, dynamic_fc*, response_fc, the captioner's layers, att_head
+    return _lecun_normal
 
 
 def _draw(shapes: Dict[str, Tuple[int, ...]], cfg: Config, seed: int
@@ -229,7 +252,16 @@ def _heads(out, params):
 
 
 def _captioner(out, p):
-    pre = "caption_model."
+    pre = CAPTION_PREFIX
+    if "a2c_w" not in p:
+        # a zoo decoder: raw params as they are, the Dense layers as Linear
+        for k, v in p.items():
+            if isinstance(v, dict):
+                out[f"{pre}{k}.weight"] = _lin(v["kernel"])
+                out[f"{pre}{k}.bias"] = _t(v["bias"])
+            else:
+                out[pre + k] = _t(v)
+        return
     out[pre + "embed.0.weight"] = _t(p["embed_w"])
     for layer in ("fc_embed", "att_embed", "ctx2att"):
         name = pre + layer + (".0" if layer.endswith("embed") else "")
@@ -274,6 +306,9 @@ def from_jax_params(params, cfg: Config) -> Dict[str, torch.Tensor]:
         _heads(out, params)
     if "captioner" in params:
         _captioner(out, params["captioner"])
+    if "att_head" in params:
+        out["att_head.weight"] = _lin(params["att_head"]["kernel"])
+        out["att_head.bias"] = _t(params["att_head"]["bias"])
     return out
 
 

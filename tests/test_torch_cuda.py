@@ -348,12 +348,13 @@ def test_gate_kernels_at_vgg_width(dev, maps):
 
 
 @pytest.mark.parametrize("variant", ["response", "cycle", "cycle_response",
-                                     "vgg"])
+                                     "vgg", "response_att", "topdown"])
 def test_tiny_train_step_card_vs_cpu(dev, variant):
     """One tiny f32 step (`tools/tiny_step.py`; VGG16 for `vgg`, its fc6
-    / fc7 dropout drawn for both devices from one CPU generator) on the
-    card and on the CPU from the same weights, draws and injected
-    targets: the losses within
+    / fc7 dropout drawn for both devices from one CPU generator;
+    `response_att` with the attribute head, `topdown` the cycle_response
+    step with the topdown decoder) on the card and on the CPU from the
+    same weights, draws and injected targets: the losses within
     1e-4 relative, the updates within 1e-3 in relative L2 norm and those
     whose exact gradient is zero within 1e-8 in norm (chip_smoke phases 8
     and 10); the card's step launches the gate and its backward once
@@ -557,3 +558,106 @@ def test_prepro_in_memory_feeds_a_response_step_on_card(dev, tmp_path):
              fused_filter.bwd_launches)
     assert tuple(b - a for a, b in zip(before, after)) == (1, 1, 1)
     assert all(np.isfinite(v) for v in losses.values())
+
+
+def test_attribute_scores_card_vs_cpu(dev):
+    """predict_attribute_scores of the tiny f32 `response` model with the
+    attribute head: the card's scores within 1e-5 of the CPU's, from the
+    uint8 canvas."""
+    from lang2seg_tpu_torch.engine.attributes import attribute_scorer
+    from lang2seg_tpu_torch.models.network import build_model
+    from lang2seg_tpu_torch.tools.tiny_step import tiny_config
+    from lang2seg_tpu_torch.weights import init_params
+    cfg = tiny_config("response_att")
+    sd = init_params(cfg, 3)
+    r = np.random.RandomState(0)
+    img = r.randint(0, 256, (1, 128, 192, 3)).astype(np.uint8)
+    boxes = np.asarray([[[4.0, 4.0, 60.0, 50.0], [10.0, 8.0, 90.0, 100.0],
+                         [0.0, 0.0, 191.0, 127.0]]], np.float32)
+    got = {d: attribute_scorer(build_model(cfg, device=d, state_dict=sd),
+                               device=d)(img, boxes) for d in ("cuda", "cpu")}
+    assert got["cuda"].shape == (1, 3, 6)
+    assert np.abs(got["cuda"] - got["cpu"]).max() <= 1e-5
+
+
+def test_comprehension_card_vs_cpu(dev):
+    """ComprehensionEvaluator over the tiny split's val image on the card:
+    the gate launches once and NMS never; the scores within 1e-4 of the
+    CPU's."""
+    from lang2seg_tpu_torch.data.loader import GtBatchLoader
+    from lang2seg_tpu_torch.engine.comprehension import ComprehensionEvaluator
+    from lang2seg_tpu_torch.models.network import build_model
+    from lang2seg_tpu_torch.weights import init_params
+    cfg, info, labels, read = _tiny_refer()
+    sd = init_params(cfg, 5)
+    b, = GtBatchLoader(info, labels, cfg, read_image=read).iter_test_batches(
+        "val", buckets=(4, 8, 16))
+    cands = np.unique(b["gt_boxes"][b["sent_valid"], :4], axis=0)
+    e = b["labels"].shape[0]
+    scores = {}
+    for d in ("cuda", "cpu"):
+        ev = ComprehensionEvaluator(build_model(cfg, device=d, state_dict=sd),
+                                    cfg, device=d)
+        before = (nms_cuda.launches, fused_filter.launches)
+        scores[d] = ev.score_boxes(
+            torch.from_numpy(b["images"]).to(d),
+            torch.from_numpy(b["labels"]).to(d),
+            torch.from_numpy(np.broadcast_to(cands[None], (e,) + cands.shape)
+                             .copy()).to(d)).cpu()
+        launched = (nms_cuda.launches - before[0],
+                    fused_filter.launches - before[1])
+        assert launched == ((0, 1) if d == "cuda" else (0, 0))
+        assert ev.eval_split([b])["n"] == 9
+    assert float((scores["cuda"] - scores["cpu"]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["show_tell", "fc", "topdown",
+                                  "show_attend_tell", "adaatt"])
+def test_zoo_decoder_card_vs_cpu(dev, name):
+    """Each zoo decoder at full width (512 wide, vocabulary 2000, 196
+    attention positions of 4096): the teacher-forced NLL on the card
+    within 1e-5 relative of the CPU's; in train mode with dropout
+    (show_tell, fc) the card's draws keep about half an embedding, scaled
+    by 2."""
+    from lang2seg_tpu_torch.config import Config
+    from lang2seg_tpu_torch.engine.train_captioner import init_captioner_state
+    cfg = Config()
+    cfg.model.caption_model = name
+    g = torch.Generator().manual_seed(0)
+    fc = torch.randn((4, 4096), generator=g)
+    att = torch.relu(torch.randn((4, 196, 4096), generator=g))
+    seq = torch.randint(1, 2000, (4, 12), generator=g)
+    seq[:, 0] = 0
+    mask = torch.ones((4, 12))
+    nll = {}
+    for d in ("cuda", "cpu"):
+        cap = init_captioner_state(cfg, device=d, seed=1).captioner.eval()
+        with torch.no_grad():
+            nll[d] = float(cap.teacher_forced_nll(fc.to(d), att.to(d),
+                                                  seq.to(d), mask.to(d)))
+    assert abs(nll["cuda"] - nll["cpu"]) <= 1e-5 * abs(nll["cpu"])
+    if name in ("show_tell", "fc"):
+        x = torch.ones((4000, 64), device=dev)
+        kept = cap._drop(x, torch.Generator(device=dev).manual_seed(2))
+        assert abs(float((kept != 0).float().mean()) - 0.5) < 0.02
+        assert set(torch.unique(kept).tolist()) == {0.0, 2.0}
+
+
+def test_score_caption_split_on_card(dev):
+    """cli.eval_captions.score_caption_split of the tiny f32 `cycle`
+    model on the card: the seven metrics, finite."""
+    from lang2seg_tpu_torch.cli.eval_captions import score_caption_split
+    from lang2seg_tpu_torch.config import apply_variant
+    from lang2seg_tpu_torch.data.loader import CycleBatchLoader
+    from lang2seg_tpu_torch.models.network import build_model
+    cfg, info, labels, read = _tiny_refer()
+    apply_variant(cfg, "cycle")
+    cfg.model.cap_vocab_size = cfg.model.vocab_size
+    cfg.model.cap_rnn_size = cfg.model.cap_input_encoding_size = 64
+    cfg.model.cap_att_hid_size = 64
+    loader = CycleBatchLoader(info, labels, cfg, read_image=read)
+    scores = score_caption_split(build_model(cfg, device="cuda"), loader,
+                                 "val", beam_size=3)
+    assert list(scores) == ["Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4",
+                            "ROUGE_L", "CIDEr", "METEOR"]
+    assert all(np.isfinite(v) for v in scores.values())

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from lang2seg_tpu.engine.convert import convert_torch_state_dict
 from lang2seg_tpu.engine.train_state import create_model
@@ -43,11 +44,48 @@ def to_port_cfg(cfg):
     return out
 
 
+def zoo_captioner_to_jax(sd, prefix="caption_model."):
+    """A caption-zoo decoder's `caption_model.*` entries -> its JAX params
+    subtree: raw params as they are, each Linear as a Dense (kernel (I,
+    O))."""
+    tree = {}
+    for k, v in sd.items():
+        if not k.startswith(prefix):
+            continue
+        name = k[len(prefix):]
+        if "." in name:
+            layer, leaf = name.split(".")
+            tree.setdefault(layer, {})[
+                "kernel" if leaf == "weight" else "bias"] = \
+                np.array(np.asarray(v).T if leaf == "weight" else v)
+        else:
+            tree[name] = np.array(v)      # a copy: jnp.asarray may alias it
+    return tree
+
+
+def to_jax_tree(sd, cfg):
+    """A port state_dict (numpy values) -> the JAX params tree: the JAX
+    package's convert_torch_state_dict, plus what it does not map, a
+    zoo decoder's captioner and the attribute head."""
+    zoo = cfg.model.caption_model not in ("att2in2", "att2in")
+    rest = {k: v for k, v in sd.items() if not k.startswith("att_head.")
+            and not (zoo and k.startswith("caption_model."))}
+    tree = convert_torch_state_dict(rest, cfg)
+    if zoo and any(k.startswith("caption_model.") for k in sd):
+        tree["captioner"] = jax.tree_util.tree_map(
+            jnp.asarray, zoo_captioner_to_jax(sd))
+    if "att_head.weight" in sd:
+        kernel = np.array(np.asarray(sd["att_head.weight"]).T)
+        tree["att_head"] = {"kernel": jnp.asarray(kernel),
+                            "bias": jnp.asarray(np.array(sd["att_head.bias"]))}
+    return tree
+
+
 def shared_weights(cfg, seed=0, scale_rpn_cls=1.0):
     """(port model on the CPU, JAX model, JAX params) holding the same
     weights: the port's init_params(seed), carried to JAX through
-    convert_torch_state_dict. `scale_rpn_cls` multiplies the RPN class
-    logits' weights in both (see tests/test_torch_slice.py)."""
+    `to_jax_tree`. `scale_rpn_cls` multiplies the RPN class logits'
+    weights in both (see tests/test_torch_slice.py)."""
     pcfg = to_port_cfg(cfg)
     sd = init_params(pcfg, seed)
     if scale_rpn_cls != 1.0:
@@ -56,8 +94,7 @@ def shared_weights(cfg, seed=0, scale_rpn_cls=1.0):
         sd["rpn_cls_score_net.bias"] = sd["rpn_cls_score_net.bias"] \
             * scale_rpn_cls
     model = build_model(pcfg, device="cpu", state_dict=sd)
-    params = convert_torch_state_dict(
-        {k: v.numpy() for k, v in sd.items()}, cfg)
+    params = to_jax_tree({k: v.numpy() for k, v in sd.items()}, cfg)
     return model, create_model(cfg), params
 
 
