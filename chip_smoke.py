@@ -6,8 +6,8 @@
 Phases, each fatal on failure (nothing is caught):
   1. environment: device, `nvidia-smi` name and power limit, TF32 flags
      (both set off, so f32 matmuls and convolutions run in full f32);
-  2. build both CUDA kernels from lang2seg_tpu_torch/csrc with nvcc for
-     sm_90a, in parallel;
+  2. build the CUDA kernels (NMS, the gate, the ROI pool) from
+     lang2seg_tpu_torch/csrc with nvcc for sm_90a, in parallel;
   3. NMS kernel against its plain version on the card, bit for bit:
      (16, 6000) -> 300 and (16, 12000) -> 2000 on RPN draws, uniform
      boxes, a dense cluster, a spread grid and jittered twins, and the
@@ -170,23 +170,57 @@ Phases, each fatal on failure (nothing is caught):
      12's val images: BLEU-1..4, ROUGE_L, CIDEr and METEOR, finite, ms an
      image;
   22. phase 8 for the tiny `response_att` (attribute labels injected)
-     and `topdown` steps.
+     and `topdown` steps;
+  23. the ROI max-pool kernel and its argmax backward
+     (`csrc/roi_pool.cu`) against their plain versions on the card
+     (`tools/profile_roi_pool.py`): 16 x 256 ROIs on (16, 40, 64, 512)
+     and (16, 40, 64, 1024) bf16 maps gathered from 2 images (training,
+     the forward with its argmax), 16 x 300 ROIs on 16 distinct maps of
+     each width (serving: the gate's per-expression output, no argmax),
+     with edge ROIs (off the map, 1 x 1, empty bins, corners on .5 after
+     scaling, windows of ties): forward and argmax bit for bit, backward
+     within 1 bf16 ulp; then each kernel's device time beside its bound;
+     a stride-0 map checked too. After phase 26, every other shape at
+     which phases 24-26 launched the kernel (the requests of 4 and 8
+     expressions, the mask crops of 1 and 2 boxes an expression, the
+     demo's one expression) is checked and timed the same way;
+  24. MobileNetV1 + ROI max pooling at full width (`flagship_config()`
+     with backbone mobilenet_v1, C4 512, pooling_mode pool; random
+     weights from a seed): phase 7's checks on a Trainer of 2 images x 16
+     expressions (NMS, the gate and its backward, the ROI pool kernel and
+     its backward once a step, no host sync, the BatchNorm buffers
+     fixed, every SGD group moving; step ms and peak memory), then phase
+     5's requests at E = 4, 8 and 16; then one
+     ResNet-101 `response` step and one E = 16 request in pool mode (the
+     kernel at C = 1024);
+  25. phase 8 for the tiny `mobilenet_pool` step (the ROI pool kernel and
+     its backward once each on the card);
+  26. `cli.demo.main` on the synthetic fixture on the card, `--variant
+     response` and again with phase 24's overrides: the annotated PNG and
+     the response map's (signature, IHDR, CRCs, rows inflating to the
+     image), ms of `main` and of a warm request (`cli.demo.annotate`);
+     then one full-width Trainer validation with `debug_save_dir` (the
+     response map and 5 channel PNGs).
 Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
 shape, its launches from the runs of that shape's path: serving in phases
-5 and 14 and the bucket-16 images of phases 12, 16 and 20, training in
-phases 7, 9, 12, 14, 17g, 19 and 21b, the eval buckets 8 and 32 in phases
-12, 16 and 20, the pretraining shape (2, 12000) -> 2000 in phase 17's
-steps; the gate's backward's from training; the C = 512 gate's from phase
-14)
+5, 14 and 24 and the bucket-16 images of phases 12, 16 and 20, training in
+phases 7, 9, 12, 14, 17g, 19, 21b and 24, the eval buckets 8 and 32 in
+phases 12, 16 and 20, the pretraining shape (2, 12000) -> 2000 in phase
+17's steps; the gate's backward's from training; the C = 512 gate's from
+phases 14 and 24; the ROI pool entries, one for each shape at which
+phases 24-26 launched the forward or the backward, with the launches at
+exactly that shape)
 and, last, the `{"ok": true, ...}` line. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device or
 outside a checkout of the repository.
 """
 
+import collections
 import copy
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -199,9 +233,11 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+from lang2seg_tpu_torch.cli import demo as cli_demo  # noqa: E402
 from lang2seg_tpu_torch.cli import eval as cli_eval  # noqa: E402
 from lang2seg_tpu_torch.cli import eval_captions  # noqa: E402
-from lang2seg_tpu_torch.config import Config, apply_variant, flagship_config  # noqa: E402
+from lang2seg_tpu_torch.config import (  # noqa: E402
+    Config, apply_variant, flagship_config, load_config)
 from lang2seg_tpu_torch.data.coco_detection import (  # noqa: E402
     CocoDetectionLoader, make_coco_minus_refer)
 from lang2seg_tpu_torch.data.fixtures import (  # noqa: E402
@@ -227,7 +263,7 @@ from lang2seg_tpu_torch.engine.train_state import (  # noqa: E402
 from lang2seg_tpu_torch.engine.trainer import Trainer  # noqa: E402
 from lang2seg_tpu_torch.models.network import build_model  # noqa: E402
 from lang2seg_tpu_torch.ops import (  # noqa: E402
-    _build, fused_filter, nms_cuda, proposals)
+    _build, fused_filter, nms_cuda, proposals, roi_pool_cuda)
 from lang2seg_tpu_torch.ops.fused_filter import (  # noqa: E402
     fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain)
 from lang2seg_tpu_torch.ops.nms import nms_padded  # noqa: E402
@@ -237,35 +273,45 @@ from lang2seg_tpu_torch.tools.profile_gate import (  # noqa: E402
 from lang2seg_tpu_torch.tools.profile_nms import (  # noqa: E402
     MAIN_SHAPES, device_ms, edge_cases, lane_stats, nms_bound, rpn_draw,
     time_ms)
+from lang2seg_tpu_torch.tools.profile_roi_pool import (  # noqa: E402
+    POOLED, SHAPES as POOL_SHAPES, check_shape as check_pool_shape,
+    compare_shape as compare_pool_shape)
 from lang2seg_tpu_torch.tools import learn_synthetic  # noqa: E402
 from lang2seg_tpu_torch.tools.tiny_step import (  # noqa: E402
-    card_vs_cpu, launch_counts)
+    card_vs_cpu, launch_counts, pool_launch_counts)
 from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator  # noqa: E402
 from lang2seg_tpu_torch.utils.timer import Timer  # noqa: E402
-from lang2seg_tpu_torch.weights import init_params  # noqa: E402
+from lang2seg_tpu_torch.utils.visualization import decode_png  # noqa: E402
+from lang2seg_tpu_torch.weights import (  # noqa: E402
+    init_params, state_dict_shapes)
 
 OUT = os.path.join(REPO, "chiprun_out")
 record = {}
 # the main-path runs whose launches of a kernel's counter a `kernels` entry
 # of that path reports: serving (phase 5) and the eval images of the 16
-# bucket (phases 12, 16 and 20); training, the response step (phase 7),
-# the cycle_response step (phase 9), the file-backed run (phase 12), phase
-# 17's response step on the pretrain weights, the attribute head's steps
-# (phase 19) and the topdown cycle_response steps (phase 21b)
+# bucket (phases 12, 16 and 20) and the ResNet-101 pool request (phase
+# 24); training, the response step (phase 7), the cycle_response step
+# (phase 9), the file-backed run (phase 12), phase 17's response step on
+# the pretrain weights, the attribute head's steps (phase 19), the topdown
+# cycle_response steps (phase 21b) and the ResNet-101 pool step (phase 24)
 LAUNCHED_BY = {"serve": lambda counter: (("serve", counter),
                                          ("eval_file_16", counter),
                                          ("host_modes_16", counter),
-                                         ("comprehension_16", counter)),
+                                         ("comprehension_16", counter),
+                                         ("serve_resnet_pool", counter)),
                "train": lambda counter: (("train", counter),
                                          ("train_cycle", counter),
                                          ("train_file", counter),
                                          ("recipe_link", counter),
                                          ("train_att", counter),
-                                         ("train_topdown", counter))}
-# NMS runs at the same shapes in the `vgg` preset (phase 14): its requests
-# and steps count towards the NMS entries, its C = 512 gate to its own
-VGG_NMS_RUNS = {"serve": (("serve_vgg", "nms"),),
-                "train": (("train_vgg", "nms"),)}
+                                         ("train_topdown", counter),
+                                         ("train_resnet_pool", counter))}
+# NMS runs at the same shapes in the `vgg` preset (phase 14) and on
+# MobileNetV1 (phase 24): their requests and steps count towards the NMS
+# entries, their C = 512 gate to its own
+VGG_NMS_RUNS = {"serve": (("serve_vgg", "nms"),
+                          ("serve_mobilenet", "nms")),
+                "train": (("train_vgg", "nms"), ("train_mobilenet", "nms"))}
 EVAL_BUCKETS = (8, 16, 32)
 # the mini REFER split of phases 12, 20 and 21c: (image sizes, refs an
 # image, splits); 8 images, 4 of them val / testA with 6 to 18 sentences
@@ -577,9 +623,29 @@ def check_gate_bwd(dev, regs):
     return res
 
 
+# ------------------------------------------------- ROI pool launch counts
+
+def reset_pool_counts():
+    """Sets the ROI pool kernels' counts, in total and by shape, to 0."""
+    roi_pool_cuda.launches = roi_pool_cuda.bwd_launches = 0
+    roi_pool_cuda.shapes.clear()
+    roi_pool_cuda.bwd_shapes.clear()
+
+
+def pool_shape_counts():
+    """The ROI pool kernels' launches by shape since the last
+    `reset_pool_counts`, for a run's entry of `runs`."""
+    return {"roi_pool_shapes": collections.Counter(roi_pool_cuda.shapes),
+            "roi_pool_bwd_shapes": collections.Counter(
+                roi_pool_cuda.bwd_shapes)}
+
+
 # ---------------------------------------------------------------- phase 5
 
 def serve_full_width():
+    """Phase 5: the flagship `response` model, requests of 4, 8 and 16
+    expressions (`serve_requests`; COCO images are <= 640 a side, scaled
+    by 1.6 they fill the canvas)."""
     cfg = flagship_config()
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=0)
@@ -587,73 +653,89 @@ def serve_full_width():
     log(f"[serve] flagship response model built in "
         f"{time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in model.state_dict().values())} weights)")
-    inf = Inference(model, cfg)
-    ev = Evaluator(model, cfg)
-    # COCO images are <= 640 a side; scaled by 1.6 they fill the canvas
-    scale = 1.6
-    sizes = ((4, 1), (8, 2), (16, 3))
-    # warm-up at every request size: cuDNN picks its algorithms and the
-    # allocator grows on the first call of each shape
+    launches = serve_requests("serve", cfg, model=model)[0]
+    check(record["serve"]["sentences"] == (28, 28))
+    check(launches["nms"] > 0 and launches["fused_filter"] > 0)
+    return launches
+
+
+def serve_requests(path, cfg, sizes=((4, 1), (8, 2), (16, 3)), model=None):
+    """Requests of `sizes` expressions (synthetic uint8 images at scale
+    1.6) through Inference.predict, with the masks of 2 boxes an
+    expression when the model has a mask head, and Evaluator.eval_image:
+    each forward launches NMS and the gate once, and the ROI pool kernel
+    once in pool mode; outputs finite and of their shapes. Returns (the
+    launch counts, the last request's outputs)."""
+    model = model or build_model(cfg, device="cuda", seed=0)
+    m = cfg.model
+    inf, ev = Inference(model, cfg), Evaluator(model, cfg)
     for num_expr, seed in sizes:
-        ev.eval_image(synthetic_eval_request(cfg, num_expr, 100 + seed, scale),
+        ev.eval_image(synthetic_eval_request(cfg, num_expr, 100 + seed, 1.6),
                       SegEvalAccumulator())
     torch.cuda.synchronize()
-
-    acc = SegEvalAccumulator()
-    timings = []
+    acc, timings = SegEvalAccumulator(), []
     torch.cuda.reset_peak_memory_stats()
-    nms_cuda.launches = 0
-    fused_filter.launches = 0
+    nms_cuda.launches = fused_filter.launches = 0
+    reset_pool_counts()
+    pool = m.pooling_mode == "pool"
+    # predict: the box head's crops; eval_image: those and, with a mask
+    # head, the crops of each expression's box
+    want = (1, 1, int(pool))
+    want_eval = (1, 1, int(pool) * (1 + int(m.use_mask_head)))
+
+    def counts():
+        return (nms_cuda.launches, fused_filter.launches,
+                roi_pool_cuda.launches)
     for num_expr, seed in sizes:
-        b = synthetic_eval_request(cfg, num_expr, seed, scale)
-        n0, f0 = nms_cuda.launches, fused_filter.launches
+        b = synthetic_eval_request(cfg, num_expr, seed, 1.6)
+        c0 = counts()
         t0 = time.perf_counter()
         out = inf.predict(b["images"], b["im_hw"], b["labels"])
         torch.cuda.synchronize()
         t_pred = (time.perf_counter() - t0) * 1e3
-        check((nms_cuda.launches - n0, fused_filter.launches - f0) == (1, 1))
+        check(tuple(b - a for a, b in zip(c0, counts())) == want,
+              f"a {path} request launched other than {want}")
         r = cfg.test.rpn_post_nms_top_n
         shapes = {"rois": (num_expr, r, 4), "roi_valid": (num_expr, r),
                   "cls_prob": (num_expr, r, 81),
                   "bbox_pred": (num_expr, r, 324),
-                  "gated_conv": (num_expr, 40, 64, 1024),
+                  "gated_conv": (num_expr, 40, 64, m.c4_feat_dim),
                   "response": (num_expr, 40, 64, 1)}
         for k, shp in shapes.items():
             check(tuple(out[k].shape) == shp, (k, tuple(out[k].shape)))
             if k != "roi_valid":
                 check(bool(torch.isfinite(out[k].float()).all()), k)
-        check(out["gated_conv"].dtype == torch.bfloat16)
+        check(out["gated_conv"].dtype == model.compute_dtype)
         check(bool(out["roi_valid"].any(1).all()))
-        masks = inf.boxes_to_masks(out["gated_conv"], out["rois"][:, :2],
-                                   torch.ones((num_expr, 2), dtype=torch.int64))
-        check(masks.shape == (num_expr, 2, 14, 14))
-        check(bool(((masks >= 0) & (masks <= 1)).all()))
-
-        n0, f0 = nms_cuda.launches, fused_filter.launches
+        if m.use_mask_head:
+            masks = inf.boxes_to_masks(out["gated_conv"], out["rois"][:, :2],
+                                       torch.ones((num_expr, 2),
+                                                  dtype=torch.int64))
+            check(masks.shape == (num_expr, 2, 14, 14)
+                  and bool(((masks >= 0) & (masks <= 1)).all()))
+        c0 = counts()
         t0 = time.perf_counter()
         ev.eval_image(b, acc)
         torch.cuda.synchronize()
         t_eval = (time.perf_counter() - t0) * 1e3
-        check((nms_cuda.launches - n0, fused_filter.launches - f0) == (1, 1))
+        launched = tuple(b - a for a, b in zip(c0, counts()))
+        check(launched == want_eval,
+              f"a {path} eval_image launched {launched}, not {want_eval}")
         timings.append({"expressions": num_expr, "predict_ms": t_pred,
                         "eval_image_ms": t_eval})
-        log(f"[serve] request E={num_expr}: predict {t_pred:.1f} ms, "
+        log(f"[{path}] request E={num_expr}: predict {t_pred:.1f} ms, "
             f"eval_image {t_eval:.1f} ms")
-    launches = {"nms": nms_cuda.launches,
-                "fused_filter": fused_filter.launches}
+    launches = dict(zip(("nms", "fused_filter", "roi_pool"), counts()))
     summary = acc.summary()
-    check(acc.num_sent == 28 and acc.seg_total == 28)
-    for k, v in summary.items():
-        check(0.0 <= float(v) <= 1.0, (k, v))
+    check(all(0.0 <= float(v) <= 1.0 for v in summary.values()))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[serve] main-path launches {launches}; metrics "
-        f"{ {k: round(float(v), 4) for k, v in summary.items()} }; "
-        f"peak device memory {peak:.2f} GiB")
-    check(launches["nms"] > 0 and launches["fused_filter"] > 0)
-    record["serve"] = {"timings": timings, "launches": launches,
-                       "metrics": {k: float(v) for k, v in summary.items()},
-                       "peak_gib": peak}
-    return launches
+    log(f"[{path}] main-path launches {launches}; det acc "
+        f"{summary['det_acc']:.4f}; peak device memory {peak:.2f} GiB")
+    record[path] = {"timings": timings, "launches": launches,
+                    "metrics": {k: float(v) for k, v in summary.items()},
+                    "sentences": (acc.num_sent, acc.seg_total),
+                    "peak_gib": peak}
+    return dict(launches, **pool_shape_counts()), out
 
 
 # ---------------------------------------------------------------- phase 6
@@ -746,7 +828,17 @@ def train_full_width(path, cfg, batches=None):
         f"lr {cfg.train.learning_rate}, "
         f"{len(trainer.state.optimizer.param_groups)} groups")
 
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    pool = cfg.model.pooling_mode == "pool"
+    # per step: NMS, the gate, its backward, and in pool mode the ROI pool
+    # kernel and its backward, once each
+    want_step = (1, 1, 1) + ((1, 1) if pool else (0, 0))
+
+    def counts():
+        return launch_counts() + pool_launch_counts()
+
     nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
+    reset_pool_counts()
     bwd_inputs, undo = record_gate_bwd_inputs()
     t0 = time.perf_counter()
     try:
@@ -755,7 +847,7 @@ def train_full_width(path, cfg, batches=None):
         undo()
     torch.cuda.synchronize()
     log(f"[{path}] warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    per_step = [launch_counts()]
+    per_step = [counts()]
     (d_gated, d_resp), = bwd_inputs
     bwd_in = {"d_gated_dtype": str(d_gated.dtype),
               "d_gated_contiguous": d_gated.is_contiguous(),
@@ -771,7 +863,7 @@ def train_full_width(path, cfg, batches=None):
     # train_step is reported (the batch is uploaded before, the losses read
     # after)
     batch = to_device(batches[1], "cuda")
-    c0 = launch_counts()
+    c0 = counts()
     losses, syncs = host_syncs(
         lambda: train_step(trainer.state, batch, trainer.generator))
     # control: reading a loss is a host sync, and the mode must report it
@@ -782,35 +874,41 @@ def train_full_width(path, cfg, batches=None):
     check(control, "the sync debug mode did not report a loss read")
     check(not syncs, "the train step synchronises with the host")
     steps.append({k: float(v) for k, v in losses.items()})
-    per_step.append(tuple(b - a for a, b in zip(c0, launch_counts())))
+    per_step.append(tuple(b - a for a, b in zip(c0, counts())))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(3, 6):
-        c0 = launch_counts()
+        c0 = counts()
         t0 = time.perf_counter()
         steps.append(trainer.train(i))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        per_step.append(tuple(b - a for a, b in zip(c0, launch_counts())))
-    launches = dict(zip(("nms", "fused_filter", "fused_filter_bwd"),
-                        launch_counts()))
+        per_step.append(tuple(b - a for a, b in zip(c0, counts())))
+    launches = dict(zip(("nms", "fused_filter", "fused_filter_bwd",
+                         "roi_pool", "roi_pool_bwd"), counts()))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[{path}] step ms {[round(t, 2) for t in times]} (mean "
         f"{sum(times) / len(times):.2f}); peak device memory {peak:.2f} GiB; "
-        f"launches per step (nms, gate, gate bwd) {per_step}")
+        f"launches per step (nms, gate, gate bwd, roi pool, roi pool bwd) "
+        f"{per_step}")
     for i, ls in enumerate(steps):
         log(f"[{path}] step {i + 1} losses "
             f"{ {k: round(v, 4) for k, v in sorted(ls.items())} }")
         check(all(np.isfinite(v) for v in ls.values()),
               f"non-finite loss at step {i + 1}")
-    check(all(c == (1, 1, 1) for c in per_step),
+    check(all(c == want_step for c in per_step),
           "a train step did not launch each kernel exactly once")
     check(trainer.state.step == 5)
     after = dict(model.named_parameters())
     frozen = [n for n, p in after.items() if not p.requires_grad]
-    check(frozen and all(torch.equal(before[n], after[n]) for n in frozen),
+    # MobileNetV1 freezes no parameter (every conv trains, as in the JAX
+    # package); its BatchNorms, like every backbone's, are buffers
+    check((frozen or cfg.model.backbone == "mobilenet_v1")
+          and all(torch.equal(before[n], after[n]) for n in frozen),
           "a frozen parameter changed")
+    check(all(torch.equal(buffers[n], b) for n, b in model.named_buffers()),
+          "a BatchNorm buffer changed")
     moved = {}
     for grp in trainer.state.optimizer.param_groups:
         n_moved = sum(int(not torch.equal(before[n], p))
@@ -818,8 +916,8 @@ def train_full_width(path, cfg, batches=None):
         moved[f"x{grp['lr_mult']:g} wd {grp['weight_decay']:g}"] = \
             f"{n_moved}/{len(grp['params'])}"
         check(n_moved > 0, f"SGD group {grp['lr_mult']} did not move")
-    log(f"[{path}] {len(frozen)} frozen parameters bit-identical; moved per "
-        f"group {moved}")
+    log(f"[{path}] {len(frozen)} frozen parameters and {len(buffers)} "
+        f"buffers bit-identical; moved per group {moved}")
     entry = {"step_ms": times, "peak_gib": peak,
              "lr": cfg.train.learning_rate, "launches": launches,
              "launches_per_step": per_step, "losses": steps,
@@ -847,12 +945,12 @@ def train_full_width(path, cfg, batches=None):
             f"{head}")
         check(len(head) == 2 and all(head.values()), "att_head did not move")
     record[path] = entry
-    return launches, trainer
+    return dict(launches, **pool_shape_counts()), trainer
 
 
 # ------------------------------------------------------------ phases 8, 10
 
-def small_train_reference(path, variant, launches=(0, 1, 1),
+def small_train_reference(path, variant, launches=(0, 1, 1, 0, 0),
                           min_tensors=40):
     """One tiny f32 SGD step on the card (kernels) and on the CPU (plain
     versions) from the same weights, dropout draws and injected targets
@@ -860,9 +958,10 @@ def small_train_reference(path, variant, launches=(0, 1, 1),
     within 1e-3 in relative L2 norm (a tensor whose exact gradient is zero,
     `tiny_step.ROUNDING_ONLY`, within 1e-8 in norm instead) over at least
     `min_tensors` tensors, nothing moved on the card only; the card's step
-    makes `launches` (NMS, gate, gate backward): the gate and its backward
-    once with language, nothing without (NMS is skipped by the injected
-    targets)."""
+    makes `launches` (NMS, gate, gate backward, ROI pool, ROI pool
+    backward): the gate and its backward once with language, nothing
+    without (NMS is skipped by the injected targets), the ROI pool kernel
+    and its backward once in pool mode."""
     errs, launched = card_vs_cpu(variant)
     loss_err = errs["loss_rel_err"]
     log(f"[{path}] card vs CPU, tiny f32 {variant} step: loss rel err max "
@@ -1330,7 +1429,9 @@ def check_gate_vgg(dev):
                              "tile_pixels": plan["tile_pixels"],
                              "tiles_per_block": plan["tiles_per_block"]},
                "registers": regs["forward"],
-               "launched_by": ((path, "fused_filter"),)}
+               "launched_by": ((path, "fused_filter"),
+                               (path.replace("vgg", "mobilenet"),
+                                "fused_filter"))}
         log(f"[vgg-gate] {maps}: kernel {ms:.4f} ms device time, plain "
             f"{plain_ms:.3f} ms, bound {bound * 1e3:.2f} us ({by}: {byts} B, "
             f"{ops} ops); plan {res['tile_plan']}, registers {regs}")
@@ -1370,7 +1471,8 @@ def check_gate_vgg(dev):
                          "tile_pixels": plan["tile_pixels"],
                          "tiles_per_block": plan["tiles_per_block"]},
            "registers": regs["backward"],
-           "launched_by": (("train_vgg", "fused_filter_bwd"),)}
+           "launched_by": (("train_vgg", "fused_filter_bwd"),
+                           ("train_mobilenet", "fused_filter_bwd"))}
     log(f"[vgg-gate-bwd] kernel {ms:.4f} ms device time, plain "
         f"{plain_ms:.3f} ms, bound {bound * 1e3:.2f} us ({by}: {byts} B, "
         f"{ops} ops); plan {res['tile_plan']}")
@@ -1384,67 +1486,24 @@ def check_gate_vgg(dev):
 def serve_vgg():
     """Phase 14's serving: the detection-only `vgg` model at full width,
     3 requests of 4, 8 and 16 expressions through Inference.predict and
-    Evaluator.eval_image, each launching NMS and the gate once; no mask
-    branch (boxes_to_masks refuses)."""
+    Evaluator.eval_image, each launching NMS and the gate once
+    (`serve_requests`); no mask branch (boxes_to_masks refuses)."""
     cfg = flagship_config("vgg")
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     log(f"[serve-vgg] vgg model built in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in model.state_dict().values())} weights)")
-    inf, ev = Inference(model, cfg), Evaluator(model, cfg)
-    sizes = ((4, 1), (8, 2), (16, 3))
-    for num_expr, seed in sizes:
-        ev.eval_image(synthetic_eval_request(cfg, num_expr, 100 + seed, 1.6),
-                      SegEvalAccumulator())
-    torch.cuda.synchronize()
-    acc, timings = SegEvalAccumulator(), []
-    torch.cuda.reset_peak_memory_stats()
-    nms_cuda.launches = fused_filter.launches = 0
-    for num_expr, seed in sizes:
-        b = synthetic_eval_request(cfg, num_expr, seed, 1.6)
-        n0, f0 = nms_cuda.launches, fused_filter.launches
-        t0 = time.perf_counter()
-        out = inf.predict(b["images"], b["im_hw"], b["labels"])
-        torch.cuda.synchronize()
-        t_pred = (time.perf_counter() - t0) * 1e3
-        check((nms_cuda.launches - n0, fused_filter.launches - f0) == (1, 1))
-        r = cfg.test.rpn_post_nms_top_n
-        shapes = {"rois": (num_expr, r, 4), "cls_prob": (num_expr, r, 81),
-                  "bbox_pred": (num_expr, r, 324),
-                  "gated_conv": (num_expr, 40, 64, 512),
-                  "response": (num_expr, 40, 64, 1)}
-        for k, shp in shapes.items():
-            check(tuple(out[k].shape) == shp, (k, tuple(out[k].shape)))
-            check(bool(torch.isfinite(out[k].float()).all()), k)
-        n0, f0 = nms_cuda.launches, fused_filter.launches
-        t0 = time.perf_counter()
-        ev.eval_image(b, acc)
-        torch.cuda.synchronize()
-        t_eval = (time.perf_counter() - t0) * 1e3
-        check((nms_cuda.launches - n0, fused_filter.launches - f0) == (1, 1))
-        timings.append({"expressions": num_expr, "predict_ms": t_pred,
-                        "eval_image_ms": t_eval})
-        log(f"[serve-vgg] request E={num_expr}: predict {t_pred:.1f} ms, "
-            f"eval_image (detection-only) {t_eval:.1f} ms")
-    launches = {"nms": nms_cuda.launches,
-                "fused_filter": fused_filter.launches}
+    launches, out = serve_requests("serve_vgg", cfg, model=model)
     try:
-        inf.boxes_to_masks(out["gated_conv"], out["rois"][:, :2],
-                           torch.ones((16, 2), dtype=torch.int64))
+        Inference(model, cfg).boxes_to_masks(
+            out["gated_conv"], out["rois"][:, :2],
+            torch.ones((16, 2), dtype=torch.int64))
         refused = False
     except ValueError:
         refused = True
     check(refused, "a detection-only model served masks")
-    summary = acc.summary()
-    check(acc.num_sent == 28 and acc.seg_total == 0)
-    check(all(0.0 <= float(v) <= 1.0 for v in summary.values()))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[serve-vgg] main-path launches {launches}; det acc "
-        f"{summary['det_acc']:.4f}; peak device memory {peak:.2f} GiB")
-    record["serve_vgg"] = {"timings": timings, "launches": launches,
-                           "metrics": {k: float(v) for k, v in
-                                       summary.items()}, "peak_gib": peak}
+    check(record["serve_vgg"]["sentences"] == (28, 0))
     return launches
 
 
@@ -2103,6 +2162,307 @@ def caption_side(cfg, feats):
     return launches
 
 
+
+# ------------------------------------------------------------ phases 23-26
+
+# the JAX package computes ROI max pooling in plain XLA, no Pallas kernel
+POOL_REPLACES = {"forward": "lang2seg_tpu/ops/roi_align.py:173",
+                 "backward": "lang2seg_tpu/ops/roi_align.py:192"}
+
+
+def pool_registers():
+    """ptxas's registers a thread of the bf16 ROI pool kernels."""
+    regs = kernel_registers(_build.library_path("roi_pool").with_name(
+        "build.log"))
+    out = {}
+    for kind, key in (("forward", "roi_pool_fwd_kernel<__nv_bfloat16>"),
+                      ("backward", "roi_pool_bwd_kernel<__nv_bfloat16>")):
+        hits = [v[0] for name, v in regs.items() if key in name]
+        out[kind] = hits[0] if len(hits) == 1 else None
+    return out
+
+
+def pool_entries(name, res, key, regs):
+    """The `kernels` entries of one checked and timed ROI pool shape:
+    the forward's, and the backward's when it was timed. Each carries the
+    shape key whose launches it reports (`pool_launches`)."""
+    fwd = {"name": f"roi_pool_{name}", "route": "cuda",
+           "source": "lang2seg_tpu_torch/csrc/roi_pool.cu",
+           "replaces": POOL_REPLACES["forward"],
+           "max_abs_err": res["forward_max_abs_err"], "ms": res["ms"],
+           "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+           "bound_by": res["bound_by"], "library_ms": None,
+           "registers": regs["forward"], "pool_key": ("fwd", key)}
+    if "bwd_ms" not in res:
+        return [fwd]
+    return [fwd, {
+        "name": f"roi_pool_bwd_{name}", "route": "cuda",
+        "source": "lang2seg_tpu_torch/csrc/roi_pool.cu",
+        "replaces": POOL_REPLACES["backward"],
+        "max_abs_err": res["bwd_max_abs_err"], "ms": res["bwd_ms"],
+        "plain_ms": res["bwd_plain_ms"], "bound_ms": res["bwd_bound_ms"],
+        "bound_by": res["bwd_bound_by"], "library_ms": None,
+        "registers": regs["backward"], "pool_key": ("bwd", key)}]
+
+
+def check_pool_shape_logged(name, e, r, h, w, c, maps, train, dev, regs,
+                            reps, seed):
+    """`profile_roi_pool.check_shape` with phase 23's checks and log line;
+    returns the shape's `kernels` entries."""
+    res = check_pool_shape(name, e, r, h, w, c, maps, train, dev, reps=reps,
+                           seed=seed)
+    log(f"[roi-pool] {name} ({maps} maps, argmax {train}): forward equal "
+        f"{res['forward_equal']}, argmax equal {res['argmax_equal']}, "
+        f"{res['empty_bins']} empty bin-channels, {res['window_pixels']} "
+        f"window pixels; kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.1f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}, {res['bytes']} B)"
+        + (f"; backward {res['bwd_max_ulps']} bf16 ulp, kernel "
+           f"{res['bwd_ms']:.4f} ms, plain {res['bwd_plain_ms']:.1f} ms, "
+           f"bound {res['bwd_bound_ms']:.4f} ms" if "bwd_ms" in res else ""))
+    check(res["forward_equal"] and res["argmax_equal"],
+          f"ROI pool forward or argmax differs at {name}")
+    check(res.get("bwd_max_ulps", 0) <= 1,
+          f"ROI pool backward beyond 1 bf16 ulp at {name}")
+    record[f"roi_pool_{name}"] = res
+    key = roi_pool_cuda.shape_key(e, r, POOLED, h, w, c, torch.bfloat16,
+                                  train)
+    return pool_entries(name, res, key, regs)
+
+
+def check_roi_pool(dev):
+    """Phase 23: the ROI pool kernels against their plain versions on the
+    card at the main path's shapes (`tools/profile_roi_pool.py::SHAPES`:
+    16 x 256 ROIs on (16, 40, 64, 512) and (16, 40, 64, 1024) bf16 maps
+    gathered from 2 images, forward with its argmax and backward; 16 x
+    300 ROIs on 16 distinct maps of each width, the forward without an
+    argmax), with the edge ROIs (off the map, 1 x 1, empty bins, corners
+    on .5 after scaling, windows of ties): the forward and the argmax bit
+    for bit, the backward within 1 bf16 ulp; then each kernel's device
+    time beside its bound. A stride-0 map is checked as well (no entry:
+    no path of this run pools one)."""
+    regs = pool_registers()
+    kernels = []
+    for shape in POOL_SHAPES:
+        kernels += check_pool_shape_logged(*shape, dev, regs, reps=20,
+                                           seed=40)
+        check(record[f"roi_pool_{shape[0]}"]["empty_bins"] > 0,
+              f"no empty bin at {shape[0]}")
+    res = compare_pool_shape(16, 300, 40, 64, 512, "broadcast", dev,
+                             train=False, seed=40)[0]
+    log(f"[roi-pool] stride-0 map, 16 x 300 ROIs at C = 512: forward equal "
+        f"{res['forward_equal']}, argmax equal {res['argmax_equal']}")
+    check(res["forward_equal"] and res["argmax_equal"],
+          "ROI pool forward or argmax differs on a stride-0 map")
+    record["roi_pool_stride0"] = res
+    return kernels, regs
+
+
+def pool_launches(runs, kernels, dev, regs):
+    """Phase 23, after phases 24-26: each ROI pool entry's launches, those
+    of the runs at exactly its shape; every other shape at which a run
+    launched the kernel (the requests of 4 and 8 expressions, the mask
+    crops, the demo's one expression) checked and timed on 16 distinct
+    maps' layout, one entry each. Returns the new entries."""
+    launched = {"fwd": collections.Counter(),
+                "bwd": collections.Counter()}
+    for run in runs.values():
+        launched["fwd"].update(run.get("roi_pool_shapes", {}))
+        launched["bwd"].update(run.get("roi_pool_bwd_shapes", {}))
+    log(f"[roi-pool] main-path launches by (E, R, P, H, W, C, dtype, "
+        f"argmax): forward {dict(launched['fwd'])}, backward "
+        f"{dict(launched['bwd'])}")
+    for kr in kernels:
+        kr["launches"] = launched[kr["pool_key"][0]].pop(kr["pool_key"][1],
+                                                         0)
+        check(kr["launches"] > 0, f"{kr['name']} was not launched on the "
+              f"main path")
+    new = []
+    for key in sorted(launched["fwd"]):
+        e, r, p, h, w, c, dtype, train = key
+        check(p == POOLED and dtype == "bfloat16",
+              f"a ROI pool launch at {key}")
+        name = (f"{'train' if train else 'serve'}_{e}x{r}_{h}x{w}x{c}")
+        entries = check_pool_shape_logged(name, e, r, h, w, c, "distinct",
+                                          train, dev, regs, reps=10, seed=41)
+        for kr in entries:
+            kr["launches"] = launched[kr["pool_key"][0]].pop(
+                kr["pool_key"][1], 0)
+        new += entries
+    check(not launched["bwd"],
+          f"backward launches with no forward entry: {launched['bwd']}")
+    return new
+
+
+def mobilenet_pool_config():
+    """Phase 24's configuration: the flagship `response` model on
+    MobileNetV1 (C4 512, a 1024-wide tail) with ROI max pooling."""
+    cfg = flagship_config()
+    cfg.model.backbone = "mobilenet_v1"
+    cfg.model.c4_feat_dim = 512
+    cfg.model.pooling_mode = "pool"
+    return cfg
+
+
+
+
+def mobilenet_pool():
+    """Phase 24: MobileNetV1 + ROI max pooling at full width, random
+    weights from a seed: phase 7's checks on a `Trainer` of 2 images x 16
+    expressions (NMS, the gate and its backward, the ROI pool kernel and
+    its backward once a step, no host sync, the BatchNorm buffers fixed,
+    every SGD group moving), then phase 5's requests at E = 4, 8 and 16;
+    then one ResNet-101 `response` step and one E = 16 request in pool
+    mode, for the kernel at C = 1024. Returns the runs' launches."""
+    cfg = mobilenet_pool_config()
+    n_values = sum(int(np.prod(v)) for v in state_dict_shapes(cfg).values())
+    log(f"[mobilenet] MobileNetV1 + pool: {n_values} values")
+    record["mobilenet_values"] = n_values
+    runs = {"train_mobilenet": train_full_width("train_mobilenet", cfg)[0]}
+    check(len(record["train_mobilenet"]["moved_per_group"]) >= 3)
+    runs["serve_mobilenet"] = serve_requests("serve_mobilenet", cfg)[0]
+    # ResNet-101 in pool mode: the kernel at C = 1024
+    rcfg = flagship_config()
+    rcfg.model.pooling_mode = "pool"
+    batch = to_wire(rcfg, synthetic_batch(rcfg, 2, 16, seed=0))
+    trainer = Trainer(rcfg, FixedBatchLoader([batch]), device="cuda", seed=0)
+    reset_pool_counts()
+    c0 = launch_counts() + pool_launch_counts()
+    t0 = time.perf_counter()
+    losses = trainer.train(1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    step = tuple(b - a for a, b in zip(c0, launch_counts()
+                                       + pool_launch_counts()))
+    log(f"[resnet-pool] one ResNet-101 pool step {ms:.1f} ms (a first "
+        f"step), launches {step}, losses "
+        f"{ {k: round(v, 4) for k, v in sorted(losses.items())} }")
+    check(step == (1, 1, 1, 1, 1) and all(np.isfinite(v)
+                                          for v in losses.values()),
+          "the ResNet-101 pool step")
+    runs["train_resnet_pool"] = dict(zip(
+        ("nms", "fused_filter", "fused_filter_bwd", "roi_pool",
+         "roi_pool_bwd"), step), **pool_shape_counts())
+    runs["serve_resnet_pool"] = serve_requests(
+        "serve_resnet_pool", rcfg, sizes=((16, 3),),
+        model=trainer.state.model)[0]
+    record["train_resnet_pool"] = {"first_step_ms": ms, "launches": step,
+                                   "losses": losses}
+    del trainer
+    return runs
+
+
+def check_png(path, image=None):
+    """A PNG the port wrote: the signature, an IHDR of the image's width,
+    height, 8 bits and colour type (0 grey, 2 RGB), CRCs, and rows that
+    inflate to `image` (default: whatever they decode to). Returns the
+    image."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if image is None:
+        image = decode_png(data)
+    h, w = image.shape[:2]
+    color = 0 if image.ndim == 2 else 2
+    check(data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR"
+          and data[16:26] == struct.pack(">IIBB", w, h, 8, color),
+          f"{path}: signature or IHDR")
+    check(np.array_equal(decode_png(data), image),
+          f"{path}: the rows do not inflate to the image")
+    return image
+
+
+def demo_and_dumps(dev):
+    """Phase 26: `cli.demo.main` on the synthetic fixture on the card with
+    `--variant response` (ResNet-101-C4, crop), then with phase 24's
+    overrides (MobileNetV1, pool); each PNG checked against the image it
+    holds, and a warm request timed through `cli.demo.annotate`. Then one
+    full-width `Trainer` validation with `debug_save_dir`. Returns the
+    pool demo's launches."""
+    out_dir = os.path.join(OUT, "demo")
+    os.makedirs(out_dir, exist_ok=True)
+    runs = {}
+    pool_sets = ["model.backbone", "mobilenet_v1", "model.c4_feat_dim", "512",
+                 "model.pooling_mode", "pool"]
+    for tag, sets in (("crop", []), ("pool", pool_sets)):
+        out = os.path.join(out_dir, f"demo_{tag}.png")
+        reset_pool_counts()
+        c0 = (nms_cuda.launches, fused_filter.launches,
+              roi_pool_cuda.launches)
+        t0 = time.perf_counter()
+        res = cli_demo.main(["--variant", "response", "--out", out,
+                             "--expression", "the man on the left"]
+                            + (["--set", *sets] if sets else []))
+        torch.cuda.synchronize()
+        ms_main = (time.perf_counter() - t0) * 1e3
+        launched = tuple(b - a for a, b in zip(c0, (
+            nms_cuda.launches, fused_filter.launches,
+            roi_pool_cuda.launches)))
+        shapes = pool_shape_counts()
+        check(launched[:2] == (1, 1) and launched[2] == (2 if sets else 0),
+              f"the {tag} demo launched {launched}")
+        check_png(out, res["image"])
+        resp = check_png(res["response"])
+        check(resp.shape == (40, 64), f"response PNG {resp.shape}")
+        check(res["image"].shape == (480, 640, 3)
+              and 1 <= res["cls"] <= 80
+              and bool(np.isfinite(res["box"]).all()), f"{tag} demo output")
+        # a warm request on the same weights and image
+        cfg = apply_variant(load_config(None, sets), "response")
+        model = build_model(cfg, device="cuda", seed=cfg.seed)
+        labels = np.zeros((1, cfg.data.max_len), np.int64)
+        labels[0, :5] = [cli_demo.stable_token(w, cfg.model.vocab_size)
+                         for w in "the man on the left".split()]
+        im = cli_demo.synthetic_image()
+        cli_demo.annotate(model, cfg, im, labels, out)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = cli_demo.annotate(model, cfg, im, labels, out)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(again["cls"] == res["cls"]
+              and np.abs(again["box"] - res["box"]).max() <= 0.5,
+              f"the {tag} demo request is not repeatable")
+        del model
+        log(f"[demo] {tag}: class {res['cls']}, box "
+            f"{np.round(res['box'], 1).tolist()}, launches {launched}; "
+            f"cli.demo.main {ms_main:.1f} ms (weights drawn on the host "
+            f"included), a warm request {ms:.1f} ms")
+        record[f"demo_{tag}"] = {"cls": res["cls"],
+                                 "box": res["box"].tolist(),
+                                 "main_ms": ms_main, "request_ms": ms,
+                                 "launches": launched}
+        if sets:
+            runs["demo_pool"] = {"roi_pool": launched[2], **shapes}
+    # one full-width validation with the debug dumps
+    cfg = flagship_config()
+    cfg.train.summary_interval = 1
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.train.debug_save_dir = os.path.join(tmp, "dbg")
+        batches = [to_wire(cfg, synthetic_batch(cfg, 2, 16, seed=s))
+                   for s in (0, 1)]
+        trainer = Trainer(cfg, FixedBatchLoader(batches[:1]),
+                          os.path.join(tmp, "out"),
+                          val_loader=FixedBatchLoader(batches[1:]),
+                          device="cuda", seed=0)
+        t0 = time.perf_counter()
+        trainer.train(1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        resp = os.path.join(tmp, "dbg", "response", "iter1_0.png")
+        chans = sorted(os.listdir(os.path.join(tmp, "dbg", "net_conv")))
+        check(os.path.exists(resp) and len(chans) == 5
+              and all(c.startswith("iter1_0_") for c in chans),
+              f"debug dumps {chans}")
+        img = check_png(resp)
+        check(img.shape == (40, 64) and img.max() > img.min(),
+              "the response dump is flat")
+        log(f"[debug-dump] one step with a validation and its dumps "
+            f"{ms:.1f} ms; {chans}")
+        record["debug_dump"] = {"step_with_val_ms": ms, "channels": chans}
+        del trainer
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2137,7 +2497,8 @@ def main():
     runs.update(host_modes())
     kernels += check_nms_pretrain(dev)
     runs.update(pretrain_stage(dev))
-    small_train_reference("pretrain_reference", "pretrain", launches=(0, 0, 0),
+    small_train_reference("pretrain_reference", "pretrain",
+                          launches=(0, 0, 0, 0, 0),
                           min_tensors=20)
     runs["train_att"] = attribute_head()
     runs.update(comprehension())
@@ -2145,9 +2506,16 @@ def main():
     del feats
     small_train_reference("att_reference", "response_att")
     small_train_reference("topdown_reference", "topdown")
+    pool_kernels, pool_regs = check_roi_pool(dev)
+    runs.update(mobilenet_pool())
+    small_train_reference("mobilenet_pool_reference", "mobilenet_pool",
+                          launches=(0, 1, 1, 1, 1))
+    runs.update(demo_and_dumps(dev))
+    pool_kernels += pool_launches(runs, pool_kernels, dev, pool_regs)
     for kr in kernels:
         kr["launches"] = sum(runs[path].get(counter, 0)
                              for path, counter in kr["launched_by"])
+    kernels += pool_kernels
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tile_plan", "cluster_size", "registers")

@@ -103,7 +103,8 @@ class TestConfig:
 
 @dataclass
 class ModelConfig:
-    backbone: str = "resnet101"             # 'resnet101' | 'resnet50' | 'vgg16'
+    # 'resnet101' | 'resnet50' | 'vgg16' | 'mobilenet_v1'
+    backbone: str = "resnet101"
     num_classes: int = 81
     anchor_scales: Tuple[int, ...] = (4, 8, 16, 32)
     anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)

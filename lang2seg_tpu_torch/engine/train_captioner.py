@@ -37,12 +37,13 @@ PREFIX = "caption_model."
 def extract_caption_features(model: Lang2Seg, batch: Dict[str, torch.Tensor]
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The 'res5_2' pairing (network_cycle_res5_2.py:415-448): each
-    expression's image map and its GT-masked copy through the layer4 tail
-    -> (fc (E, 4096), att (E, 196, 4096)) f32, on the model's device.
+    expression's image map and its GT-masked copy through the backbone's
+    tail -> (fc (E, 4096), att (E, 196, 4096)) f32 (2048 wide for
+    MobileNetV1), on the model's device.
     batch: images, img_idx, gt_masks as `Lang2Seg.train_forward` takes
     them."""
     images = model._images(batch["images"])
-    net_conv = model.resnet.head(images).index_select(
+    net_conv = model.backbone.head(images).index_select(
         0, batch["img_idx"].long())
     gt_masks = model._gt_masks(batch["gt_masks"], images.shape[2])
     return model.caption_features(net_conv,

@@ -10,7 +10,11 @@ host only then); every `summary_interval` steps the losses and, with a
 `<output_dir>/events.jsonl`; a snapshot every `snapshot_iters` steps,
 one at each LR-decay boundary (train_val.py:353-355) and one at the end;
 a fresh trainer resumes from the newest snapshot, with the loader's
-iterators, numpy's RNG and the step generator as they were.
+iterators, numpy's RNG and the step generator as they were. With
+`cfg.train.debug_save_dir`, each validation batch also leaves its first
+example's response map and its 5 highest-energy backbone channels as PNGs
+under `<dir>/response` and `<dir>/net_conv` (the reference's save=1 side
+channel, nets/network.py:481-517).
 
 A snapshot holds the loader state that follows the last batch a step
 took, not the prefetcher's: each prefetched batch travels with the
@@ -18,8 +22,7 @@ loader's state after it, and the loader is rewound to the last consumed
 one when the loop ends. So a resumed run takes the batches an
 uninterrupted run would have taken.
 
-Not ported (ROADMAP): `steps_per_dispatch > 1` (Queue 1 #9), the
-debug response-map dumps (`debug_save_dir`, Queue 1 #5) and data
+Not ported (ROADMAP): `steps_per_dispatch > 1` (Queue 1 #4) and data
 parallel training (Queue 1 #5).
 """
 
@@ -81,11 +84,7 @@ class Trainer:
         t = cfg.train
         if t.steps_per_dispatch > 1:
             raise NotImplementedError(
-                "steps_per_dispatch > 1 is not ported (ROADMAP Queue 1 #9)")
-        if t.debug_save_dir:
-            raise NotImplementedError(
-                "debug_save_dir needs utils/visualization.py, not ported "
-                "(ROADMAP Queue 1 #5)")
+                "steps_per_dispatch > 1 is not ported (ROADMAP Queue 1 #4)")
         if cfg.parallel.num_data > 1:
             raise NotImplementedError(
                 "data parallel training is not ported (ROADMAP Queue 1 #5)")
@@ -163,7 +162,33 @@ class Trainer:
             losses = self.state.model.train_forward(batch, None, g)
         vals = {k: float(v) for k, v in losses.items()}
         self.writer.scalars(it, vals, tag="val")
+        if self.cfg.train.debug_save_dir and self.cfg.model.use_language:
+            self._debug_dump(it, batch)
         return vals
+
+    def _debug_dump(self, it: int, batch: Dict[str, torch.Tensor]) -> None:
+        """The first example of a validation batch: its response map as
+        `<debug_save_dir>/response/iter<it>_0.png` and its 5 highest-energy
+        backbone channels as `net_conv/iter<it>_0_<channel>.png`, from the
+        backbone head and the conditioning in eval mode (two host reads a
+        validation, none in a step)."""
+        from ..utils.visualization import save_response_map, save_topk_channels
+        model = self.state.model
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                first = batch["img_idx"][:1].long()
+                net_conv = model.backbone.head(model._images(
+                    batch["images"].index_select(0, first)))
+                _, response = model._condition(net_conv, batch["labels"][:1])
+        finally:
+            model.train(was_training)
+        root = self.cfg.train.debug_save_dir
+        save_response_map(response[0].float().cpu().numpy(),
+                          os.path.join(root, "response"), f"iter{it}")
+        save_topk_channels(net_conv[0].float().cpu().numpy(),
+                           os.path.join(root, "net_conv"), f"iter{it}")
 
     # ---- main loop ----
 

@@ -10,12 +10,15 @@ carries the reference network's keys (`resnet.*` or `vgg.*`,
 `rnn_encoder.*`, `dynamic_fc_0..6`, `response_fc`, `rpn_net`,
 `cls_score_net`, `mask_up_sampling`, ...), so the JAX package's
 `engine/convert.py::convert_torch_state_dict` maps it onto the JAX params
-tree.
+tree (MobileNetV1's `mobilenet.*` keys have no reference names; see
+`models/mobilenet.py`).
 
-Ported: the ResNet backbones and VGG16 (the detection-only `vgg` variant:
-C4 512, a 4096-wide fc6/fc7 tail, no mask head), the language path,
-`num_filters` 1 or 7, both gates, test modes 'nms' and 'top', pooling
-mode 'crop', the detection, mask and response losses, the
+Ported: the ResNet backbones, VGG16 (the detection-only `vgg` variant:
+C4 512, a 4096-wide fc6/fc7 tail, no mask head) and MobileNetV1 (C4 512,
+a 1024-wide tail), the language path, `num_filters` 1 or 7, both gates,
+test modes 'nms' and 'top', pooling modes 'crop' and 'pool' (ROI max
+pooling, `ops/roi_align.py::roi_max_pool`, on every path that crops
+ROIs), the detection, mask and response losses, the
 caption-consistency loss of the `cycle` and `cycle_response` variants
 (the att2in2 captioner, `caption_model.*`), and the no-language plain
 Mask R-CNN of the `pretrain` variant (no `rnn_encoder` / `dynamic_fc*` /
@@ -23,8 +26,8 @@ Mask R-CNN of the `pretrain` variant (no `rnn_encoder` / `dynamic_fc*` /
 an image with up to M GT boxes and masks), which trains but, as in the
 JAX package, cannot be served, and the attribute head (`att_head`: a
 multi-label BCE on the un-gated map cropped at each expression's GT box,
-`predict_attribute_scores`). The rest (MobileNet, 'pool' crops,
-`expr_uid` key folding) raises NotImplementedError here.
+`predict_attribute_scores`). `expr_uid` key folding (data parallel
+training) raises NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -39,12 +42,14 @@ from ..config import Config
 from ..device import device_constant, resolve_device
 from ..ops.anchors import shifted_anchors
 from ..ops.proposals import proposal_layer, proposal_top_layer
-from ..ops.roi_align import roi_crop_pool
+from ..ops.roi_align import roi_crop_pool, roi_max_pool
 from ..ops.targets import anchor_targets, proposal_targets
 from .caption_zoo import setup_captioner
 from .dynamic_filter import DynamicFilterGen
 from .heads import BoxHead, MaskHead, RPNHead
 from .lang_encoder import RNNEncoder
+from .mobilenet import TAIL_DIM as MOBILENET_TAIL_DIM
+from .mobilenet import MobileNetV1
 from .resnet import ResNetC4
 from .vgg import VGG16
 
@@ -100,16 +105,24 @@ class Lang2Seg(nn.Module):
         super().__init__()
         self.cfg = cfg
         m = cfg.model
-        if not (m.backbone.startswith("resnet") or m.backbone == "vgg16"):
-            raise NotImplementedError(f"backbone {m.backbone!r} is not ported")
+        if not (m.backbone.startswith("resnet")
+                or m.backbone in ("vgg16", "mobilenet_v1")):
+            raise ValueError(f"unknown backbone {m.backbone!r}")
+        if m.pooling_mode not in ("crop", "pool"):
+            raise ValueError(f"unknown pooling mode {m.pooling_mode!r}")
         self.compute_dtype = (torch.bfloat16 if m.compute_dtype == "bfloat16"
                               else torch.float32)
-        # the reference names the backbone `vgg` or `resnet`; `backbone`
-        # reaches either
+        # the reference names the backbone `vgg` or `resnet`, MobileNetV1
+        # `mobilenet`; `backbone` reaches any of them
         if m.backbone == "vgg16":
             self.vgg = VGG16(self.compute_dtype)
             self.vgg.freeze()
             tail_dim = 4096
+        elif m.backbone == "mobilenet_v1":
+            # every conv trains, as in the JAX package; the BatchNorms are
+            # buffers
+            self.mobilenet = MobileNetV1(self.compute_dtype)
+            tail_dim = MOBILENET_TAIL_DIM
         else:
             self.resnet = ResNetC4(m.backbone, self.compute_dtype)
             self.resnet.freeze(m.fixed_blocks)
@@ -144,8 +157,11 @@ class Lang2Seg(nn.Module):
 
     @property
     def backbone(self) -> nn.Module:
-        """The `ResNetC4` or `VGG16` (`head`, `tail`)."""
-        return self.vgg if self.cfg.model.backbone == "vgg16" else self.resnet
+        """The `ResNetC4`, `VGG16` or `MobileNetV1` (`head`, `tail`)."""
+        b = self.cfg.model.backbone
+        if b == "vgg16":
+            return self.vgg
+        return self.mobilenet if b == "mobilenet_v1" else self.resnet
 
     # ---------- building blocks ----------
 
@@ -161,20 +177,23 @@ class Lang2Seg(nn.Module):
                       generator: Optional[torch.Generator] = None
                       ) -> torch.Tensor:
         """gated: (E, h, w, C); rois: (E, R, 4) in scaled-image coords.
-        Returns spatial_fc7 (E, R, 7, 7, 2048) (ResNet) or (E, R, 1, 1,
-        4096) (VGG16, whose tail draws its dropout masks from `generator`
-        in train mode)."""
+        Crops by bilinear sampling ('crop') or ROI max pooling ('pool').
+        Returns spatial_fc7 (E, R, 7, 7, 2048) (ResNet), (E, R, 7, 7,
+        1024) (MobileNetV1) or (E, R, 1, 1, 4096) (VGG16, whose tail draws
+        its dropout masks from `generator` in train mode)."""
         m = self.cfg.model
-        if m.pooling_mode != "crop":
-            raise NotImplementedError("pooling_mode 'pool' is not ported")
-        crops = roi_crop_pool(gated, rois, m.pooling_size,
-                              1.0 / m.feat_stride, m.max_pool)
+        if m.pooling_mode == "pool":
+            crops = roi_max_pool(gated, rois, m.pooling_size,
+                                 1.0 / m.feat_stride)
+        else:
+            crops = roi_crop_pool(gated, rois, m.pooling_size,
+                                  1.0 / m.feat_stride, m.max_pool)
         e, r = crops.shape[:2]
         flat = crops.reshape(e * r, *crops.shape[2:])
         if m.backbone == "vgg16":
             fc7 = self.vgg.tail(flat, generator)
         else:
-            fc7 = self.resnet.tail(flat)
+            fc7 = self.backbone.tail(flat)
         return fc7.reshape(e, r, *fc7.shape[1:])
 
     def _gt_masks(self, gt_masks: torch.Tensor, canvas_w: int
@@ -390,11 +409,12 @@ class Lang2Seg(nn.Module):
     def caption_features(self, feats_a: torch.Tensor, feats_b: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The captioner's inputs from two (E, h, w, C) maps, each through
-        the layer4 tail at full size: fc (E, 2 * 2048), the spatial means
-        concatenated, and att (E, 196, 2 * 2048), each 14 x 14 adaptive
-        pool concatenated; both f32."""
-        fc5a = self.resnet.tail(feats_a)                      # (E, h, w, 2048)
-        fc5b = self.resnet.tail(feats_b)
+        the backbone's tail at full size (layer4, or MobileNetV1's two
+        1024-wide blocks): fc (E, 2 * D), the spatial means concatenated,
+        and att (E, 196, 2 * D), each 14 x 14 adaptive pool concatenated;
+        both f32."""
+        fc5a = self.backbone.tail(feats_a)                    # (E, h, w, D)
+        fc5b = self.backbone.tail(feats_b)
         fc = torch.cat([fc5a.mean(dim=(1, 2)), fc5b.mean(dim=(1, 2))], -1)
         att = torch.cat([_adaptive_pool(fc5a, 14),
                          _adaptive_pool(fc5b, 14)], -1)
@@ -411,6 +431,15 @@ class Lang2Seg(nn.Module):
         else:
             feats_b = self.gt_masked_map(net_conv, gt_masks)
         fc, att = self.caption_features(net_conv, feats_b)
+        m = self.cfg.model
+        if (fc.shape[-1], att.shape[-1]) != (m.cap_fc_feat_size,
+                                             m.cap_att_feat_size):
+            raise ValueError(
+                f"the captioner is sized by model.cap_fc_feat_size / "
+                f"cap_att_feat_size ({m.cap_fc_feat_size}, "
+                f"{m.cap_att_feat_size}), but {m.backbone}'s caption "
+                f"features are {fc.shape[-1]} wide (twice its tail's "
+                f"width): set both to {fc.shape[-1]}")
         return self.caption_model.teacher_forced_nll(
             fc, att, batch["cap_labels"], batch["cap_masks"], generator)
 

@@ -27,9 +27,11 @@ BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v"]
-# per-library flags: NMS must not contract its IoU into FMAs (bit identity
-# with the f32 reference); neither source may use fast math
-SOURCE_FLAGS = {"nms": ["-fmad=false"], "fused_filter": []}
+# per-library flags: NMS must not contract its IoU into FMAs, nor the ROI
+# pool its bin edges (bit identity with the f32 reference); no source may
+# use fast math
+SOURCE_FLAGS = {"nms": ["-fmad=false"], "fused_filter": [],
+                "roi_pool": ["-fmad=false"]}
 # variants built from another library's source, with flags added; only
 # measuring tools load them
 VARIANTS = {"nms_clocks": ("nms", ["-DNMS_PHASE_CLOCKS"]),

@@ -8,9 +8,19 @@ feature-pixel coordinates with zero padding. Bilinear interpolation is
 separable, so the crop is two contractions with hat weights
 w = max(0, 1 - |coord - index|), cast to the feature dtype as the JAX
 package does.
+
+`roi_max_pool` is the counterpart of the JAX package's `roi_max_pool`
+(POOLING_MODE 'pool', `lang2seg_tpu/ops/roi_align.py:123-216`): the
+reference's RoIPool, rounded corners and [floor, ceil) bins, with its
+gradient on each bin's first maximum in row-major order. A CPU tensor
+takes the plain version below, which keeps the JAX formulation (masked
+maxima over whole rows and columns) over chunks of ROIs; a CUDA tensor
+launches the hand kernel of `ops/roi_pool_cuda.py`.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -57,3 +67,182 @@ def roi_crop_pool(feat: torch.Tensor, rois: torch.Tensor, pooling_size: int,
     e, r, s2, _, c = crops.shape
     crops = crops.reshape(e, r, s2 // 2, 2, s2 // 2, 2, c)
     return crops.amax(dim=(3, 5))
+
+
+# ---------------------------------------------------------------------------
+# ROI max pooling (POOLING_MODE 'pool')
+# ---------------------------------------------------------------------------
+
+# the plain version's largest intermediate: the JAX formulation's masked
+# (chunk, P, H, W, C) forward and (chunk, P, P, H, W, C) backward tensors,
+# which XLA fuses away and eager PyTorch builds, are cut to about this size
+CHUNK_BYTES = 1 << 30
+
+
+def roi_pool_bins(rois: torch.Tensor, pooled: int, spatial_scale: float,
+                  h: int, w: int) -> Tuple[torch.Tensor, ...]:
+    """Each bin's [start, end) rows and columns, the reference's RoIPool
+    windows (roi_pool_py.py:20-38): corners rounded half to even after
+    scaling, an extent of at least 1, bin k over [floor(k * b),
+    ceil((k + 1) * b)) from the corner, in f32, clipped to the map.
+    rois (..., R, 4) f32 -> hs, he, ws, we, each (..., R, P) int64."""
+    r = torch.round(rois.float() * spatial_scale).to(torch.int32)
+    x1, y1, x2, y2 = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
+    rw = torch.clamp(x2 - x1 + 1, min=1).float()
+    rh = torch.clamp(y2 - y1 + 1, min=1).float()
+    # a true f32 quotient: on CUDA, torch divides by a Python number as a
+    # product with its f32 reciprocal (21 * (1/7) = 3.0000002, whose ceil
+    # is 4), so the divisor is a tensor on the ROIs' device
+    p = torch.full_like(rw, float(pooled))
+    bw = rw / p
+    bh = rh / p
+    k = torch.arange(pooled, dtype=torch.float32, device=rois.device)
+    hs = torch.floor(k * bh[..., None]).to(torch.int32) + y1[..., None]
+    he = torch.ceil((k + 1) * bh[..., None]).to(torch.int32) + y1[..., None]
+    ws = torch.floor(k * bw[..., None]).to(torch.int32) + x1[..., None]
+    we = torch.ceil((k + 1) * bw[..., None]).to(torch.int32) + x1[..., None]
+    return (torch.clamp(hs, 0, h).long(), torch.clamp(he, 0, h).long(),
+            torch.clamp(ws, 0, w).long(), torch.clamp(we, 0, w).long())
+
+
+def _memberships(bins, h: int, w: int, device):
+    hs, he, ws, we = bins
+    ys = torch.arange(h, device=device)
+    xs = torch.arange(w, device=device)
+    my = (ys >= hs[..., None]) & (ys < he[..., None])        # (..., R, P, H)
+    mx = (xs >= ws[..., None]) & (xs < we[..., None])        # (..., R, P, W)
+    empty = (he <= hs)[..., :, None] | (we <= ws)[..., None, :]
+    return my, mx, empty                                     # empty (.., P, P)
+
+
+def _chunk(per_roi_bytes: int, chunk_bytes: int) -> int:
+    return max(1, chunk_bytes // max(per_roi_bytes, 1))
+
+
+def roi_max_pool_plain(feat: torch.Tensor, rois: torch.Tensor, pooled: int,
+                       spatial_scale: float,
+                       chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """feat (E, H, W, C); rois (E, R, 4) [x1 y1 x2 y2] in image coords.
+    Returns (E, R, P, P, C) in feat's dtype: each bin's maximum, 0 for an
+    empty bin. The JAX formulation (the rows of each h-bin first, then the
+    columns of each w-bin), over chunks of ROIs."""
+    e, h, w, c = feat.shape
+    r = rois.shape[1]
+    my, mx, empty = _memberships(roi_pool_bins(rois, pooled, spatial_scale,
+                                               h, w), h, w, feat.device)
+    neg = torch.tensor(float("-inf"), dtype=feat.dtype, device=feat.device)
+    out = torch.empty((e, r, pooled, pooled, c), dtype=feat.dtype,
+                      device=feat.device)
+    step = _chunk(pooled * h * w * c * feat.element_size(), chunk_bytes)
+    for i in range(e):
+        f = feat[i]
+        for s in range(0, r, step):
+            sl = slice(s, s + step)
+            rowmax = torch.where(my[i, sl, :, :, None, None], f, neg).amax(2)
+            out[i, sl] = torch.where(mx[i, sl, None, :, :, None],
+                                     rowmax[:, :, None], neg).amax(3)
+    return torch.where(empty[..., None], torch.zeros((), dtype=feat.dtype,
+                                                     device=feat.device), out)
+
+
+def roi_max_pool_argmax_plain(feat: torch.Tensor, rois: torch.Tensor,
+                              pooled: int, spatial_scale: float,
+                              chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """Each output's position y * W + x in its bin: the first maximum in
+    row-major order, as the JAX package's `_roi_max_pool_bwd` takes it
+    (argmax over the flattened masked window); -1 for an empty bin.
+    (E, R, P, P, C) int64."""
+    e, h, w, c = feat.shape
+    r = rois.shape[1]
+    my, mx, empty = _memberships(roi_pool_bins(rois, pooled, spatial_scale,
+                                               h, w), h, w, feat.device)
+    neg = torch.tensor(float("-inf"), dtype=feat.dtype, device=feat.device)
+    amax = torch.empty((e, r, pooled, pooled, c), dtype=torch.int64,
+                       device=feat.device)
+    step = _chunk(pooled * pooled * h * w * c * feat.element_size(),
+                  chunk_bytes)
+    for i in range(e):
+        f = feat[i]
+        for s in range(0, r, step):
+            sl = slice(s, s + step)
+            member = my[i, sl, :, None, :, None] & mx[i, sl, None, :, None, :]
+            vals = torch.where(member[..., None], f, neg)   # (r, P, P, H, W, C)
+            amax[i, sl] = vals.reshape(*vals.shape[:3], h * w, c).argmax(3)
+    return torch.where(empty[..., None], -1, amax)
+
+
+def roi_max_pool_bwd_plain(feat: torch.Tensor, rois: torch.Tensor,
+                           grad: torch.Tensor, pooled: int,
+                           spatial_scale: float,
+                           chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """The gradient of `roi_max_pool_plain` with respect to feat, as the
+    JAX package's `_roi_max_pool_bwd` computes it: each output's gradient
+    added, in f32, at its bin's first maximum in row-major order
+    (`roi_max_pool_argmax_plain`), nothing for an empty bin; the sum cast
+    once to feat's dtype. grad (E, R, P, P, C) -> (E, H, W, C)."""
+    e, h, w, c = feat.shape
+    amax = roi_max_pool_argmax_plain(feat, rois, pooled, spatial_scale,
+                                     chunk_bytes)
+    gz = torch.where(amax < 0, 0.0, grad.float())
+    flat = torch.clamp(amax, min=0) * c + torch.arange(c, device=feat.device)
+    dfeat = torch.zeros((e, h * w * c), dtype=torch.float32,
+                        device=feat.device)
+    # the updates in the JAX scatter's order: (R, P, P, C) row-major
+    for i in range(e):
+        dfeat[i].index_put_((flat[i].reshape(-1),), gz[i].reshape(-1),
+                            accumulate=True)
+    return dfeat.reshape(e, h, w, c).to(feat.dtype)
+
+
+class RoIMaxPool(torch.autograd.Function):
+    """`roi_max_pool` as an autograd node. On the card the forward kernel
+    saves each output's argmax and the backward kernel scatters to it;
+    on the CPU the backward recomputes the argmax from (feat, rois), as
+    the JAX package's custom VJP does. No gradient reaches the ROIs."""
+
+    @staticmethod
+    def forward(ctx, feat, rois, pooled, spatial_scale):
+        ctx.args = (pooled, spatial_scale)
+        ctx.feat_meta = (tuple(feat.shape), feat.dtype)
+        if feat.device.type == "cuda":
+            from . import roi_pool_cuda
+            out, argmax = roi_pool_cuda.roi_pool_forward(
+                feat, rois, pooled, spatial_scale)
+            ctx.save_for_backward(argmax)
+            return out
+        ctx.save_for_backward(feat, rois)
+        return roi_max_pool_plain(feat, rois, pooled, spatial_scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pooled, spatial_scale = ctx.args
+        if grad.device.type == "cuda":
+            from . import roi_pool_cuda
+            argmax, = ctx.saved_tensors
+            shape, dtype = ctx.feat_meta
+            return (roi_pool_cuda.roi_pool_backward(
+                grad.contiguous(), argmax, shape, dtype), None, None, None)
+        feat, rois = ctx.saved_tensors
+        return (roi_max_pool_bwd_plain(feat, rois, grad, pooled,
+                                       spatial_scale), None, None, None)
+
+
+def roi_max_pool(feat: torch.Tensor, rois: torch.Tensor, pooled: int,
+                 spatial_scale: float) -> torch.Tensor:
+    """ROI max pooling, batched over expressions: feat (E, H, W, C), rois
+    (E, R, 4) [x1 y1 x2 y2] in image coords (times spatial_scale gives
+    feature coords) -> (E, R, P, P, C) in feat's dtype; differentiable in
+    feat. A CPU tensor takes the plain version, a CUDA tensor the kernel
+    (each expression's (H, W, C) map contiguous, the expression stride
+    free, 0 for a broadcast map); another device raises. Where no gradient
+    is wanted (serving, or a map that does not require one) the kernel
+    writes no argmax."""
+    if feat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"roi_max_pool: unsupported device {feat.device}")
+    if torch.is_grad_enabled() and feat.requires_grad:
+        return RoIMaxPool.apply(feat, rois, pooled, spatial_scale)
+    if feat.device.type == "cuda":
+        from . import roi_pool_cuda
+        return roi_pool_cuda.roi_pool_forward(
+            feat, rois, pooled, spatial_scale, with_argmax=False)[0]
+    return roi_max_pool_plain(feat, rois, pooled, spatial_scale)

@@ -8,7 +8,9 @@ vgg`, 128x192 canvas, f32, normalized response, 2 images x 4
 expressions; `--variant pretrain`: 2 images with 4 GT boxes and masks
 each, no language; `--variant response_att`: `response` with the
 attribute head and attribute labels; `--variant topdown`:
-`cycle_response` with the topdown caption decoder) from the same
+`cycle_response` with the topdown caption decoder; `--variant
+mobilenet_pool`: `response` on MobileNetV1 (C4 512) with ROI max
+pooling, so that the ROI pool kernel and its backward run) from the same
 weights, the same dropout draws (a CPU generator feeds both devices: word dropout, VGG16's fc6 / fc7 dropout and
 the captioner's) and the same injected anchor and ROI targets (the port's
 samplers on jittered GT boxes), so that the two runs differ only by their
@@ -32,7 +34,7 @@ from ..config import Config, apply_variant
 from ..data.synthetic import (synthetic_batch, synthetic_detection_batch,
                               to_wire)
 from ..engine.train_state import create_train_state, to_device, train_step
-from ..ops import fused_filter, nms_cuda
+from ..ops import fused_filter, nms_cuda, roi_pool_cuda
 from ..ops.anchors import shifted_anchors
 from ..ops.targets import anchor_targets, proposal_targets
 from ..weights import init_params
@@ -41,20 +43,27 @@ from ..weights import init_params
 # steps beyond the presets: (preset, model overrides)
 VARIANTS = {"response_att": ("response", {"use_attribute_head": True,
                                           "num_attributes": 6}),
-            "topdown": ("cycle_response", {"caption_model": "topdown"})}
+            "topdown": ("cycle_response", {"caption_model": "topdown"}),
+            "mobilenet_pool": ("response", {"backbone": "mobilenet_v1",
+                                            "c4_feat_dim": 512,
+                                            "pooling_mode": "pool"})}
+# backbones whose depth is fixed: the others get the resnet26 depth
+FIXED_DEPTH = ("vgg16", "mobilenet_v1")
 
 
 def tiny_config(variant: str = "response") -> Config:
     """The variant's preset at the tiny size; ResNet presets get the
-    resnet26 depth, `vgg` keeps its VGG16 (whose depth is fixed).
-    `response_att` is `response` with the attribute head (6 attributes),
-    `topdown` is `cycle_response` with the topdown caption decoder."""
+    resnet26 depth, `vgg` keeps its VGG16 and `mobilenet_pool` its
+    MobileNetV1 (whose depths are fixed). `response_att` is `response`
+    with the attribute head (6 attributes), `topdown` is `cycle_response`
+    with the topdown caption decoder, `mobilenet_pool` is `response` on
+    MobileNetV1 with ROI max pooling."""
     preset, overrides = VARIANTS.get(variant, (variant, {}))
     cfg = apply_variant(Config(), preset)
     for k, v in overrides.items():
         setattr(cfg.model, k, v)
     cfg.data.canvas_h, cfg.data.canvas_w = 128, 192
-    if cfg.model.backbone != "vgg16":
+    if cfg.model.backbone not in FIXED_DEPTH:
         cfg.model.backbone = "resnet26"
     cfg.model.vocab_size = 100
     cfg.model.compute_dtype = "float32"
@@ -117,20 +126,27 @@ def launch_counts() -> Tuple[int, int, int]:
             fused_filter.bwd_launches)
 
 
+def pool_launch_counts() -> Tuple[int, int]:
+    """The ROI pool kernel's launches, forward and backward."""
+    return roi_pool_cuda.launches, roi_pool_cuda.bwd_launches
+
+
 def step_on(cfg: Config, state_dict, batch, targets, device
             ) -> Tuple[Dict[str, float], Dict[str, torch.Tensor],
-                       Tuple[int, int, int]]:
+                       Tuple[int, ...]]:
     """One train_step on `device`: (losses, per-tensor updates on the CPU,
-    kernel launches (NMS, gate, gate backward) it made)."""
+    kernel launches (NMS, gate, gate backward, ROI pool, ROI pool
+    backward) it made)."""
     state = create_train_state(cfg, device=device, state_dict=state_dict)
     old = {k: v.detach().float().cpu().clone()
            for k, v in state.model.state_dict().items()}
-    c0 = launch_counts()
+    c0 = launch_counts() + pool_launch_counts()
     targets = tuple(type(t)(*(x.to(device) for x in t)) for t in targets)
     losses = train_step(state, to_device(batch, device),
                         torch.Generator().manual_seed(0), targets)
     losses = {k: float(v) for k, v in losses.items()}
-    launched = tuple(b - a for a, b in zip(c0, launch_counts()))
+    launched = tuple(b - a for a, b in zip(
+        c0, launch_counts() + pool_launch_counts()))
     updates = {k: v.detach().float().cpu() - old[k]
                for k, v in state.model.state_dict().items()}
     return losses, updates, launched

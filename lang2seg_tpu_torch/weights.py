@@ -18,7 +18,8 @@ what `models.network.Lang2Seg` holds:
   package's `engine/convert.py::convert_torch_state_dict` (conv
   HWIO -> OIHW, Dense (I, O) -> (O, I), the RPN class-major channel
   order, VGG16's fc6 input rows from (7, 7, C) back to the reference's
-  channel-major (C, 7, 7), the fused `dynamic_fc` split into
+  channel-major (C, 7, 7), MobileNetV1 under its JAX module names (its
+  depthwise kernels (3, 3, 1, C) -> (C, 1, 3, 3)), the fused `dynamic_fc` split into
   `dynamic_fc_0..6`, the flipped ConvTranspose kernel, the LSTM's
   transposed gate matrices, the att2in2 captioner's raw `*_w` / `*_b`
   params back to its reference layers; a zoo decoder's raw params as
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from .config import Config
+from .models.mobilenet import BLOCKS_HEAD, BLOCKS_TAIL
 from .models.resnet import STAGE_BLOCKS
 
 # vgg16 `features` index -> the JAX package's conv name
@@ -86,7 +88,8 @@ def _initializer(key: str, cfg: Config):
     """The flax default that `engine/train_state.py::init_params` gives
     the JAX counterpart of the state_dict entry `key`."""
     leaf = key.rsplit(".", 1)[-1]
-    if ".bn" in key or ".downsample.1." in key:        # frozen BN: identity
+    if ".bn" in key or ".downsample.1." in key or "_bn." in key:
+        # frozen BN (MobileNetV1's `stem_bn`, `dw_bn`, `pw_bn` too): identity
         if leaf in ("weight", "running_var"):
             return lambda shape, g: torch.ones(shape)
         return lambda shape, g: torch.zeros(shape)
@@ -193,6 +196,18 @@ def _vgg(out, p):
     out["vgg.classifier.3.bias"] = _t(p["fc7"]["bias"])
 
 
+def _mobilenet(out, p):
+    out["mobilenet.stem.weight"] = _conv(p["stem"]["kernel"])
+    _bn(out, "mobilenet.stem_bn", p["stem_bn"])
+    names = [f"block{i}" for i in range(len(BLOCKS_HEAD))] + \
+        [f"tail{i}" for i in range(len(BLOCKS_TAIL))]
+    for name in names:
+        for part in ("dw", "pw"):
+            out[f"mobilenet.{name}.{part}.weight"] = _conv(
+                p[name][part]["kernel"])
+            _bn(out, f"mobilenet.{name}.{part}_bn", p[name][f"{part}_bn"])
+
+
 def _encoder(out, p):
     out["rnn_encoder.embedding.weight"] = _t(p["embedding"]["embedding"])
     out["rnn_encoder.mlp.0.weight"] = _lin(p["mlp"]["kernel"])
@@ -293,6 +308,8 @@ def from_jax_params(params, cfg: Config) -> Dict[str, torch.Tensor]:
     if "backbone" in params:
         if m.backbone == "vgg16":
             _vgg(out, params["backbone"])
+        elif m.backbone == "mobilenet_v1":
+            _mobilenet(out, params["backbone"])
         else:
             _resnet(out, params["backbone"], m.backbone)
     if "encoder" in params:

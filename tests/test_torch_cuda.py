@@ -13,11 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from lang2seg_tpu_torch.ops import fused_filter, nms_cuda
+from lang2seg_tpu_torch.ops import fused_filter, nms_cuda, roi_pool_cuda
 from lang2seg_tpu_torch.ops.fused_filter import (
     fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain)
 from lang2seg_tpu_torch.ops.nms import nms_padded
+from lang2seg_tpu_torch.ops.roi_align import (roi_max_pool,
+                                              roi_max_pool_argmax_plain,
+                                              roi_max_pool_bwd_plain,
+                                              roi_max_pool_plain)
+from lang2seg_tpu_torch.tools.profile_gate import bf16_ulp_distance
 from lang2seg_tpu_torch.tools.profile_nms import edge_cases
+from lang2seg_tpu_torch.tools.profile_roi_pool import roi_pool_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -348,21 +354,25 @@ def test_gate_kernels_at_vgg_width(dev, maps):
 
 
 @pytest.mark.parametrize("variant", ["response", "cycle", "cycle_response",
-                                     "vgg", "response_att", "topdown"])
+                                     "vgg", "response_att", "topdown",
+                                     "mobilenet_pool"])
 def test_tiny_train_step_card_vs_cpu(dev, variant):
     """One tiny f32 step (`tools/tiny_step.py`; VGG16 for `vgg`, its fc6
     / fc7 dropout drawn for both devices from one CPU generator;
     `response_att` with the attribute head, `topdown` the cycle_response
-    step with the topdown decoder) on the card and on the CPU from the
+    step with the topdown decoder, `mobilenet_pool` MobileNetV1 with ROI
+    max pooling) on the card and on the CPU from the
     same weights, draws and injected targets: the losses within
     1e-4 relative, the updates within 1e-3 in relative L2 norm and those
-    whose exact gradient is zero within 1e-8 in norm (chip_smoke phases 8
-    and 10); the card's step launches the gate and its backward once
+    whose exact gradient is zero within 1e-8 in norm (chip_smoke phases 8,
+    10 and 25); the card's step launches the gate and its backward once
+    each, and in pool mode the ROI pool kernel and its backward once
     each."""
     from lang2seg_tpu_torch.tools.tiny_step import card_vs_cpu
     torch.backends.cudnn.allow_tf32 = False
     errs, launched = card_vs_cpu(variant)
-    assert launched == (0, 1, 1)
+    pool = (1, 1) if variant == "mobilenet_pool" else (0, 0)
+    assert launched == (0, 1, 1) + pool
     assert max(errs["loss_rel_err"].values()) <= 1e-4, errs["loss_rel_err"]
     assert errs["update_rel_err_max"] <= 1e-3, errs["worst"]
     assert not errs["moved_on_card_only"] and errs["tensors"] >= 40
@@ -491,7 +501,7 @@ def test_tiny_pretrain_step_card_vs_cpu(dev):
     from lang2seg_tpu_torch.tools.tiny_step import card_vs_cpu
     torch.backends.cudnn.allow_tf32 = False
     errs, launched = card_vs_cpu("pretrain")
-    assert launched == (0, 0, 0)
+    assert launched == (0, 0, 0, 0, 0)
     assert max(errs["loss_rel_err"].values()) <= 1e-4, errs["loss_rel_err"]
     assert errs["update_rel_err_max"] <= 1e-3, errs["worst"]
     assert not errs["moved_on_card_only"] and errs["tensors"] >= 20
@@ -661,3 +671,77 @@ def test_score_caption_split_on_card(dev):
     assert list(scores) == ["Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4",
                             "ROUGE_L", "CIDEr", "METEOR"]
     assert all(np.isfinite(v) for v in scores.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("maps", ["gathered", "broadcast"])
+def test_roi_pool_kernel_matches_plain(dev, dtype, maps):
+    """The ROI max-pool kernels against the plain versions on a small map
+    with `profile_roi_pool.edge_rois` and windows of ties (chip_smoke
+    phase 23 at the main path's shapes): the forward and the argmax bit
+    for bit; the backward (f32 atomics in no fixed order) within 1 bf16
+    ulp, and in f32 within 1e-6 of max|d_feat|."""
+    feat, rois, grad = roi_pool_inputs(3, 40, 20, 30, 64, maps, dev, dtype)
+    out, argmax = roi_pool_cuda.roi_pool_forward(feat, rois, 7, 1 / 16)
+    assert torch.equal(out, roi_max_pool_plain(feat, rois, 7, 1 / 16))
+    assert torch.equal(argmax.long(),
+                       roi_max_pool_argmax_plain(feat, rois, 7, 1 / 16))
+    assert bool((argmax < 0).any()) and bool((argmax >= 0).any())
+    d = roi_pool_cuda.roi_pool_backward(grad.to(dtype), argmax,
+                                        tuple(feat.shape), dtype)
+    want = roi_max_pool_bwd_plain(feat, rois, grad.to(dtype), 7, 1 / 16)
+    if dtype == torch.bfloat16:
+        assert int(bf16_ulp_distance(d, want).max()) <= 1
+    else:
+        assert float((d - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
+
+
+def test_roi_max_pool_autograd_launches_both_kernels(dev):
+    """`roi_max_pool` on the card launches the forward kernel and, under
+    backward, the argmax backward, once each; no gradient reaches the
+    ROIs."""
+    feat, rois, _ = roi_pool_inputs(2, 16, 20, 30, 32, "gathered", dev)
+    feat.requires_grad_(True)
+    f0, b0 = roi_pool_cuda.launches, roi_pool_cuda.bwd_launches
+    roi_max_pool(feat, rois, 7, 1 / 16).float().square().sum().backward()
+    assert (roi_pool_cuda.launches - f0,
+            roi_pool_cuda.bwd_launches - b0) == (1, 1)
+    want = roi_max_pool_bwd_plain(
+        feat.detach(), rois, 2 * roi_max_pool_plain(
+            feat.detach(), rois, 7, 1 / 16).float(), 7, 1 / 16)
+    assert int(bf16_ulp_distance(feat.grad, want).max()) <= 1
+
+
+@pytest.mark.parametrize("maps", ["gathered", "broadcast"])
+def test_roi_max_pool_serving_writes_no_argmax(dev, maps):
+    """Under no_grad `roi_max_pool` launches the forward kernel once
+    without an argmax (its launch counted under that shape key) and gives
+    the plain version's output bit for bit."""
+    feat, rois, _ = roi_pool_inputs(3, 40, 20, 30, 64, maps, dev)
+    roi_pool_cuda.shapes.clear()
+    with torch.no_grad():
+        out = roi_max_pool(feat, rois, 7, 1 / 16)
+    assert dict(roi_pool_cuda.shapes) == {roi_pool_cuda.shape_key(
+        3, 40, 7, 20, 30, 64, feat.dtype, False): 1}
+    assert out.grad_fn is None
+    assert torch.equal(out, roi_max_pool_plain(feat, rois, 7, 1 / 16))
+
+
+def test_demo_on_card(dev, tmp_path):
+    """cli.demo on the card and with --device cpu, the tiny MobileNetV1
+    pool config on the synthetic fixture: the same class, the box within
+    1e-2 px, PNGs that decode to the annotated image."""
+    from lang2seg_tpu_torch.cli import demo
+    torch.backends.cudnn.allow_tf32 = False
+    tiny = ["data.canvas_h", "128", "data.canvas_w", "192",
+            "model.backbone", "mobilenet_v1", "model.c4_feat_dim", "512",
+            "model.pooling_mode", "pool", "model.compute_dtype", "float32",
+            "model.normalize_response", "true",
+            "test.rpn_pre_nms_top_n", "256", "test.rpn_post_nms_top_n", "32"]
+    got = {d: demo.main(["--device", d, "--out", str(tmp_path / f"{d}.png"),
+                         "--set", *tiny]) for d in ("cuda", "cpu")}
+    assert got["cuda"]["cls"] == got["cpu"]["cls"]
+    assert np.abs(got["cuda"]["box"] - got["cpu"]["box"]).max() <= 1e-2
+    for d in ("cuda", "cpu"):
+        assert os.path.exists(got[d]["response"])

@@ -167,8 +167,7 @@ def test_val_summaries_do_not_perturb(env, tmp_path):
 
 def test_trainer_refuses_unported_options(env):
     for section, key, value, item in (
-            ("train", "steps_per_dispatch", 2, "Queue 1 #9"),
-            ("train", "debug_save_dir", "dumps", "Queue 1 #5"),
+            ("train", "steps_per_dispatch", 2, "Queue 1 #4"),
             ("parallel", "num_data", 2, "Queue 1 #5")):
         cfg = copy.deepcopy(env[0])
         setattr(getattr(cfg, section), key, value)
