@@ -171,19 +171,31 @@ Phases, each fatal on failure (nothing is caught):
      image;
   22. phase 8 for the tiny `response_att` (attribute labels injected)
      and `topdown` steps;
-  23. the ROI max-pool kernel and its argmax backward
-     (`csrc/roi_pool.cu`) against their plain versions on the card
+  23. the ROI max-pool kernels (`csrc/roi_pool.cu`: the forward holding
+     each expression's 32-byte channel slab in shared memory and writing a
+     one-byte bin-local argmax, the backward adding in a shared-memory f32
+     slab) against their plain versions on the card
      (`tools/profile_roi_pool.py`): 16 x 256 ROIs on (16, 40, 64, 512)
      and (16, 40, 64, 1024) bf16 maps gathered from 2 images (training,
      the forward with its argmax), 16 x 300 ROIs on 16 distinct maps of
      each width (serving: the gate's per-expression output, no argmax),
      with edge ROIs (off the map, 1 x 1, empty bins, corners on .5 after
-     scaling, windows of ties): forward and argmax bit for bit, backward
-     within 1 bf16 ulp; then each kernel's device time beside its bound;
-     a stride-0 map checked too. After phase 26, every other shape at
-     which phases 24-26 launched the kernel (the requests of 4 and 8
-     expressions, the mask crops of 1 and 2 boxes an expression, the
-     demo's one expression) is checked and timed the same way;
+     scaling, windows of ties) and an oversize ROI (bins too large for a
+     one-byte code, rescanned by the backward): forward and decoded argmax
+     bit for bit, backward within 1 bf16 ulp, and the same checks on the
+     draw without the oversize ROI; then each kernel's device time beside
+     its bound on that draw (the first kernels' inputs), and with the
+     oversize ROI, each shape's GB/s, kernel and slab plan, and the kernels'
+     phase clocks (a -DROI_POOL_PHASE_CLOCKS build); a stride-0 map (16
+     x 300) and an f32 map (16 x 256) checked forward and backward too,
+     and the large-map routes (`LARGE_SHAPE`, 120 x 128: the forward's
+     global scan, the backward in bands, two-byte codes). After phase 26,
+     every other shape at which phases 24-26 launched the kernels (the
+     requests of 4 and 8 expressions, the mask crops of 1 and 2 boxes an
+     expression, the demo's one expression) is checked and timed the same
+     way, and every launch on the 40 x 64 map must have run a
+     shared-memory kernel (the slab or few-ROI forward, the one-band
+     backward: the launch keys name the kernel run);
   24. MobileNetV1 + ROI max pooling at full width (`flagship_config()`
      with backbone mobilenet_v1, C4 512, pooling_mode pool; random
      weights from a seed): phase 7's checks on a Trainer of 2 images x 16
@@ -274,8 +286,9 @@ from lang2seg_tpu_torch.tools.profile_nms import (  # noqa: E402
     MAIN_SHAPES, device_ms, edge_cases, lane_stats, nms_bound, rpn_draw,
     time_ms)
 from lang2seg_tpu_torch.tools.profile_roi_pool import (  # noqa: E402
-    POOLED, SHAPES as POOL_SHAPES, check_shape as check_pool_shape,
-    compare_shape as compare_pool_shape)
+    LARGE_SHAPE as LARGE_POOL_SHAPE, POOLED, SHAPES as POOL_SHAPES,
+    check_shape as check_pool_shape, checks_pass as pool_checks_pass,
+    compare_shape as compare_pool_shape, phase_clocks as pool_phase_clocks)
 from lang2seg_tpu_torch.tools import learn_synthetic  # noqa: E402
 from lang2seg_tpu_torch.tools.tiny_step import (  # noqa: E402
     card_vs_cpu, launch_counts, pool_launch_counts)
@@ -353,7 +366,8 @@ def environment():
 
 def build():
     t0 = time.perf_counter()
-    paths = _build.build_all()
+    # the sources, and the ROI pool kernels' phase-clock build (phase 23)
+    paths = _build.build_all(list(_build.SOURCE_FLAGS) + ["roi_pool_clocks"])
     log(f"[build] {sorted(paths)} in {time.perf_counter() - t0:.1f} s "
         f"(per source: { {k: round(v, 1) for k, v in _build.build_seconds.items()} })")
     for name, path in paths.items():
@@ -2170,29 +2184,62 @@ POOL_REPLACES = {"forward": "lang2seg_tpu/ops/roi_align.py:173",
                  "backward": "lang2seg_tpu/ops/roi_align.py:192"}
 
 
+# the forward's kernels by the launch key's kernel field
+# (`roi_pool_cuda.forward_kernel`)
+POOL_KERNELS = {"slab": "roi_pool_fwd_smem_kernel",
+                "few_rois": "roi_pool_fwd_band_kernel",
+                "scan": "roi_pool_fwd_scan_kernel"}
+
+
 def pool_registers():
-    """ptxas's registers a thread of the bf16 ROI pool kernels."""
+    """ptxas's (registers a thread, stack frame, spill store and spill load
+    bytes) of the bf16 ROI pool kernels with one-byte codes: each forward
+    kernel with the argmax ("<kernel>+argmax") and without ("<kernel>"),
+    and the backward ("backward")."""
     regs = kernel_registers(_build.library_path("roi_pool").with_name(
         "build.log"))
+
+    def find(key):
+        hits = [v for name, v in regs.items() if key in name]
+        return list(hits[0]) if len(hits) == 1 else None
+
     out = {}
-    for kind, key in (("forward", "roi_pool_fwd_kernel<__nv_bfloat16>"),
-                      ("backward", "roi_pool_bwd_kernel<__nv_bfloat16>")):
-        hits = [v[0] for name, v in regs.items() if key in name]
-        out[kind] = hits[0] if len(hits) == 1 else None
+    for kernel, fn in POOL_KERNELS.items():
+        for arg in (True, False):
+            out[kernel + ("+argmax" if arg else "")] = find(
+                f"{fn}<__nv_bfloat16, unsigned char, "
+                f"{'true' if arg else 'false'}>")
+    out["backward"] = find("roi_pool_bwd_smem_kernel<__nv_bfloat16, "
+                           "unsigned char>")
     return out
 
 
-def pool_entries(name, res, key, regs):
+def pool_keys(e, r, h, w, c, train, dev):
+    """The launch keys (`roi_pool_cuda.shape_key`) of the forward and the
+    backward of one bf16 shape, with the kernels the wrappers pick."""
+    plan = roi_pool_cuda.slab_plan(h, w, c, torch.bfloat16, POOLED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kernel = roi_pool_cuda.forward_kernel(plan, e, r, w, POOLED, sms)[0]
+    return (roi_pool_cuda.shape_key(e, r, POOLED, h, w, c, torch.bfloat16,
+                                    train, kernel),
+            roi_pool_cuda.shape_key(e, r, POOLED, h, w, c, torch.bfloat16,
+                                    True, plan["backward"]["route"]))
+
+
+def pool_entries(name, res, keys, regs, train):
     """The `kernels` entries of one checked and timed ROI pool shape:
-    the forward's, and the backward's when it was timed. Each carries the
-    shape key whose launches it reports (`pool_launches`)."""
+    the forward's, and the backward's when it was timed, each with the
+    registers of the kernel its launch key names. Each carries the shape
+    key whose launches it reports (`pool_launches`)."""
     fwd = {"name": f"roi_pool_{name}", "route": "cuda",
            "source": "lang2seg_tpu_torch/csrc/roi_pool.cu",
            "replaces": POOL_REPLACES["forward"],
            "max_abs_err": res["forward_max_abs_err"], "ms": res["ms"],
            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
            "bound_by": res["bound_by"], "library_ms": None,
-           "registers": regs["forward"], "pool_key": ("fwd", key)}
+           "kernel": POOL_KERNELS[keys[0][-1]],
+           "registers": regs[keys[0][-1] + ("+argmax" if train else "")],
+           "pool_key": ("fwd", keys[0])}
     if "bwd_ms" not in res:
         return [fwd]
     return [fwd, {
@@ -2202,32 +2249,42 @@ def pool_entries(name, res, key, regs):
         "max_abs_err": res["bwd_max_abs_err"], "ms": res["bwd_ms"],
         "plain_ms": res["bwd_plain_ms"], "bound_ms": res["bwd_bound_ms"],
         "bound_by": res["bwd_bound_by"], "library_ms": None,
-        "registers": regs["backward"], "pool_key": ("bwd", key)}]
+        "kernel": "roi_pool_bwd_smem_kernel",
+        "registers": regs["backward"], "pool_key": ("bwd", keys[1])}]
 
 
 def check_pool_shape_logged(name, e, r, h, w, c, maps, train, dev, regs,
                             reps, seed):
-    """`profile_roi_pool.check_shape` with phase 23's checks and log line;
-    returns the shape's `kernels` entries."""
+    """`profile_roi_pool.check_shape` with phase 23's checks and log line
+    (the achieved GB/s and the slab plan too); returns the shape's
+    `kernels` entries."""
     res = check_pool_shape(name, e, r, h, w, c, maps, train, dev, reps=reps,
                            seed=seed)
+    plan = res["plan"]
     log(f"[roi-pool] {name} ({maps} maps, argmax {train}): forward equal "
-        f"{res['forward_equal']}, argmax equal {res['argmax_equal']}, "
-        f"{res['empty_bins']} empty bin-channels, {res['window_pixels']} "
-        f"window pixels; kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.1f} ms, bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']}, {res['bytes']} B)"
+        f"{res['forward_equal']}, decoded argmax equal "
+        f"{res['argmax_equal']}, {res['empty_bins']} empty and "
+        f"{res['rescanned_bins']} rescanned bins, {res['window_pixels']} "
+        f"window pixels; kernel {res['ms']:.4f} ms "
+        f"({res['gb_per_s']:.0f} GB/s; {res['oversize_ms']:.4f} ms with "
+        f"the oversize ROI), plain {res['plain_ms']:.1f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}, {res['bytes']} B)"
         + (f"; backward {res['bwd_max_ulps']} bf16 ulp, kernel "
-           f"{res['bwd_ms']:.4f} ms, plain {res['bwd_plain_ms']:.1f} ms, "
-           f"bound {res['bwd_bound_ms']:.4f} ms" if "bwd_ms" in res else ""))
-    check(res["forward_equal"] and res["argmax_equal"],
-          f"ROI pool forward or argmax differs at {name}")
-    check(res.get("bwd_max_ulps", 0) <= 1,
-          f"ROI pool backward beyond 1 bf16 ulp at {name}")
+           f"{res['bwd_ms']:.4f} ms ({res['bwd_gb_per_s']:.0f} GB/s; "
+           f"{res['bwd_oversize_ms']:.4f} ms with the oversize ROI), plain "
+           f"{res['bwd_plain_ms']:.1f} ms, bound "
+           f"{res['bwd_bound_ms']:.4f} ms" if "bwd_ms" in res else "")
+        + f"; plan {plan['channels']} channels x {plan['slabs']} slabs, "
+          f"forward {res['kernel']} kernel, {plan['forward']['route']} "
+          f"({plan['forward']['smem']} B), backward "
+          f"{plan['backward']['route']} ({plan['backward']['bands']} x "
+          f"{plan['backward']['band_rows']} rows, "
+          f"{plan['backward']['smem']} B), {plan['code']} codes")
+    check(pool_checks_pass(res), f"ROI pool kernels differ from the plain "
+          f"versions at {name}")
     record[f"roi_pool_{name}"] = res
-    key = roi_pool_cuda.shape_key(e, r, POOLED, h, w, c, torch.bfloat16,
-                                  train)
-    return pool_entries(name, res, key, regs)
+    keys = pool_keys(e, r, h, w, c, train, dev)
+    return pool_entries(name, res, keys, regs, train)
 
 
 def check_roi_pool(dev):
@@ -2237,24 +2294,55 @@ def check_roi_pool(dev):
     gathered from 2 images, forward with its argmax and backward; 16 x
     300 ROIs on 16 distinct maps of each width, the forward without an
     argmax), with the edge ROIs (off the map, 1 x 1, empty bins, corners
-    on .5 after scaling, windows of ties): the forward and the argmax bit
-    for bit, the backward within 1 bf16 ulp; then each kernel's device
-    time beside its bound. A stride-0 map is checked as well (no entry:
-    no path of this run pools one)."""
+    on .5 after scaling, windows of ties) and the oversize ROI (bins the
+    backward rescans): the forward and the decoded argmax bit for bit,
+    the backward within 1 bf16 ulp; then each kernel's device time beside
+    its bound. A stride-0 map and an f32 map are checked as well, and the
+    large-map routes (`LARGE_SHAPE`: the forward's global scan, the
+    backward in bands, two-byte codes), checked and timed (no entries: no
+    path of this run pools such maps)."""
     regs = pool_registers()
+    log(f"[roi-pool] registers, stack, spill stores, spill loads: {regs}")
     kernels = []
     for shape in POOL_SHAPES:
         kernels += check_pool_shape_logged(*shape, dev, regs, reps=20,
                                            seed=40)
-        check(record[f"roi_pool_{shape[0]}"]["empty_bins"] > 0,
-              f"no empty bin at {shape[0]}")
-    res = compare_pool_shape(16, 300, 40, 64, 512, "broadcast", dev,
-                             train=False, seed=40)[0]
-    log(f"[roi-pool] stride-0 map, 16 x 300 ROIs at C = 512: forward equal "
-        f"{res['forward_equal']}, argmax equal {res['argmax_equal']}")
-    check(res["forward_equal"] and res["argmax_equal"],
-          "ROI pool forward or argmax differs on a stride-0 map")
-    record["roi_pool_stride0"] = res
+        check(record[f"roi_pool_{shape[0]}"]["empty_bins"] > 0
+              and record[f"roi_pool_{shape[0]}"]["rescanned_bins"] > 0
+              and record[f"roi_pool_{shape[0]}"]["kernel"] == "slab",
+              f"no empty or rescanned bin, or not the slab kernel, at "
+              f"{shape[0]}")
+    for label, r, maps, dtype in (
+            ("stride-0", 300, "broadcast", torch.bfloat16),
+            ("f32", 256, "gathered", torch.float32)):
+        res = compare_pool_shape(16, r, 40, 64, 512, maps, dev, train=True,
+                                 seed=40, dtype=dtype)[0]
+        log(f"[roi-pool] {label} map, 16 x {r} ROIs at C = 512: forward "
+            f"equal {res['forward_equal']}, decoded argmax equal "
+            f"{res['argmax_equal']}, backward "
+            f"{res.get('bwd_max_ulps', res.get('bwd_rel_err'))}")
+        check(pool_checks_pass(res), f"ROI pool kernels differ on a "
+              f"{label} map")
+        record[f"roi_pool_{label}"] = res
+    res = check_pool_shape(*LARGE_POOL_SHAPE, dev, reps=10, seed=40)
+    log(f"[roi-pool] {LARGE_POOL_SHAPE[0]} ({res['plan']['forward']['route']}"
+        f" forward, {res['plan']['backward']['route']} backward, "
+        f"{res['plan']['code']} codes): forward equal "
+        f"{res['forward_equal']}, decoded argmax equal "
+        f"{res['argmax_equal']}, backward {res['bwd_max_ulps']} bf16 ulp; "
+        f"forward {res['ms']:.4f} ms, backward {res['bwd_ms']:.4f} ms")
+    check(pool_checks_pass(res) and res["plan"]["forward"]["route"] == "scan"
+          and res["plan"]["backward"]["route"] == "bands",
+          "the ROI pool kernels' large-map routes")
+    record["roi_pool_large"] = res
+    for shape in POOL_SHAPES:
+        name, e, r, h, w, c, maps, train = shape
+        if c != 512:
+            continue
+        clocks = pool_phase_clocks(e, r, h, w, c, maps, train, dev, seed=40)
+        log(f"[roi-pool] {name} phase clocks (cycles a CTA; span and CTA "
+            f"us): {json.dumps(clocks)}")
+        record[f"roi_pool_{name}"]["phase_clocks"] = clocks
     return kernels, regs
 
 
@@ -2263,15 +2351,21 @@ def pool_launches(runs, kernels, dev, regs):
     of the runs at exactly its shape; every other shape at which a run
     launched the kernel (the requests of 4 and 8 expressions, the mask
     crops, the demo's one expression) checked and timed on 16 distinct
-    maps' layout, one entry each. Returns the new entries."""
+    maps' layout, one entry each. Every launch on the 40 x 64 map ran a
+    shared-memory kernel. Returns the new entries."""
     launched = {"fwd": collections.Counter(),
                 "bwd": collections.Counter()}
     for run in runs.values():
         launched["fwd"].update(run.get("roi_pool_shapes", {}))
         launched["bwd"].update(run.get("roi_pool_bwd_shapes", {}))
     log(f"[roi-pool] main-path launches by (E, R, P, H, W, C, dtype, "
-        f"argmax): forward {dict(launched['fwd'])}, backward "
+        f"argmax, kernel): forward {dict(launched['fwd'])}, backward "
         f"{dict(launched['bwd'])}")
+    check(all(k[-1] in ("slab", "few_rois") for k in launched["fwd"]
+              if k[3:5] == (40, 64))
+          and all(k[-1] == "smem" for k in launched["bwd"]
+                  if k[3:5] == (40, 64)),
+          "a launch on the 40 x 64 map left the shared-memory kernels")
     for kr in kernels:
         kr["launches"] = launched[kr["pool_key"][0]].pop(kr["pool_key"][1],
                                                          0)
@@ -2279,7 +2373,7 @@ def pool_launches(runs, kernels, dev, regs):
               f"main path")
     new = []
     for key in sorted(launched["fwd"]):
-        e, r, p, h, w, c, dtype, train = key
+        e, r, p, h, w, c, dtype, train, _ = key
         check(p == POOLED and dtype == "bfloat16",
               f"a ROI pool launch at {key}")
         name = (f"{'train' if train else 'serve'}_{e}x{r}_{h}x{w}x{c}")
@@ -2518,7 +2612,7 @@ def main():
     kernels += pool_kernels
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "tile_plan", "cluster_size", "registers")
+            "tile_plan", "cluster_size", "kernel", "registers")
     kernels = [{k: kr[k] for k in keys if k in kr} for kr in kernels]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start

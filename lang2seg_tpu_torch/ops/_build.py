@@ -36,7 +36,8 @@ SOURCE_FLAGS = {"nms": ["-fmad=false"], "fused_filter": [],
 # measuring tools load them
 VARIANTS = {"nms_clocks": ("nms", ["-DNMS_PHASE_CLOCKS"]),
             "fused_filter_clocks": ("fused_filter",
-                                    ["-DFUSED_FILTER_PHASE_CLOCKS"])}
+                                    ["-DFUSED_FILTER_PHASE_CLOCKS"]),
+            "roi_pool_clocks": ("roi_pool", ["-DROI_POOL_PHASE_CLOCKS"])}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

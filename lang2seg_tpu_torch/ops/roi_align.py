@@ -196,19 +196,20 @@ def roi_max_pool_bwd_plain(feat: torch.Tensor, rois: torch.Tensor,
 
 class RoIMaxPool(torch.autograd.Function):
     """`roi_max_pool` as an autograd node. On the card the forward kernel
-    saves each output's argmax and the backward kernel scatters to it;
-    on the CPU the backward recomputes the argmax from (feat, rois), as
-    the JAX package's custom VJP does. No gradient reaches the ROIs."""
+    saves each output's argmax as a bin-local code and the backward kernel
+    adds to it (the map saved beside it, read only for a bin too large for
+    its code); on the CPU the backward recomputes the argmax from (feat,
+    rois), as the JAX package's custom VJP does. No gradient reaches the
+    ROIs."""
 
     @staticmethod
     def forward(ctx, feat, rois, pooled, spatial_scale):
         ctx.args = (pooled, spatial_scale)
-        ctx.feat_meta = (tuple(feat.shape), feat.dtype)
         if feat.device.type == "cuda":
             from . import roi_pool_cuda
-            out, argmax = roi_pool_cuda.roi_pool_forward(
+            out, codes = roi_pool_cuda.roi_pool_forward(
                 feat, rois, pooled, spatial_scale)
-            ctx.save_for_backward(argmax)
+            ctx.save_for_backward(feat, rois, codes)
             return out
         ctx.save_for_backward(feat, rois)
         return roi_max_pool_plain(feat, rois, pooled, spatial_scale)
@@ -218,10 +219,10 @@ class RoIMaxPool(torch.autograd.Function):
         pooled, spatial_scale = ctx.args
         if grad.device.type == "cuda":
             from . import roi_pool_cuda
-            argmax, = ctx.saved_tensors
-            shape, dtype = ctx.feat_meta
+            feat, rois, codes = ctx.saved_tensors
             return (roi_pool_cuda.roi_pool_backward(
-                grad.contiguous(), argmax, shape, dtype), None, None, None)
+                grad.contiguous(), codes, feat, rois, pooled, spatial_scale),
+                None, None, None)
         feat, rois = ctx.saved_tensors
         return (roi_max_pool_bwd_plain(feat, rois, grad, pooled,
                                        spatial_scale), None, None, None)

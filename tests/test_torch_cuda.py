@@ -673,28 +673,144 @@ def test_score_caption_split_on_card(dev):
     assert all(np.isfinite(v) for v in scores.values())
 
 
+def _check_roi_pool(feat, rois, grad):
+    """The ROI pool kernels on (feat, rois) against the plain versions:
+    the forward with and without the argmax and the decoded argmax bit for
+    bit; the backward (f32 shared-memory atomics in no fixed order) within
+    1 bf16 ulp, and in f32 within 1e-6 of max|d_feat|. Returns the codes
+    and the plain argmax."""
+    out, codes = roi_pool_cuda.roi_pool_forward(feat, rois, 7, 1 / 16)
+    bare, _ = roi_pool_cuda.roi_pool_forward(feat, rois, 7, 1 / 16,
+                                             with_argmax=False)
+    want = roi_max_pool_plain(feat, rois, 7, 1 / 16)
+    assert torch.equal(out, want) and torch.equal(bare, want)
+    want_arg = roi_max_pool_argmax_plain(feat, rois, 7, 1 / 16)
+    assert torch.equal(roi_pool_cuda.decode_argmax(codes, rois, 7, 1 / 16,
+                                                   feat), want_arg)
+    d = roi_pool_cuda.roi_pool_backward(grad.to(feat.dtype), codes, feat,
+                                        rois, 7, 1 / 16)
+    d_want = roi_max_pool_bwd_plain(feat, rois, grad.to(feat.dtype), 7,
+                                    1 / 16)
+    if feat.dtype == torch.bfloat16:
+        assert int(bf16_ulp_distance(d, d_want).max()) <= 1
+    else:
+        assert float((d - d_want).abs().max()) <= 1e-6 * max(
+            float(d_want.abs().max()), 1e-30)
+    return codes, want_arg
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("maps", ["gathered", "broadcast"])
 def test_roi_pool_kernel_matches_plain(dev, dtype, maps):
     """The ROI max-pool kernels against the plain versions on a small map
-    with `profile_roi_pool.edge_rois` and windows of ties (chip_smoke
-    phase 23 at the main path's shapes): the forward and the argmax bit
-    for bit; the backward (f32 atomics in no fixed order) within 1 bf16
-    ulp, and in f32 within 1e-6 of max|d_feat|."""
+    with `profile_roi_pool.edge_rois`, the oversize ROI (bins rescanned by
+    the backward) and windows of ties (chip_smoke phase 23 at the main
+    path's shapes): the forward and the decoded argmax bit for bit; the
+    backward within 1 bf16 ulp, in f32 within 1e-6 of max|d_feat|."""
     feat, rois, grad = roi_pool_inputs(3, 40, 20, 30, 64, maps, dev, dtype)
-    out, argmax = roi_pool_cuda.roi_pool_forward(feat, rois, 7, 1 / 16)
-    assert torch.equal(out, roi_max_pool_plain(feat, rois, 7, 1 / 16))
-    assert torch.equal(argmax.long(),
-                       roi_max_pool_argmax_plain(feat, rois, 7, 1 / 16))
-    assert bool((argmax < 0).any()) and bool((argmax >= 0).any())
-    d = roi_pool_cuda.roi_pool_backward(grad.to(dtype), argmax,
-                                        tuple(feat.shape), dtype)
-    want = roi_max_pool_bwd_plain(feat, rois, grad.to(dtype), 7, 1 / 16)
-    if dtype == torch.bfloat16:
-        assert int(bf16_ulp_distance(d, want).max()) <= 1
-    else:
-        assert float((d - want).abs().max()) <= 1e-6 * float(
-            want.abs().max())
+    codes, want_arg = _check_roi_pool(feat, rois, grad)
+    assert codes.dtype == torch.uint8
+    assert bool((want_arg < 0).any()) and bool((want_arg >= 0).any())
+    assert bool((codes == 255).any())
+
+
+@pytest.mark.parametrize("maps", ["gathered", "broadcast", "distinct"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [48, 96, 50])
+def test_roi_pool_kernels_partial_slabs(dev, c, dtype, maps):
+    """C not a multiple of a slab (48 and 96 channels against 16 or 8 a
+    slab; 50 not a multiple of the 16-byte chunk, so every copy is a
+    channel pair), on each kind of map, on the 40 x 64 map (swizzled
+    slabs): the kernels against the plain versions."""
+    feat, rois, grad = roi_pool_inputs(3, 24, 40, 64, c, maps, dev, dtype,
+                                       seed=c)
+    _check_roi_pool(feat, rois, grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_roi_pool_kernels_mask_crops(dev, dtype):
+    """E x 1 and E x 2 ROIs (the mask head's crops: a CTA's band holds a
+    ROI's rows only) on 16 distinct 40 x 64 maps: on an H100 the few-ROI
+    kernel at C = 64 in bf16 (64 CTAs) and at C = 512 (512 and 1024), the
+    slab kernel at C = 64 in f32 (128)."""
+    for r in (1, 2):
+        for c in (64, 512):
+            feat, rois, grad = roi_pool_inputs(16, r, 40, 64, c, "distinct",
+                                               dev, dtype, seed=r)
+            _check_roi_pool(feat, rois, grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_roi_pool_few_roi_kernel_across_bands(dev, dtype):
+    """The few-ROI forward on ROIs whose rectangle is the whole 40 x 64
+    map (two bands of 24 rows): the oversize ROI (its large bins stored as
+    255 and rescanned by the backward), the whole map and a 1 x 1 ROI, on
+    gathered maps with windows of ties."""
+    from lang2seg_tpu_torch.tools.profile_roi_pool import (edge_rois,
+                                                           oversize_roi)
+    feat, _, grad = roi_pool_inputs(2, 3, 40, 64, 48, "gathered", dev, dtype)
+    edge = edge_rois(40, 64)
+    rois = torch.stack([oversize_roi(40, 64), edge[7], edge[2]]).to(dev)
+    rois = rois.expand(2, 3, 4)
+    plan = roi_pool_cuda.slab_plan(40, 64, 48, dtype)
+    assert roi_pool_cuda.forward_kernel(plan, 2, 3, 64, 7, 132)[0] == \
+        "few_rois"
+    codes, _ = _check_roi_pool(feat, rois, grad)
+    assert bool((codes == 255).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_roi_pool_kernels_all_empty(dev, dtype):
+    """ROIs all off the map: every output 0, every argmax -1, the map's
+    gradient all 0 (written in full, from an uninitialised buffer)."""
+    feat, _, grad = roi_pool_inputs(2, 8, 40, 64, 32, "gathered", dev, dtype)
+    rois = torch.tensor([-300.0, -200.0, -40.0, -24.0], device=dev).expand(
+        2, 8, 4)
+    codes, want_arg = _check_roi_pool(feat, rois, grad)
+    assert bool((want_arg == -1).all())
+    d = roi_pool_cuda.roi_pool_backward(grad.to(dtype), codes, feat, rois, 7,
+                                        1 / 16)
+    assert not bool(d.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,routes", [
+    (120, 128, ("scan", "scan", "bands")),   # past the single-CTA slab
+    (7, 1000, ("smem", "slab", "bands")),    # two-byte codes in shared memory
+])
+def test_roi_pool_kernels_large_maps(dev, dtype, h, w, routes):
+    """Maps past the 40 x 64 plan: 120 x 128 takes the forward's global
+    scan and the backward in bands of rows, 7 x 1000 the shared-memory
+    forward (the slab kernel) with two-byte codes and the backward in
+    bands; each launch counted under the kernel it ran."""
+    plan = roi_pool_cuda.slab_plan(h, w, 48, dtype)
+    assert plan["forward"]["route"] == routes[0]
+    assert plan["code_dtype"] == torch.uint16
+    assert plan["backward"]["route"] == routes[2]
+    feat, rois, grad = roi_pool_inputs(2, 64, h, w, 48, "gathered", dev,
+                                       dtype, seed=h)
+    roi_pool_cuda.shapes.clear()
+    roi_pool_cuda.bwd_shapes.clear()
+    _check_roi_pool(feat, rois, grad)
+    assert dict(roi_pool_cuda.shapes) == {roi_pool_cuda.shape_key(
+        2, 64, 7, h, w, 48, dtype, True, routes[1]): 1,
+        roi_pool_cuda.shape_key(2, 64, 7, h, w, 48, dtype, False,
+                                routes[1]): 1}
+    assert dict(roi_pool_cuda.bwd_shapes) == {roi_pool_cuda.shape_key(
+        2, 64, 7, h, w, 48, dtype, True, routes[2]): 1}
+
+
+def test_roi_pool_codes_match_their_plain_version(dev):
+    """The codes the forward kernel writes, on the channels a map has,
+    are `encode_argmax` of the plain argmax byte for byte (empty bins 0,
+    the oversize ROI's large bins 255)."""
+    feat, rois, _ = roi_pool_inputs(3, 40, 40, 64, 48, "gathered", dev)
+    _, codes = roi_pool_cuda.roi_pool_forward(feat, rois, 7, 1 / 16)
+    plan = roi_pool_cuda.slab_plan(40, 64, 48, feat.dtype)
+    want = roi_pool_cuda.encode_argmax(
+        roi_max_pool_argmax_plain(feat, rois, 7, 1 / 16), rois, 7, 1 / 16,
+        40, 64, plan)
+    assert torch.equal(codes, want)
 
 
 def test_roi_max_pool_autograd_launches_both_kernels(dev):
@@ -723,7 +839,7 @@ def test_roi_max_pool_serving_writes_no_argmax(dev, maps):
     with torch.no_grad():
         out = roi_max_pool(feat, rois, 7, 1 / 16)
     assert dict(roi_pool_cuda.shapes) == {roi_pool_cuda.shape_key(
-        3, 40, 7, 20, 30, 64, feat.dtype, False): 1}
+        3, 40, 7, 20, 30, 64, feat.dtype, False, "slab"): 1}
     assert out.grad_fn is None
     assert torch.equal(out, roi_max_pool_plain(feat, rois, 7, 1 / 16))
 
