@@ -212,13 +212,40 @@ Phases, each fatal on failure (nothing is caught):
      the response map's (signature, IHDR, CRCs, rows inflating to the
      image), ms of `main` and of a warm request (`cli.demo.annotate`);
      then one full-width Trainer validation with `debug_save_dir` (the
-     response map and 5 channel PNGs).
+     response map and 5 channel PNGs);
+  27. the evaluator's throughput modes at full width (the `response`
+     model, random weights from a seed): (a) `tools/profile_eval.py`'s
+     mix (24 images of 3 to 13 valid sentences in the buckets 4 / 8 / 16,
+     the mask bank, uint8 canvases) through `Evaluator.eval_split` at 1
+     and 4 images a dispatch, the extent crop on and off, staged uploads
+     on and off: every mode scores the det_correct and seg_correct of one
+     image a dispatch with the crop off, and each valid sentence as it
+     does (the same selected box within 0.01 pixels, I / U within 4
+     pixels), the crop on the crop off's state and sentences bit for
+     bit, each dispatch launches NMS and the gate once (the counts set
+     to 0 before a pass and read after) with no host sync under the sync
+     debug mode; then one chunk of 4 bucket-32 images (128 expressions)
+     the same way; (b) every shape at which these passes launched NMS or
+     the gate and that no earlier phase reports (NMS at 4, 64 and 128
+     lanes; the gate through the stride-0 map at E = 4, and on 4 maps
+     read by 4, 8, 16 or 32 expressions each and on 2 maps read by 4,
+     `exprs_per_map`): NMS bit for bit against its plain version at
+     (E, 6000) -> 300 on an RPN draw, the gate to phase 4's tolerances,
+     each timed beside its bound with its cluster size or tile plan; the
+     passes must have launched NMS at 32, 64 and 128 lanes and the gate
+     on 4 maps read by 8, 16 and 32; (c) printed: valid expressions/s
+     and images/s, host -> device bytes, each dispatch's device span and
+     the peak memory of each mode (from its checked pass), the device's
+     idle share of a pass (torch.profiler) at 1 and 4 images a dispatch
+     with the crop on and staged uploads, the bucket-32 chunk's peak.
 Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
 shape, its launches from the runs of that shape's path: serving in phases
 5, 14 and 24 and the bucket-16 images of phases 12, 16 and 20, training in
 phases 7, 9, 12, 14, 17g, 19, 21b and 24, the eval buckets 8 and 32 in
 phases 12, 16 and 20, the pretraining shape (2, 12000) -> 2000 in phase
-17's steps; the gate's backward's from training; the C = 512 gate's from
+17's steps, phase 27's dispatches at each entry's shape (every shape
+they launched a kernel at has an entry; NMS at 4, 64 and 128 lanes and
+the gate at E = 4 and on 4 or 2 maps only there); the gate's backward's from training; the C = 512 gate's from
 phases 14 and 24; the ROI pool entries, one for each shape at which
 phases 24-26 launched the forward or the backward, with the launches at
 exactly that shape)
@@ -277,7 +304,8 @@ from lang2seg_tpu_torch.models.network import build_model  # noqa: E402
 from lang2seg_tpu_torch.ops import (  # noqa: E402
     _build, fused_filter, nms_cuda, proposals, roi_pool_cuda)
 from lang2seg_tpu_torch.ops.fused_filter import (  # noqa: E402
-    fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain)
+    fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain,
+    per_expression)
 from lang2seg_tpu_torch.ops.nms import nms_padded  # noqa: E402
 from lang2seg_tpu_torch.tools.profile_gate import (  # noqa: E402
     SHAPES as GATE_SHAPES, bf16_ulp_distance, bf16_ulps_floored, gate_bound,
@@ -290,6 +318,7 @@ from lang2seg_tpu_torch.tools.profile_roi_pool import (  # noqa: E402
     check_shape as check_pool_shape, checks_pass as pool_checks_pass,
     compare_shape as compare_pool_shape, phase_clocks as pool_phase_clocks)
 from lang2seg_tpu_torch.tools import learn_synthetic  # noqa: E402
+from lang2seg_tpu_torch.tools import profile_eval  # noqa: E402
 from lang2seg_tpu_torch.tools.tiny_step import (  # noqa: E402
     card_vs_cpu, launch_counts, pool_launch_counts)
 from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator  # noqa: E402
@@ -311,7 +340,9 @@ LAUNCHED_BY = {"serve": lambda counter: (("serve", counter),
                                          ("eval_file_16", counter),
                                          ("host_modes_16", counter),
                                          ("comprehension_16", counter),
-                                         ("serve_resnet_pool", counter)),
+                                         ("serve_resnet_pool", counter),
+                                         ("eval_modes", EVAL_MODE_KEY_16[
+                                             counter])),
                "train": lambda counter: (("train", counter),
                                          ("train_cycle", counter),
                                          ("train_file", counter),
@@ -319,6 +350,9 @@ LAUNCHED_BY = {"serve": lambda counter: (("serve", counter),
                                          ("train_att", counter),
                                          ("train_topdown", counter),
                                          ("train_resnet_pool", counter))}
+# phase 27's launches at the serving shape: one image of 16 sentences a
+# dispatch (NMS at 16 lanes, the gate through the stride-0 map)
+EVAL_MODE_KEY_16 = {"nms": "nms_16", "fused_filter": "fused_filter_1x16"}
 # NMS runs at the same shapes in the `vgg` preset (phase 14) and on
 # MobileNetV1 (phase 24): their requests and steps count towards the NMS
 # entries, their C = 512 gate to its own
@@ -1092,6 +1126,88 @@ def pretrain_captioner(cfg, model):
 EVAL_NMS_SHAPES = ((8, 6000, 3, 0.7, 300), (32, 6000, 4, 0.7, 300))
 
 
+def check_nms_shape(dev, e, n, seed, thr, max_out, launched_by, tag,
+                    key=None):
+    """NMS bit for bit against its plain version at (e, n) -> max_out on
+    an RPN draw, timed beside its bound with the cluster size launched;
+    returns its `kernels` entry (recorded under `key`, default its
+    name)."""
+    boxes = rpn_draw(e, n, seed, dev)
+    valid = torch.ones((e, n), dtype=torch.bool, device=dev)
+    ki, km = nms_cuda.nms_batched(boxes, valid, thr, max_out)
+    pi, pm = nms_padded(boxes, valid, thr, max_out)
+    torch.cuda.synchronize()
+    same = torch.equal(ki, pi) and torch.equal(km, pm)
+    err = max(float((ki - pi).abs().max()), float((km != pm).sum()))
+    kept, _ = lane_stats(ki, km, n, max_out)
+    check(same, f"NMS kernel differs from its plain version at ({e}, {n})")
+    call = (lambda: nms_cuda.nms_batched(boxes, valid, thr, max_out))
+    ms = device_ms(call, 50)
+    plain_ms = time_ms(lambda: nms_padded(boxes, valid, thr, max_out), 2)
+    bound, by, byts, ops = nms_bound(ki, km, n, max_out)
+    csize = nms_cuda.cluster_size(dev, e, n, max_out)
+    res = {"name": f"nms_{e}x{n}_{max_out}", "route": "cuda",
+           "source": "lang2seg_tpu_torch/csrc/nms.cu",
+           "replaces": "lang2seg_tpu/ops/nms_pallas.py:196",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "cluster_size": csize, "launched_by": launched_by}
+    log(f"[{tag}] nms ({e}, {n})->{max_out}: bit-identical={same} "
+        f"kept/lane={kept}; kernel {ms:.4f} ms device time ({csize} CTAs a "
+        f"lane), plain {plain_ms:.2f} ms, bound {bound * 1e3:.3f} us ({by}: "
+        f"{byts} B, {ops} ops)")
+    record[key or res["name"]] = dict(res, bytes=byts, ops=ops)
+    return res
+
+
+def check_gate_shape(dev, regs, conv, filt, rfilt, per_map, maps, name,
+                     launched_by, tag):
+    """The gate (K=7 sigmoid normalized) on `conv`, expression e reading
+    map e // per_map, against its plain version to phase 4's tolerances,
+    timed beside its bound (`maps` maps read); returns its `kernels`
+    entry."""
+    e, c = filt.shape[:2]
+    h, w = conv.shape[1:3]
+    args = (conv, filt, rfilt, 7, "sigmoid", True, per_map)
+    gk, rk = fused_filter.fused_dynamic_filter(*args)
+    plan = fused_filter.plans["forward"]
+    gp, rp = fused_dynamic_filter_plain(*args)
+    torch.cuda.synchronize()
+    resp_err = float((rk - rp).abs().max())
+    resp_tol = 1e-5 * float(rp.abs().max())
+    ulps = int(bf16_ulp_distance(gk.float(), gp.float()).max())
+    same_g = (per_expression(conv, per_map).float()
+              * torch.sigmoid(rk)).to(torch.bfloat16)
+    ulps_given_resp = int(bf16_ulp_distance(gk.float(),
+                                            same_g.float()).max())
+    check(resp_err <= resp_tol, f"gate response out of tolerance at {name}")
+    check(ulps <= 1 and ulps_given_resp <= 1,
+          f"gate gated map beyond 1 bf16 ulp at {name}")
+    check(plan["grid"][1] == e, "gate forward plan of another shape")
+    ms = device_ms(lambda: fused_filter.fused_dynamic_filter(*args), 50)
+    plain_ms = time_ms(lambda: fused_dynamic_filter_plain(*args), 5)
+    bound, by, byts, ops = gate_bound(e, h, w, c, 7, 2, maps)
+    res = {"name": name, "route": "cuda",
+           "source": "lang2seg_tpu_torch/csrc/fused_filter.cu",
+           "replaces": "lang2seg_tpu/ops/pallas_kernels.py:85",
+           "max_abs_err": float((gk.float() - gp.float()).abs().max()),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by, "library_ms": None,
+           "tile_plan": {"grid": plan["grid"],
+                         "tile_pixels": plan["tile_pixels"],
+                         "tiles_per_block": plan["tiles_per_block"]},
+           "registers": regs["forward"]["registers"],
+           "launched_by": launched_by}
+    log(f"[{tag}] gate ({e}, {h}, {w}, {c}) bf16 K=7, {maps} map(s) read "
+        f"by {per_map if maps > 1 else e} expressions each: resp err "
+        f"{resp_err:.3e} (tol {resp_tol:.3e}), gated {ulps} bf16 ulp "
+        f"({ulps_given_resp} given its response); kernel {ms:.4f} ms device "
+        f"time, plain {plain_ms:.3f} ms, bound {bound * 1e3:.2f} us ({by}); "
+        f"plan {res['tile_plan']}")
+    record[name] = dict(res, bytes=byts, ops=ops, resp_max_abs_err=resp_err)
+    return res
+
+
 def check_eval_kernels(dev, regs):
     """NMS bit for bit against its plain version at (8, 6000) -> 300 and
     (32, 6000) -> 300 (RPN draws), the gate at E = 8 and 32 through a
@@ -1099,80 +1215,20 @@ def check_eval_kernels(dev, regs):
     each timed beside its bound."""
     results = []
     for e, n, seed, thr, max_out in EVAL_NMS_SHAPES:
-        boxes = rpn_draw(e, n, seed, dev)
-        valid = torch.ones((e, n), dtype=torch.bool, device=dev)
-        ki, km = nms_cuda.nms_batched(boxes, valid, thr, max_out)
-        pi, pm = nms_padded(boxes, valid, thr, max_out)
-        torch.cuda.synchronize()
-        same = torch.equal(ki, pi) and torch.equal(km, pm)
-        err = max(float((ki - pi).abs().max()), float((km != pm).sum()))
-        kept, _ = lane_stats(ki, km, n, max_out)
-        check(same, f"NMS kernel differs from its plain version at "
-              f"({e}, {n})")
-        call = (lambda b=boxes, v=valid: nms_cuda.nms_batched(b, v, thr,
-                                                              max_out))
-        ms = device_ms(call, 50)
-        plain_ms = time_ms(lambda: nms_padded(boxes, valid, thr, max_out), 2)
-        bound, by, byts, ops = nms_bound(ki, km, n, max_out)
-        csize = nms_cuda.cluster_size(dev, e, n, max_out)
-        res = {"name": f"nms_{e}x{n}_{max_out}", "route": "cuda",
-               "source": "lang2seg_tpu_torch/csrc/nms.cu",
-               "replaces": "lang2seg_tpu/ops/nms_pallas.py:196",
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound, "bound_by": by, "library_ms": None,
-               "cluster_size": csize,
-               "launched_by": ((f"eval_file_{e}", "nms"),
-                               (f"host_modes_{e}", "nms"),
-                               (f"comprehension_{e}", "nms"))}
-        log(f"[eval-kernels] nms ({e}, {n})->{max_out}: bit-identical={same}"
-            f" kept/lane={kept}; kernel {ms:.4f} ms device time ({csize} "
-            f"CTAs a lane), plain {plain_ms:.2f} ms, bound "
-            f"{bound * 1e3:.3f} us ({by}: {byts} B, {ops} ops)")
-        record[res["name"]] = dict(res, bytes=byts, ops=ops)
-        results.append(res)
+        results.append(check_nms_shape(
+            dev, e, n, seed, thr, max_out,
+            ((f"eval_file_{e}", "nms"), (f"host_modes_{e}", "nms"),
+             (f"comprehension_{e}", "nms"), ("eval_modes", f"nms_{e}")),
+            "eval-kernels"))
     for e in (8, 32):
-        args = gate_inputs(e, 40, 64, 1024, 7, "broadcast", dev,
-                           seed=20 + e)[:3] + (7, "sigmoid", True)
-        gk, rk = fused_filter.fused_dynamic_filter(*args)
-        gp, rp = fused_dynamic_filter_plain(*args)
-        torch.cuda.synchronize()
-        resp_err = float((rk - rp).abs().max())
-        resp_tol = 1e-5 * float(rp.abs().max())
-        ulps = int(bf16_ulp_distance(gk.float(), gp.float()).max())
-        same_g = (args[0].float() * torch.sigmoid(rk)).to(torch.bfloat16)
-        ulps_given_resp = int(bf16_ulp_distance(gk.float(),
-                                                same_g.float()).max())
-        check(resp_err <= resp_tol, f"gate response out of tolerance at "
-              f"E={e}")
-        check(ulps <= 1 and ulps_given_resp <= 1,
-              f"gate gated map beyond 1 bf16 ulp at E={e}")
-        call = (lambda a=args: fused_filter.fused_dynamic_filter(*a))
-        ms = device_ms(call, 50)
-        plan = fused_filter.plans["forward"]
-        check(plan["grid"][1] == e, "gate forward plan of another shape")
-        plain_ms = time_ms(lambda a=args: fused_dynamic_filter_plain(*a), 5)
-        bound, by, byts, ops = gate_bound(e, 40, 64, 1024, 7, 2, 1)
-        res = {"name": f"fused_filter_eval{e}", "route": "cuda",
-               "source": "lang2seg_tpu_torch/csrc/fused_filter.cu",
-               "replaces": "lang2seg_tpu/ops/pallas_kernels.py:85",
-               "max_abs_err": float((gk.float() - gp.float()).abs().max()),
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-               "bound_by": by, "library_ms": None,
-               "tile_plan": {"grid": plan["grid"],
-                             "tile_pixels": plan["tile_pixels"],
-                             "tiles_per_block": plan["tiles_per_block"]},
-               "registers": regs["forward"]["registers"],
-               "launched_by": ((f"eval_file_{e}", "fused_filter"),
-                               (f"host_modes_{e}", "fused_filter"),
-                               (f"comprehension_{e}", "fused_filter"))}
-        log(f"[eval-kernels] gate ({e}, 40, 64, 1024) bf16 K=7 stride-0 map:"
-            f" resp err {resp_err:.3e} (tol {resp_tol:.3e}), gated {ulps} "
-            f"bf16 ulp ({ulps_given_resp} given its response); kernel "
-            f"{ms:.4f} ms device time, plain {plain_ms:.3f} ms, bound "
-            f"{bound * 1e3:.2f} us ({by}); plan {res['tile_plan']}")
-        record[res["name"]] = dict(res, bytes=byts, ops=ops,
-                                   resp_max_abs_err=resp_err)
-        results.append(res)
+        conv, filt, rfilt = gate_inputs(e, 40, 64, 1024, 7, "broadcast", dev,
+                                        seed=20 + e)[:3]
+        results.append(check_gate_shape(
+            dev, regs, conv, filt, rfilt, 1, 1, f"fused_filter_eval{e}",
+            ((f"eval_file_{e}", "fused_filter"),
+             (f"host_modes_{e}", "fused_filter"),
+             (f"comprehension_{e}", "fused_filter"),
+             ("eval_modes", f"fused_filter_1x{e}")), "eval-kernels"))
     return results
 
 
@@ -2177,6 +2233,109 @@ def caption_side(cfg, feats):
 
 
 
+# --------------------------------------------------------------- phase 27
+
+# the shapes phase 27's main path must launch (the mix at 4 images a
+# dispatch and the bucket-32 chunk): NMS over 4 x S lanes and the gate on
+# 4 maps read by S expressions each, S = 8, 16 and 32
+EVAL_MODE_SHAPES = ("nms_32", "nms_64", "nms_128", "fused_filter_4x8",
+                    "fused_filter_4x16", "fused_filter_4x32")
+# a chunk of the 32 bucket: 4 images of 20 to 32 valid sentences
+BUCKET32_COUNTS = (20, 25, 29, 32)
+# the modes whose pass phase 27 profiles (images a dispatch, extent crop,
+# staged uploads); tools/profile_eval.py profiles all 8
+EVAL_MODE_PROFILED = ((1, True, True), (4, True, True))
+
+
+def eval_mode_kernels(dev, regs, launched, covered):
+    """Each shape at which phase 27's main path launched NMS ("nms_<E>",
+    E lanes) or the gate ("fused_filter_<N>x<S>": N maps read by S
+    expressions each) and that no earlier `kernels` entry reports
+    (`covered`: the entries' (path, counter) pairs): NMS at (E, 6000) ->
+    300 bit for bit against its plain version on an RPN draw, the gate
+    on N maps (one: the stride-0 map) to phase 4's tolerances; each timed
+    beside its bound. Returns their `kernels` entries."""
+    results = []
+    for key in sorted(launched, key=lambda k: (k[0], len(k), k)):
+        if ("eval_modes", key) in covered:
+            continue
+        kind, shape = key.rsplit("_", 1)
+        if kind == "nms":
+            e = int(shape)
+            results.append(check_nms_shape(
+                dev, e, 6000, 50 + e, 0.7, 300, (("eval_modes", key),),
+                "eval-modes", key=f"eval_modes_{key}"))
+            continue
+        n, g = (int(x) for x in shape.split("x"))
+        e = n * g
+        if n == 1:
+            conv, filt, rfilt = gate_inputs(e, 40, 64, 1024, 7, "broadcast",
+                                            dev, seed=60 + e)[:3]
+        else:
+            gen = torch.Generator().manual_seed(40 + 100 * n + g)
+            conv = (torch.randn((n, 40, 64, 1024), generator=gen)
+                    * 2.0).to(dev, torch.bfloat16)
+            filt = torch.tanh(torch.randn((e, 1024, 7),
+                                          generator=gen)).to(dev)
+            rfilt = torch.tanh(torch.randn((e, 7), generator=gen)).to(dev)
+        results.append(check_gate_shape(
+            dev, regs, conv, filt, rfilt, 1 if n == 1 else g, n,
+            f"fused_filter_eval_{n}x{g}", (("eval_modes", key),),
+            "eval-modes"))
+    return results
+
+
+def eval_modes(dev, regs, covered):
+    """Phase 27: `tools/profile_eval.py`'s mix through
+    `Evaluator.eval_split` in each mode (one image or 4 a dispatch, the
+    extent crop on or off, staged uploads on or off), then one chunk of 4
+    bucket-32 images; each checked pass with the launch counts set to 0
+    before and read after, every dispatch launching NMS and the gate
+    once, under the sync debug mode; then the kernels at each shape the
+    passes launched them at that no earlier entry reports
+    (`eval_mode_kernels`). Returns (kernels entries, launches by
+    shape)."""
+    t0 = time.perf_counter()
+    cfg = profile_eval.eval_config()
+    model = build_model(cfg, device="cuda", seed=0)
+    # the rates come from the checked pass of each mode (passes=0)
+    results = profile_eval.run_modes(model, cfg, profile_eval.eval_mix(cfg),
+                                     passes=0, profiled=EVAL_MODE_PROFILED)
+    t_modes = time.perf_counter() - t0
+    big = [profile_eval.eval_batch(cfg, 100 + i, n, buckets=(32,))
+           for i, n in enumerate(BUCKET32_COUNTS)]
+    ev = Evaluator(model, cfg)
+    ev.eval_split(big, images_per_dispatch=4)                 # warm-up
+    b32 = profile_eval.checked_pass(ev, big, 4, True)
+    check([d[:4] for d in b32["dispatches"]] == [(4, 32, 1, 1)]
+          and tuple(b32["launches"]) == (1, 1) and not b32["host_syncs"],
+          f"the bucket-32 chunk: {b32['dispatches']} {b32['launches']} "
+          f"{b32['host_syncs'][:2]}")
+    check(b32["state"][0] == sum(BUCKET32_COUNTS))
+    log(f"[eval-modes] a chunk of 4 bucket-32 images (128 expressions): "
+        f"{b32['dispatches'][0][4]:.2f} ms device span, peak "
+        f"{b32['peak_gib']:.2f} GiB, h2d {b32['h2d_bytes'] / 2 ** 20:.1f} "
+        f"MiB; {b32['summary']}")
+    launched = collections.Counter()
+    for r in list(results.values()) + [b32]:
+        for n, s_, nms, gate, _ in r["dispatches"]:
+            launched[f"nms_{n * s_}"] += nms
+            launched[f"fused_filter_{n}x{s_}"] += gate
+    check(set(EVAL_MODE_SHAPES) <= set(launched),
+          f"phase 27 launched the kernels at {sorted(launched)}")
+    del model, ev
+    t1 = time.perf_counter()
+    kernels = eval_mode_kernels(dev, regs, launched, covered)
+    record["eval_modes"] = {"modes": results, "bucket32": b32,
+                            "launches": dict(launched),
+                            "seconds": time.perf_counter() - t0}
+    log(f"[eval-modes] launches by shape {dict(launched)}; "
+        f"{record['eval_modes']['seconds']:.1f} s in all, the modes "
+        f"{t_modes:.1f} s, the kernels' checks "
+        f"{time.perf_counter() - t1:.1f} s")
+    return kernels, dict(launched)
+
+
 # ------------------------------------------------------------ phases 23-26
 
 # the JAX package computes ROI max pooling in plain XLA, no Pallas kernel
@@ -2605,10 +2764,18 @@ def main():
     small_train_reference("mobilenet_pool_reference", "mobilenet_pool",
                           launches=(0, 1, 1, 1, 1))
     runs.update(demo_and_dumps(dev))
+    mode_kernels, runs["eval_modes"] = eval_modes(
+        dev, regs, {pc for kr in kernels for pc in kr["launched_by"]})
+    kernels += mode_kernels
     pool_kernels += pool_launches(runs, pool_kernels, dev, pool_regs)
     for kr in kernels:
         kr["launches"] = sum(runs[path].get(counter, 0)
                              for path, counter in kr["launched_by"])
+    check(all(kr["launches"] > 0 for kr in mode_kernels),
+          "a phase-27 shape was not launched on its main path")
+    reported = {pc for kr in kernels for pc in kr["launched_by"]}
+    check(all(("eval_modes", key) in reported for key in runs["eval_modes"]),
+          "a phase-27 launch shape has no kernels entry")
     kernels += pool_kernels
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -9,8 +9,10 @@ seg Prec@X and overall IoU, and append the line to
 `<output-dir>/det_results.txt` and, with a mask head, `mask_results.txt`
 (tools/eval.py:97-125). `--reference-exact` scores with the reference's
 own metric chain on the host (loader GT masks included), `--host-paste`
-pastes the masks back on the host. `--device cpu` runs the plain
-PyTorch path; the default is the card.
+pastes the masks back on the host. `--images-per-dispatch N` scores N
+images of a sentence bucket in one dispatch; the extent-crop wire follows
+cfg.data.wire_extent_crop (`--set data.wire_extent_crop false` turns it
+off). `--device cpu` runs the plain PyTorch path; the default is the card.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ def build_parser():
                         "instead of max-sents; nothing after the flag "
                         "disables it")
     p.add_argument("--images-per-dispatch", type=int, default=1,
-                   help="only 1 is ported")
+                   help="score N images of one sentence bucket in one "
+                        "dispatch (fewer, larger launches; 1 = per image)")
     p.add_argument("--reference-exact", action="store_true",
                    help="the reference's metric chain on the host: the "
                         "bytescale + bilinear paste-back cut at > 122 and "

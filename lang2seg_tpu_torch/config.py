@@ -210,9 +210,12 @@ class DataConfig:
     # and bit-packed GT masks
     wire_uint8_images: bool = True
     wire_packed_masks: bool = True
-    # eval wire formats: the ref-deduped mask bank (the port's loader and
-    # Evaluator); the extent crop is not ported yet (ROADMAP). The
-    # reference-exact masks resize GT masks as the reference's scipy
+    # eval wire formats: the ref-deduped mask bank (the loader and the
+    # Evaluator) and the extent crop (the Evaluator ships a uint8 canvas
+    # and its masks cut to the scaled extent rounded up to
+    # wire_extent_granularity, a multiple of 8 since bit-packed masks crop
+    # at byte boundaries, and re-creates the full canvas on the device).
+    # The reference-exact masks resize GT masks as the reference's scipy
     # imresize does (Pillow NEAREST)
     wire_mask_bank: bool = True
     wire_extent_crop: bool = True

@@ -18,12 +18,16 @@
 // x 40 x 64 x 1024 bf16, K = 7) it writes 84 MB of gated map and reads the
 // map (5.2 MB through a stride-0 map when serving, 84 MB gathered when
 // training) against 0.63 GFLOP of f32 work, 9.4 us at the card's f32 rate:
-// bounds of 26.8 and 50.3 us. The earlier kernel (one warp a pixel, the
-// expression's filter bank in shared memory, one 256-thread block a map
-// row) reached a third of that: measured by phase (tools/profile_gate.py),
-// its contraction re-read the whole 28 KB bank from shared memory for
-// every pixel (112 8-byte reads a thread; 76% of a pixel step when
-// serving), each 64-pixel block rebuilt the bank before its first pixel
+// bounds of 26.8 and 50.3 us. An eval dispatch of N images x S
+// expressions reads each image's map in place (`exprs_per_map` S:
+// expression e reads map e / S; one integer divide a block), N maps
+// rather than N x S gathered copies. The earlier kernel (one warp a
+// pixel, the expression's filter bank in shared memory, one 256-thread
+// block a map row) reached a third of that: measured by phase
+// (tools/profile_gate.py), its contraction re-read the whole 28 KB bank
+// from shared memory for every pixel (112 8-byte reads a thread; 76% of a
+// pixel step when serving), each 64-pixel block rebuilt the bank before
+// its first pixel
 // (10,500 cycles a block, as long as 1.5 of its 8 pixel steps), and a
 // warp's next pixel was loaded only after its stores.
 //
@@ -270,7 +274,7 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, const T* map,
 template <int K, int G, bool kSigmoid>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fused_filter_kernel(const float* __restrict__ conv,
-                    long long conv_batch_stride,
+                    long long conv_batch_stride, int exprs_per_map,
                     const float* __restrict__ filt,
                     const float* __restrict__ rfilt, int h, int w,
                     int tiles_per_block, float scale,
@@ -293,7 +297,7 @@ fused_filter_kernel(const float* __restrict__ conv,
   const int ntiles = (npix + L::kTilePix - 1) / L::kTilePix;
   const int t0 = min((int)blockIdx.x * tiles_per_block, ntiles);
   const int n = min(t0 + tiles_per_block, ntiles) - t0;
-  const T* ce = conv + (size_t)e * conv_batch_stride;
+  const T* ce = conv + (size_t)(e / exprs_per_map) * conv_batch_stride;
   T* ge = gated + (size_t)e * npix * L::kC;
 
   for (int s = 0; s < L::kStages - 1; ++s) {
@@ -458,7 +462,7 @@ __device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
 template <int K, int C, bool kSigmoid>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fused_filter_mma_kernel(const __nv_bfloat16* __restrict__ conv,
-                        long long conv_batch_stride,
+                        long long conv_batch_stride, int exprs_per_map,
                         const float* __restrict__ filt,
                         const float* __restrict__ rfilt, int h, int w,
                         int tiles_per_block, float scale,
@@ -478,7 +482,8 @@ fused_filter_mma_kernel(const __nv_bfloat16* __restrict__ conv,
   const int ntiles = (npix + L::kPix - 1) / L::kPix;
   const int t0 = min((int)blockIdx.x * tiles_per_block, ntiles);
   const int n = min(t0 + tiles_per_block, ntiles) - t0;
-  const __nv_bfloat16* ce = conv + (size_t)e * conv_batch_stride;
+  const __nv_bfloat16* ce =
+      conv + (size_t)(e / exprs_per_map) * conv_batch_stride;
   __nv_bfloat16* ge = gated + (size_t)e * npix * C;
 
   // thread t copies (and later gates) chunks f = i * kThreads + t of a tile
@@ -890,10 +895,10 @@ cudaError_t set_smem(Kernel kernel, size_t bytes,
 // The forward's launches: grid (blocks, e), each block walking
 // ceil(ntiles / blocks) tiles (the wrapper's tile_plan).
 template <int K, int G>
-cudaError_t launch_gate(const void* conv, long long stride, const float* filt,
-                        const float* rfilt, int e, int h, int w, int sigmoid,
-                        float scale, int blocks, void* gated, float* resp,
-                        cudaStream_t s) {
+cudaError_t launch_gate(const void* conv, long long stride, int per_map,
+                        const float* filt, const float* rfilt, int e, int h,
+                        int w, int sigmoid, float scale, int blocks,
+                        void* gated, float* resp, cudaStream_t s) {
   using T = float;
   using L = FwdTiling<G>;
   const int ntiles = (h * w + L::kTilePix - 1) / L::kTilePix;
@@ -906,20 +911,22 @@ cudaError_t launch_gate(const void* conv, long long stride, const float* filt,
     static std::atomic<unsigned long long> once{0};
     auto kernel = fused_filter_kernel<K, G, true>;
     if ((err = set_smem(kernel, L::kSmemBytes, once)) != cudaSuccess) return err;
-    kernel<<<grid, kThreads, L::kSmemBytes, s>>>(c, stride, filt, rfilt, h,
-                                                   w, tpb, scale, g, resp);
+    kernel<<<grid, kThreads, L::kSmemBytes, s>>>(c, stride, per_map, filt,
+                                                   rfilt, h, w, tpb, scale, g,
+                                                   resp);
   } else {
     static std::atomic<unsigned long long> once{0};
     auto kernel = fused_filter_kernel<K, G, false>;
     if ((err = set_smem(kernel, L::kSmemBytes, once)) != cudaSuccess) return err;
-    kernel<<<grid, kThreads, L::kSmemBytes, s>>>(c, stride, filt, rfilt, h,
-                                                   w, tpb, scale, g, resp);
+    kernel<<<grid, kThreads, L::kSmemBytes, s>>>(c, stride, per_map, filt,
+                                                   rfilt, h, w, tpb, scale, g,
+                                                   resp);
   }
   return cudaGetLastError();
 }
 
 template <int K, int C>
-cudaError_t launch_gate_mma(const void* conv, long long stride,
+cudaError_t launch_gate_mma(const void* conv, long long stride, int per_map,
                             const float* filt, const float* rfilt, int e,
                             int h, int w, int sigmoid, float scale, int blocks,
                             void* gated, float* resp, cudaStream_t s) {
@@ -934,27 +941,30 @@ cudaError_t launch_gate_mma(const void* conv, long long stride,
     static std::atomic<unsigned long long> once{0};
     auto kernel = fused_filter_mma_kernel<K, C, true>;
     if ((err = set_smem(kernel, L::kSmemBytes, once)) != cudaSuccess) return err;
-    kernel<<<grid, kThreads, L::kSmemBytes, s>>>(c, stride, filt, rfilt, h,
-                                                   w, tpb, scale, g, resp);
+    kernel<<<grid, kThreads, L::kSmemBytes, s>>>(c, stride, per_map, filt,
+                                                   rfilt, h, w, tpb, scale, g,
+                                                   resp);
   } else {
     static std::atomic<unsigned long long> once{0};
     auto kernel = fused_filter_mma_kernel<K, C, false>;
     if ((err = set_smem(kernel, L::kSmemBytes, once)) != cudaSuccess) return err;
-    kernel<<<grid, kThreads, L::kSmemBytes, s>>>(c, stride, filt, rfilt, h,
-                                                   w, tpb, scale, g, resp);
+    kernel<<<grid, kThreads, L::kSmemBytes, s>>>(c, stride, per_map, filt,
+                                                   rfilt, h, w, tpb, scale, g,
+                                                   resp);
   }
   return cudaGetLastError();
 }
 
 template <int K>
 cudaError_t dispatch_fwd_mma(int c, const void* conv, long long stride,
-                             const float* filt, const float* rfilt, int e,
-                             int h, int w, int sigmoid, float scale,
+                             int per_map, const float* filt,
+                             const float* rfilt, int e, int h, int w,
+                             int sigmoid, float scale,
                              int blocks, void* gated, float* resp,
                              cudaStream_t s) {
 #define L2S_MMA(CV)                                                          \
-  launch_gate_mma<K, CV>(conv, stride, filt, rfilt, e, h, w, sigmoid, scale, \
-                         blocks, gated, resp, s)
+  launch_gate_mma<K, CV>(conv, stride, per_map, filt, rfilt, e, h, w,       \
+                         sigmoid, scale, blocks, gated, resp, s)
   switch (c) {
     case 256: return L2S_MMA(256);
     case 512: return L2S_MMA(512);
@@ -1022,12 +1032,13 @@ bool supported_c(int c, int is_bf16) {
 
 template <int K>
 cudaError_t dispatch_fwd(int g, const void* conv, long long stride,
-                         const float* filt, const float* rfilt, int e, int h,
-                         int w, int sigmoid, float scale, int blocks,
+                         int per_map, const float* filt, const float* rfilt,
+                         int e, int h, int w, int sigmoid, float scale,
+                         int blocks,
                          void* gated, float* resp, cudaStream_t s) {
 #define L2S_FWD(GV)                                                          \
-  launch_gate<K, GV>(conv, stride, filt, rfilt, e, h, w, sigmoid, scale,    \
-                     blocks, gated, resp, s)
+  launch_gate<K, GV>(conv, stride, per_map, filt, rfilt, e, h, w, sigmoid,  \
+                     scale, blocks, gated, resp, s)
   L2S_DISPATCH_G(g, L2S_FWD)
 #undef L2S_FWD
 }
@@ -1074,52 +1085,54 @@ int tile_pixels(int backward, int c, int is_bf16) {
 
 }  // namespace
 
-// conv: (e, h, w, c) map of `is_bf16 ? bf16 : f32`, each (h, w, c) map
-// contiguous, map i at conv + i * conv_batch_stride elements (0 for a
-// broadcast map), 16-byte aligned; filt (e, c, k) f32 and rfilt (e, k)
-// f32 contiguous; gated (e, h, w, c) of the map's dtype and resp (e, h, w)
-// f32 are written in full. c: bf16 256, 512 or 1024; f32 128, 256, 512 or
-// 1024. k is 1 or 7. blocks: blocks per expression (grid x, `tile_plan`'s
-// blocks_per_expr), block b walking tiles [b * t, (b + 1) * t) of the
-// fused_filter_tiling tiles, t = ceil(tiles / blocks). Returns the first
-// CUDA error of the launch (0 on success).
-extern "C" int fused_filter_launch(const void* conv,
-                                   long long conv_batch_stride,
-                                   const void* filt, const void* rfilt, int e,
-                                   int h, int w, int c, int k, int is_bf16,
-                                   int sigmoid, float scale, int blocks,
-                                   void* gated, void* resp, void* stream) {
+// conv: the maps of `is_bf16 ? bf16 : f32`, each (h, w, c) map
+// contiguous, expression i reading map i / exprs_per_map at conv +
+// (i / exprs_per_map) * conv_batch_stride elements (stride 0 for one
+// broadcast map; exprs_per_map S for N images of S expressions each,
+// image-major), 16-byte aligned; filt (e, c, k) f32 and rfilt (e, k) f32
+// contiguous; gated (e, h, w, c) of the map's dtype and resp (e, h, w)
+// f32 are written in full. c: bf16 256, 512 or 1024; f32 128, 256, 512
+// or 1024. k is 1 or 7. blocks: blocks per expression (grid x,
+// `tile_plan`'s blocks_per_expr), block b walking tiles [b * t, (b + 1) *
+// t) of the fused_filter_tiling tiles, t = ceil(tiles / blocks). Returns
+// the first CUDA error of the launch (0 on success).
+extern "C" int fused_filter_grouped_launch(
+    const void* conv, long long conv_batch_stride, int exprs_per_map,
+    const void* filt, const void* rfilt, int e, int h, int w, int c, int k,
+    int is_bf16, int sigmoid, float scale, int blocks, void* gated,
+    void* resp, void* stream) {
   if (e <= 0 || h <= 0 || w <= 0) return 0;
-  if (blocks <= 0 || !supported_c(c, is_bf16)) {
+  if (blocks <= 0 || exprs_per_map <= 0 || !supported_c(c, is_bf16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = c / 4;                     // FwdTiling: 4 channels a thread
+  const int per = exprs_per_map;
   const float* f = static_cast<const float*>(filt);
   const float* r = static_cast<const float*>(rfilt);
   float* out_r = static_cast<float*>(resp);
   cudaError_t err;
   if (is_bf16) {
-    err = k == 7 ? dispatch_fwd_mma<7>(c, conv, conv_batch_stride, f, r, e, h,
-                                       w, sigmoid, scale, blocks, gated, out_r,
-                                       s)
-        : k == 1 ? dispatch_fwd_mma<1>(c, conv, conv_batch_stride, f, r, e, h,
-                                       w, sigmoid, scale, blocks, gated, out_r,
-                                       s)
+    err = k == 7 ? dispatch_fwd_mma<7>(c, conv, conv_batch_stride, per, f, r,
+                                       e, h, w, sigmoid, scale, blocks, gated,
+                                       out_r, s)
+        : k == 1 ? dispatch_fwd_mma<1>(c, conv, conv_batch_stride, per, f, r,
+                                       e, h, w, sigmoid, scale, blocks, gated,
+                                       out_r, s)
                  : cudaErrorInvalidValue;
   } else {
-    err = k == 7 ? dispatch_fwd<7>(g, conv, conv_batch_stride, f, r, e, h, w,
-                                   sigmoid, scale, blocks, gated, out_r, s)
-        : k == 1 ? dispatch_fwd<1>(g, conv, conv_batch_stride, f, r, e, h, w,
-                                   sigmoid, scale, blocks, gated, out_r, s)
+    err = k == 7 ? dispatch_fwd<7>(g, conv, conv_batch_stride, per, f, r, e, h,
+                                   w, sigmoid, scale, blocks, gated, out_r, s)
+        : k == 1 ? dispatch_fwd<1>(g, conv, conv_batch_stride, per, f, r, e, h,
+                                   w, sigmoid, scale, blocks, gated, out_r, s)
                  : cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
-// Gradient of fused_filter_launch. conv as there (batch stride may be 0);
-// d_gated and d_conv (e, h, w, c) contiguous maps of the same dtype, 16-byte
-// aligned; fused and d_resp (e, h, w) f32; filt (e, c, k), rfilt (e, k) f32.
+// Gradient of fused_filter_grouped_launch with exprs_per_map 1. conv as
+// there (batch stride may be 0); d_gated and d_conv (e, h, w, c) contiguous
+// maps of the same dtype, 16-byte aligned; fused and d_resp (e, h, w) f32; filt (e, c, k), rfilt (e, k) f32.
 // tiles: blocks per expression (grid x, `tile_plan`'s blocks_per_expr),
 // walking the fused_filter_tiling tiles as the forward's blocks do;
 // filt_part (e, tiles, c, k) and rfilt_part (e, tiles, k) f32 scratch.
@@ -1172,9 +1185,9 @@ extern "C" int fused_filter_bwd_launch(
   return static_cast<int>(err);
 }
 
-// The tiling of the kernel that fused_filter_launch (backward 0) or
-// fused_filter_bwd_launch (backward 1) takes for maps of c channels of bf16
-// or f32: out[0] pixels a tile, out[1] the blocks an SM each kernel is
+// The tiling of the kernel that fused_filter_grouped_launch (backward 0)
+// or fused_filter_bwd_launch (backward 1) takes for maps of c channels of
+// bf16 or f32: out[0] pixels a tile, out[1] the blocks an SM each kernel is
 // built to hold (its __launch_bounds__). The wrapper plans the grids from
 // them. Returns cudaErrorInvalidValue for maps the kernels do not take.
 extern "C" int fused_filter_tiling(int backward, int c, int is_bf16,

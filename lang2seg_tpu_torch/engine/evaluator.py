@@ -24,19 +24,40 @@ The 14x14 mask probabilities are pasted back in one of two places:
 A detection-only model (no mask head, the `vgg` variant) is scored on
 its boxes alone. In test mode 'top' each image draws its proposals'
 random pad from a generator of its own, seeded from (cfg.seed, the
-image's uid); the uids are given out in dispatch order, on the calling
-thread. `eval_split` pipelines a split: `dispatch_image` enqueues an
-image's work, `drain` reads it back.
+image's uid); the uids are given out on the calling thread in the order
+the images arrive, so that every mode below gives an image the same uid,
+and the same draws, as one image a dispatch. `eval_split` pipelines a
+split: `dispatch_image` (or `_dispatch_chunk`) enqueues the work,
+`drain` reads it back.
 
-Not ported yet (ROADMAP Queue 1 #4): the extent-crop wire, staged
-uploads, several images a dispatch (`images_per_dispatch`) and
-multi-device eval.
+The JAX Evaluator's throughput modes, each scoring exactly what one image
+a dispatch scores:
+  * the extent-crop wire (cfg.data.wire_extent_crop): a uint8 canvas and
+    its GT masks travel as the content extent rounded up to
+    wire_extent_granularity; `_inflate` re-creates the loader's full
+    canvases on the device (rounded pixel means, zero masks beyond it);
+  * several images a dispatch (`eval_split(images_per_dispatch=N)`): N
+    images of one sentence bucket and bank row count stacked into one
+    `test_forward` of N x S expressions (the backbone once an image, the
+    gate reading each image's map in place, one NMS over N x S lanes), in
+    power-of-two chunks for a bucket's remainder; images beyond the paste
+    buffers, the host paste-back, the reference-exact mode and
+    detection-only models go one image a dispatch;
+  * staged uploads (`stage_uploads`): one worker thread stacks the next
+    chunk (bit-packing, crop) and starts its host -> device copies from
+    pinned memory on a copy stream of its own, while the card computes
+    the chunks before it; the compute stream waits on the copies' event
+    when the chunk is dispatched. The worker launches no model kernel.
+
+Not ported yet (ROADMAP Queue 1 #4, data parallel): multi-device eval
+(the JAX package's `eval_split_mesh`).
 """
 
 from __future__ import annotations
 
 from collections import deque
-from typing import Dict, Iterable, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -62,19 +83,39 @@ def _host_expand_bank(batch: Dict) -> Dict:
     return out
 
 
+def _valid_of(batch: Dict, sent_valid=None) -> np.ndarray:
+    """(S,) bool: `sent_valid`, every slot when it is None."""
+    return (np.ones(batch["labels"].shape[0], bool) if sent_valid is None
+            else np.asarray(sent_valid, bool))
+
+
 class Evaluator:
     def __init__(self, model: Lang2Seg, cfg: Config, device="cuda",
                  device_paste: bool = True, reference_exact: bool = False):
         """`device_paste` False pastes every mask back on the host;
         `reference_exact` reproduces the reference's metric chain on the
         host (pair it with cfg.data.reference_exact_masks for the
-        loader's GT masks)."""
+        loader's GT masks). `h2d_bytes` counts the bytes the evaluator
+        has copied to the device."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.reference_exact = reference_exact
         self.device_paste = device_paste and not reference_exact
+        d = cfg.data
+        self._extent_crop = bool(d.wire_extent_crop)
+        self._extent_g = int(d.wire_extent_granularity)
+        if self._extent_crop and (self._extent_g <= 0
+                                  or self._extent_g % 8):
+            raise ValueError(
+                f"cfg.data.wire_extent_granularity must be a positive "
+                f"multiple of 8 (bit-packed masks crop at byte boundaries), "
+                f"got {self._extent_g}")
+        self._means_u8 = [int(v) for v in
+                          np.round(np.asarray(d.pixel_means_bgr))]
         self._rng_uid = 0
+        self._copy_stream = None
+        self.h2d_bytes = 0
 
     @staticmethod
     def _extents(batch):
@@ -92,6 +133,10 @@ class Evaluator:
         return (ih <= self.cfg.data.max_orig_h
                 and iw <= self.cfg.data.max_orig_w)
 
+    def _next_uid(self) -> int:
+        self._rng_uid += 1
+        return self._rng_uid
+
     def _image_generator(self, uid: int) -> Optional[torch.Generator]:
         """Test mode 'top''s generator for the image of `uid`: a CPU
         generator seeded from (cfg.seed, uid); None in mode 'nms'."""
@@ -99,17 +144,55 @@ class Evaluator:
             return None
         return torch.Generator().manual_seed((self.cfg.seed << 32) + uid)
 
+    def _crop_extent(self, sh: int, sw: int):
+        """The bucketed content extent (hb, wb) that the extent-crop wire
+        ships for a scaled extent (sh, sw): each side rounded up to
+        wire_extent_granularity, at most the canvas; None when the wire is
+        off or the crop would drop no canvas byte."""
+        if not self._extent_crop:
+            return None
+        g, d = self._extent_g, self.cfg.data
+        hb = min(d.canvas_h, -(-int(sh) // g) * g)
+        wb = min(d.canvas_w, -(-int(sw) // g) * g)
+        if hb >= d.canvas_h and wb >= d.canvas_w:
+            return None
+        return hb, wb
+
+    def _inflate(self, images: torch.Tensor, masks: torch.Tensor,
+                 mask_w: int):
+        """The loader's full canvases from content-extent crops, on the
+        crops' device: images (..., hb, wb, 3) uint8 -> (..., canvas_h,
+        canvas_w, 3) filled with the rounded pixel means beyond the crop
+        (what the loader writes outside the content extent), masks (...,
+        hb, wm) uint8, raw or bit-packed -> (..., canvas_h, mask_w)
+        zero-filled (the loader writes masks only inside the extent)."""
+        d = self.cfg.data
+        ch, cw = d.canvas_h, d.canvas_w
+        hb, wb = images.shape[-3], images.shape[-2]
+        full = torch.empty((*images.shape[:-3], ch, cw, 3),
+                           dtype=torch.uint8, device=images.device)
+        for c, v in enumerate(self._means_u8):
+            full[..., c].fill_(v)
+        full[..., :hb, :wb, :] = images
+        mfull = torch.zeros((*masks.shape[:-2], ch, mask_w),
+                            dtype=torch.uint8, device=masks.device)
+        mfull[..., :masks.shape[-2], :masks.shape[-1]] = masks
+        return full, mfull
+
     @staticmethod
     def _select_fn(rois, deltas, scores, valid, scale, ih, iw):
         """Batched argmax protocol over all S sentences (test.py:256-259):
         decode per-class boxes in original-image coords, mask padded rois,
         global argmax over scores[:, 1:], select that class's box.
-        scale / ih / iw: f32 tensors on the rois' device."""
+        scale / ih / iw: f32 tensors on the rois' device, one for all
+        sentences (0-dim) or one a sentence ((S,))."""
         s, r, _ = rois.shape
         num_classes = scores.shape[-1]
+        scale, ih, iw = (v.reshape(-1, 1, 1) if v.dim() else v
+                         for v in (scale, ih, iw))
         pred = decode_boxes(rois / scale, deltas)           # (S, R, 4K)
         pk = pred.reshape(s, r, num_classes, 4)
-        lim = torch.stack([iw, ih, iw, ih]) - 1.0
+        lim = torch.stack([iw, ih, iw, ih], dim=-1) - 1.0   # (4,) | (S,1,1,4)
         pk = torch.minimum(torch.clamp(pk, min=0.0), lim)
         sc = torch.where(valid[..., None], scores,
                          torch.full_like(scores, -1.0))
@@ -121,26 +204,32 @@ class Evaluator:
         return sel, cls.to(torch.int32)
 
     @staticmethod
-    def _paste_iou_fn(mask_probs, boxes, gt_masks, sh: int, sw: int,
-                      ih: int, iw: int, *, oh: int, ow: int,
-                      packed: bool = False):
+    def _paste_iou_fn(mask_probs, boxes, gt_masks, sh, sw, ih, iw, *,
+                      oh: int, ow: int, packed: bool = False):
         """Device paste-back + IoU, batched over sentences.
 
         mask_probs (S, M, M) in [0, 1]; boxes (S, 4) xyxy in original
         image coords; gt_masks (S, Hc, Wc) uint8 canvas masks, or
         (S, Hc, Wc // 8) bit-packed MSB-first; sh / sw the scaled extent,
-        ih / iw the original extent. Returns per-sentence (I, U) pixel
-        counts over the (ih, iw) region."""
+        ih / iw the original extent: ints, or int tensors on the masks'
+        device, one for all sentences or one a sentence ((S,)). Returns
+        per-sentence (I, U) pixel counts over each (ih, iw) region."""
         s, m, _ = mask_probs.shape
         dev = mask_probs.device
         if packed:
             gt_masks = unpack_mask_bits(gt_masks)
+        sh, sw, ih, iw = (torch.as_tensor(v, device=dev).reshape(-1)
+                          for v in (sh, sw, ih, iw))
 
         # int-truncated, clipped box corners (recover_masks semantics)
-        x1 = torch.clamp(boxes[:, 0], 0.0, iw - 1.0).to(torch.int32)
-        y1 = torch.clamp(boxes[:, 1], 0.0, ih - 1.0).to(torch.int32)
-        x2 = torch.clamp(boxes[:, 2], 0.0, iw - 1.0).to(torch.int32)
-        y2 = torch.clamp(boxes[:, 3], 0.0, ih - 1.0).to(torch.int32)
+        hi_x, hi_y = (iw - 1).float(), (ih - 1).float()
+
+        def corner(v, hi):
+            return torch.clamp(torch.clamp(v, min=0.0), max=hi).to(
+                torch.int32)
+
+        x1, y1 = corner(boxes[:, 0], hi_x), corner(boxes[:, 1], hi_y)
+        x2, y2 = corner(boxes[:, 2], hi_x), corner(boxes[:, 3], hi_y)
         bh = (y2 - y1 + 1).float()
         bw = (x2 - x1 + 1).float()
 
@@ -167,84 +256,223 @@ class Evaluator:
 
         # GT: crop the scaled extent, exact-rational nearest resize to
         # (ih, iw) as row / column gathers
-        ys = (2 * torch.arange(oh, device=dev) + 1) * sh // (2 * max(ih, 1))
-        xs = (2 * torch.arange(ow, device=dev) + 1) * sw // (2 * max(iw, 1))
-        ys = torch.clamp(ys, 0, gt_masks.shape[1] - 1)
-        xs = torch.clamp(xs, 0, gt_masks.shape[2] - 1)
-        gt = gt_masks.index_select(1, ys).index_select(2, xs) > 0
+        ys = ((2 * torch.arange(oh, device=dev) + 1)[None] * sh[:, None]
+              // (2 * torch.clamp(ih, min=1))[:, None])
+        xs = ((2 * torch.arange(ow, device=dev) + 1)[None] * sw[:, None]
+              // (2 * torch.clamp(iw, min=1))[:, None])
+        ys = torch.clamp(ys, 0, gt_masks.shape[1] - 1).expand(s, oh)
+        xs = torch.clamp(xs, 0, gt_masks.shape[2] - 1).expand(s, ow)
+        rows = torch.gather(gt_masks, 1, ys[:, :, None].expand(
+            s, oh, gt_masks.shape[2]))                         # (S, oh, Wc)
+        gt = torch.gather(rows, 2, xs[:, None, :].expand(s, oh, ow)) > 0
 
-        valid = ((torch.arange(oh, device=dev)[:, None] < ih)
-                 & (torch.arange(ow, device=dev)[None, :] < iw))[None]
+        valid = ((torch.arange(oh, device=dev)[None, :, None]
+                  < ih[:, None, None])
+                 & (torch.arange(ow, device=dev)[None, None, :]
+                    < iw[:, None, None]))
         inter = (pred & gt & valid).sum(dim=(1, 2))
         union = ((pred | gt) & valid).sum(dim=(1, 2))
         return inter.to(torch.int32), union.to(torch.int32)
 
-    def _put(self, x, dtype=None) -> torch.Tensor:
-        """A host array on the device. To the card it goes from pinned
-        memory without blocking the host, so that the host can build the
-        next image while the card works."""
+    def _to_device(self, x, dtype=None) -> torch.Tensor:
+        """A host array on the device, on the current stream: from pinned
+        memory without blocking the host on a card. Returns (tensor, bytes
+        copied)."""
         t = torch.from_numpy(np.ascontiguousarray(x))
         if dtype is not None:
             t = t.to(dtype)
+        nbytes = t.numel() * t.element_size()
         if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t, nbytes
+
+    def _put(self, x, dtype=None) -> torch.Tensor:
+        """`_to_device`, counted in `h2d_bytes` (calling thread only)."""
+        t, nbytes = self._to_device(x, dtype)
+        self.h2d_bytes += nbytes
         return t
+
+    def _stack_chunk(self, chunk: List[Dict], uids: List[int]) -> Dict:
+        """The host operands of one dispatch of `chunk`'s images, which
+        share a sentence bucket S (and, for the bank wire, the bank's row
+        count R), with the image uids given on the calling thread: images
+        (N, H, W, 3), im_hw (N, 2), labels (N * S, T), GT masks (N, S | R,
+        Hc, Wm) bit-packed where the width allows, the bank's per-sentence
+        rows as flat indices into the N * R rows, and the per-sentence
+        scale (f32) and [sh, sw, ih, iw] (int64). A uint8 chunk on the
+        extent-crop wire ships the chunk's largest bucketed content
+        extent only (`crop`: the mask width to inflate to)."""
+        s = chunk[0]["labels"].shape[0]
+        if any(b["labels"].shape[0] != s for b in chunk):
+            raise ValueError("a chunk needs a uniform sentence bucket")
+        exts = [self._extents(b) for b in chunk]
+        if not all(self._fits(e[3], e[4]) for e in exts):
+            raise ValueError("original extents exceed the device-paste "
+                             "buffers")
+        use_bank = "gt_mask_bank" in chunk[0]
+        gms = [np.asarray(b["gt_mask_bank" if use_bank else "gt_masks"])
+               for b in chunk]
+        if any(g.shape != gms[0].shape for g in gms):
+            raise ValueError("a chunk needs a uniform mask bank row count")
+        packed = gms[0].shape[-1] % 8 == 0
+        images = np.concatenate([np.asarray(b["images"]) for b in chunk])
+        crop = None
+        ext = (self._crop_extent(max(e[1] for e in exts),
+                                 max(e[2] for e in exts))
+               if images.dtype == np.uint8 else None)
+        if ext is not None:
+            hb, wb = ext
+            crop = gms[0].shape[-1] // 8 if packed else gms[0].shape[-1]
+            images = images[:, :hb, :wb]
+            gms = [g[..., :hb, :wb] for g in gms]
+        arrays = {
+            "images": images,
+            "im_hw": np.concatenate([np.asarray(b["im_hw"], np.float32)
+                                     for b in chunk]),
+            "labels": np.concatenate([np.asarray(b["labels"])
+                                      for b in chunk]),
+            "gm": np.stack([np.packbits(g > 0, axis=-1) if packed else g
+                            for g in gms]),
+            "scale": np.repeat(np.float32([e[0] for e in exts]), s),
+            "ext": np.repeat(np.int64([e[1:] for e in exts]).T, s, axis=1)}
+        if use_bank:
+            rows = gms[0].shape[0]
+            arrays["ref_idx"] = np.concatenate([
+                np.asarray(b["mask_ref_idx"], np.int64) + i * rows
+                for i, b in enumerate(chunk)])
+        return {"arrays": arrays, "scales": [e[0] for e in exts], "s": s,
+                "packed": packed, "crop": crop, "uids": list(uids)}
+
+    def _stage_chunk(self, chunk: List[Dict], valid_flags, uids: List[int],
+                     staged: bool = False) -> Dict:
+        """The host half of a chunk's dispatch: `_stack_chunk`, then the
+        operands' copies to the device. `staged` (a worker thread of
+        `eval_split`) copies from pinned memory on the evaluator's copy
+        stream and records an event that the dispatch waits on; otherwise
+        the copies go on the current stream. Touches no evaluator state
+        but the copy stream."""
+        st = self._stack_chunk(chunk, uids)
+        st.update(chunk=chunk, valid_flags=valid_flags, event=None)
+        arrays = st.pop("arrays")
+        if staged and self.device.type == "cuda":
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self._copy_stream):
+                ops = {k: self._to_device(v) for k, v in arrays.items()}
+                st["event"] = torch.cuda.Event()
+                st["event"].record(self._copy_stream)
+        else:
+            ops = {k: self._to_device(v) for k, v in arrays.items()}
+        st["ops"] = {k: t for k, (t, _) in ops.items()}
+        st["bytes"] = sum(n for _, n in ops.values())
+        return st
+
+    @torch.no_grad()
+    def _dispatch_staged(self, st: Dict) -> Dict:
+        """The device half: after the staged copies (the compute stream
+        waits on their event and owns their tensors from here), re-create
+        cropped canvases and enqueue the whole eval of the chunk's N x S
+        expressions (the forward, the box selection, the mask branch, the
+        paste-back with its I / U counts), without reading anything back.
+        Returns the record `drain` reads."""
+        ops = st["ops"]
+        if st["event"] is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(st["event"])
+            for t in ops.values():
+                t.record_stream(stream)
+        self.h2d_bytes += st["bytes"]
+        images, gm = ops["images"], ops["gm"]
+        if st["crop"] is not None:
+            images, gm = self._inflate(images, gm, st["crop"])
+        gm = gm.reshape(-1, *gm.shape[-2:])
+        if "ref_idx" in ops:                 # the bank, expanded here
+            gm = gm.index_select(0, ops["ref_idx"])
+        out = self.model.test_forward(
+            {"images": images, "im_hw": ops["im_hw"],
+             "labels": ops["labels"]},
+            [self._image_generator(u) for u in st["uids"]])
+        scale = ops["scale"]
+        sh, sw, ih, iw = ops["ext"]
+        sel, cls = self._select_fn(
+            out["rois"], out["bbox_pred"], out["cls_prob"], out["roi_valid"],
+            scale, ih.float(), iw.float())
+        probs = self.model.predict_masks(
+            out["gated_conv"], (sel * scale[:, None])[:, None, :],
+            cls[:, None])[:, 0]
+        d = self.cfg.data
+        inter, union = self._paste_iou_fn(
+            probs, sel, gm, sh, sw, ih, iw, oh=d.max_orig_h, ow=d.max_orig_w,
+            packed=st["packed"])
+        return {"chunk": st["chunk"], "valid_flags": st["valid_flags"],
+                "scales": st["scales"], "s": st["s"], "uids": st["uids"],
+                "sel": sel, "inter": inter, "union": union}
+
+    def _dispatch_chunk(self, chunk: List[Dict], valid_flags,
+                        uids: List[int]) -> Dict:
+        """Stack, upload and dispatch one chunk on the calling thread."""
+        return self._dispatch_staged(self._stage_chunk(chunk, valid_flags,
+                                                       uids))
+
+    def _drain_chunk(self, rec: Dict, acc: SegEvalAccumulator) -> int:
+        """Read a chunk's results back and accumulate its valid sentences;
+        returns its image count."""
+        n, s = len(rec["chunk"]), rec["s"]
+        sel = rec["sel"].cpu().numpy().reshape(n, s, 4)
+        inter = rec["inter"].cpu().numpy().reshape(n, s)
+        union = rec["union"].cpu().numpy().reshape(n, s)
+        for d, b in enumerate(rec["chunk"]):
+            for i in np.flatnonzero(rec["valid_flags"][d]):
+                gt_box = np.asarray(b["gt_boxes"][i, :4]) / rec["scales"][d]
+                acc.add_detection(sel[d, i], gt_box)
+                acc.add_segmentation_iu(int(inter[d, i]), int(union[d, i]))
+        return n
 
     @torch.no_grad()
     def dispatch_image(self, batch: Dict[str, np.ndarray],
                        sent_valid: Optional[np.ndarray] = None) -> Dict:
         """Enqueue all the device work of one image and return a record of
         device tensors for `drain`, without reading anything back. On the
-        device-paste path that is the forward, the box selection, the
-        mask branch and the paste-back with its I / U counts (GT masks
-        per sentence, `gt_masks`, or as the ref-deduped bank,
-        `gt_mask_bank` with `mask_ref_idx`, expanded on the device); on
-        the host path the forward, the selection and the mask branch's
-        probabilities (none without a mask head)."""
-        m, d = self.cfg.model, self.cfg.data
+        device-paste path that is a chunk of one image (`_dispatch_chunk`:
+        the forward, the box selection, the mask branch and the
+        paste-back with its I / U counts; GT masks per sentence,
+        `gt_masks`, or as the ref-deduped bank, `gt_mask_bank` with
+        `mask_ref_idx`, expanded on the device; a uint8 canvas on the
+        extent-crop wire); on the host path the forward, the selection
+        and the mask branch's probabilities (none without a mask head).
+        The image's uid is given out here."""
+        m = self.cfg.model
         scale, sh, sw, ih, iw = self._extents(batch)
-        self._rng_uid += 1
-        gen = self._image_generator(self._rng_uid)
+        uid = self._next_uid()
+        if m.use_mask_head and self.device_paste and self._fits(ih, iw):
+            return self._dispatch_chunk(
+                [batch], [_valid_of(batch, sent_valid)], [uid])
         rec = {"batch": batch, "scale": scale, "sent_valid": sent_valid,
                "sh": sh, "sw": sw, "ih": ih, "iw": iw}
-        on_device = m.use_mask_head and self.device_paste and \
-            self._fits(ih, iw)
-        if on_device:
-            use_bank = "gt_mask_bank" in batch
-            gm = np.asarray(batch["gt_mask_bank" if use_bank else "gt_masks"])
-            packed = gm.shape[-1] % 8 == 0
-            gm_dev = self._put(np.packbits(gm > 0, axis=-1) if packed
-                               else gm)
-            if use_bank:
-                gm_dev = gm_dev.index_select(
-                    0, self._put(batch["mask_ref_idx"], torch.int64))
-        elif m.use_mask_head:
+        if m.use_mask_head:
             rec["batch"] = _host_expand_bank(batch)
         out = self.model.test_forward({
             "images": self._put(batch["images"]),
             "im_hw": self._put(batch["im_hw"], torch.float32),
-            "labels": self._put(batch["labels"])}, gen)
+            "labels": self._put(batch["labels"])},
+            self._image_generator(uid))
         scale_t, ih_t, iw_t = self._put(np.float32([scale, ih, iw]))
         sel, cls = self._select_fn(
             out["rois"], out["bbox_pred"], out["cls_prob"], out["roi_valid"],
             scale_t, ih_t, iw_t)
         rec["sel"] = sel
-        if not m.use_mask_head:
-            return rec
-        probs = self.model.predict_masks(
-            out["gated_conv"], (sel * scale_t)[:, None, :], cls[:, None])[:, 0]
-        if on_device:
-            rec["inter"], rec["union"] = self._paste_iou_fn(
-                probs, sel, gm_dev, sh, sw, ih, iw,
-                oh=d.max_orig_h, ow=d.max_orig_w, packed=packed)
-        else:
-            rec["probs"] = probs
+        if m.use_mask_head:
+            rec["probs"] = self.model.predict_masks(
+                out["gated_conv"], (sel * scale_t)[:, None, :],
+                cls[:, None])[:, 0]
         return rec
 
     def drain(self, rec: Dict, acc: SegEvalAccumulator) -> None:
-        """Read one dispatched image's results back and accumulate them:
-        detections always; the device's I / U counts, or the masks pasted
-        back here."""
+        """Read one dispatched record back and accumulate it: a chunk's
+        detections and device I / U counts, or one image's detections and
+        the masks pasted back here."""
+        if "chunk" in rec:
+            self._drain_chunk(rec, acc)
+            return
         sel = rec["sel"].cpu().numpy()
         sent_valid = rec["sent_valid"]
         live = [i for i in range(sel.shape[0])
@@ -253,12 +481,7 @@ class Evaluator:
         for i in live:
             gt_box = np.asarray(batch["gt_boxes"][i, :4]) / scale
             acc.add_detection(sel[i], gt_box)
-        if "inter" in rec:
-            inter = rec["inter"].cpu().numpy()
-            union = rec["union"].cpu().numpy()
-            for i in live:
-                acc.add_segmentation_iu(int(inter[i]), int(union[i]))
-        elif "probs" in rec:
+        if "probs" in rec:
             probs = rec["probs"].float().cpu().numpy()
             sh, sw, ih, iw = rec["sh"], rec["sw"], rec["ih"], rec["iw"]
             for i in live:
@@ -288,41 +511,93 @@ class Evaluator:
 
     def eval_split(self, batches: Iterable[Dict[str, np.ndarray]],
                    verbose: bool = False, pipeline_depth: int = 4,
-                   images_per_dispatch: int = 1,
+                   images_per_dispatch: int = 1, stage_uploads: bool = True,
                    acc: Optional[SegEvalAccumulator] = None
                    ) -> Dict[str, float]:
         """Score every image of `batches` (e.g. GtBatchLoader.
-        iter_test_batches), one image a dispatch, keeping up to
-        `pipeline_depth` dispatched images ahead of the drain, so that
-        the host builds and uploads the next image while the card works.
-        Each batch's own `sent_valid` marks its padded slots. Returns the
-        summary of `acc` (a fresh accumulator by default)."""
-        if images_per_dispatch > 1:
-            raise NotImplementedError(
-                "images_per_dispatch > 1 is not ported (ROADMAP Queue 1 #4)")
+        iter_test_batches), keeping up to `pipeline_depth` dispatches
+        ahead of the drain, so that the host builds and uploads the next
+        images while the card works. Each batch's own `sent_valid` marks
+        its padded slots. Returns the summary of `acc` (a fresh
+        accumulator by default).
+
+        images_per_dispatch N > 1 dispatches N images of one sentence
+        bucket and bank row count at once (the device paste-back only):
+        full groups at N, a bucket's remainder at the end in power-of-two
+        chunks, so that a run meets at most log2(N) + 1 chunk sizes a
+        bucket; an image beyond the paste buffers goes alone, when it
+        arrives. `stage_uploads` then stacks and uploads each chunk on a
+        worker thread, one chunk ahead of the dispatches."""
         acc = SegEvalAccumulator() if acc is None else acc
-        pending = deque()
+        pending, staged = deque(), deque()
+        groups: Dict[tuple, list] = {}
+        n_batch = max(1, images_per_dispatch)
+        use_chunks = (n_batch > 1 and self.cfg.model.use_mask_head
+                      and self.device_paste)
+        pool = None
+        if use_chunks and stage_uploads:
+            pool = ThreadPoolExecutor(max_workers=1)
+            if self.device.type == "cuda" and self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
         done = 0
 
         def drain_one():
             nonlocal done
-            self.drain(pending.popleft(), acc)
-            done += 1
-            if verbose and done % 20 == 0:
+            prev = done
+            rec = pending.popleft()
+            self.drain(rec, acc)
+            done += len(rec["chunk"]) if "chunk" in rec else 1
+            # chunks advance the count by more than one image: print
+            # whenever a multiple of 20 is crossed
+            if verbose and done // 20 > prev // 20:
                 s = acc.summary()
                 print(f"[eval] {done} images: det_acc={s['det_acc']:.4f} "
                       f"IoU={s['overall_iou']:.4f}", flush=True)
+
+        def flush(key):
+            group = groups.pop(key, [])
+            while group:
+                take = (n_batch if len(group) >= n_batch
+                        else 1 << (len(group).bit_length() - 1))
+                sub, group = group[:take], group[take:]
+                args = tuple(list(x) for x in zip(*sub))
+                if pool is None:
+                    pending.append(self._dispatch_chunk(*args))
+                    continue
+                staged.append(pool.submit(self._stage_chunk, *args, True))
+                # one chunk's stacking and upload stays in flight behind
+                # the dispatches
+                while len(staged) > 1:
+                    pending.append(self._dispatch_staged(
+                        staged.popleft().result()))
 
         was_training = self.model.training
         self.model.eval()
         try:
             for batch in batches:
-                pending.append(self.dispatch_image(batch,
-                                                   batch.get("sent_valid")))
+                if use_chunks and self._fits(*self._extents(batch)[3:]):
+                    key = (batch["labels"].shape[0],
+                           batch["gt_mask_bank"].shape[0]
+                           if "gt_mask_bank" in batch else -1)
+                    groups.setdefault(key, []).append(
+                        (batch, _valid_of(batch, batch.get("sent_valid")),
+                         self._next_uid()))
+                    if len(groups[key]) >= n_batch:
+                        flush(key)
+                else:
+                    pending.append(self.dispatch_image(
+                        batch, batch.get("sent_valid")))
                 if len(pending) >= max(1, pipeline_depth):
                     drain_one()
+            for key in list(groups):
+                flush(key)
+            while staged:
+                pending.append(self._dispatch_staged(
+                    staged.popleft().result()))
             while pending:
                 drain_one()
         finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
             self.model.train(was_training)
         return acc.summary()

@@ -58,11 +58,12 @@ class DynamicFilterGen(nn.Module):
                                 nn.Linear(hidden_dim, c4_dim))
             self.response_fc = nn.Linear(hidden_dim, num_filters)
 
-    def forward(self, net_conv: torch.Tensor, hidden: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """net_conv: (E, H, W, C) (may be a stride-0 broadcast of one
-        image's map); hidden: (E, D). Returns (gated (E, H, W, C),
-        response (E, H, W, 1) f32)."""
+    def forward(self, net_conv: torch.Tensor, hidden: torch.Tensor,
+                exprs_per_map: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+        """net_conv: (E // G, H, W, C) maps, G = exprs_per_map consecutive
+        expressions reading each (a stride-0 broadcast of one image's map
+        at G = 1); hidden: (E, D). Returns (gated (E, H, W, C), response
+        (E, H, W, 1) f32)."""
         e = hidden.shape[0]
         if self.num_filters == 1:
             filt = torch.tanh(self.dynamic_fc(hidden))[..., None]
@@ -75,4 +76,4 @@ class DynamicFilterGen(nn.Module):
         return fused_dynamic_filter(
             net_conv, filt.float().contiguous(), rfilt.float().contiguous(),
             num_filters=self.num_filters, gate=self.gate,
-            normalize=self.normalize)
+            normalize=self.normalize, exprs_per_map=exprs_per_map)

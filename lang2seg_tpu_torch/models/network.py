@@ -166,12 +166,14 @@ class Lang2Seg(nn.Module):
     # ---------- building blocks ----------
 
     def _condition(self, net_conv: torch.Tensor, labels: torch.Tensor,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   exprs_per_map: int = 1):
         """Language encoding + dynamic-filter gating.
-        net_conv: (E, h, w, C); labels: (E, T); `generator` draws the
+        net_conv: (E // G, h, w, C), read by G = exprs_per_map consecutive
+        expressions each; labels: (E, T); `generator` draws the
         word-dropout mask in train mode."""
         _, hidden, _ = self.rnn_encoder(labels, generator)
-        return self.filter_gen(net_conv, hidden)
+        return self.filter_gen(net_conv, hidden, exprs_per_map)
 
     def _roi_features(self, gated: torch.Tensor, rois: torch.Tensor,
                       generator: Optional[torch.Generator] = None
@@ -447,17 +449,23 @@ class Lang2Seg(nn.Module):
 
     @torch.no_grad()
     def test_forward(self, batch: Dict[str, torch.Tensor],
-                     generator: Optional[torch.Generator] = None
-                     ) -> Dict[str, torch.Tensor]:
-        """Single-image, batched-expression inference.
+                     generator=None) -> Dict[str, torch.Tensor]:
+        """Batched-expression inference over N images of S expressions
+        each.
 
-        batch: images (1, H, W, 3), im_hw (1, 2), labels (E, T), all on
-        the model's device. Returns per-expression rois / scores / boxes
-        and the gated conv map for the follow-up mask prediction
-        (reference test_image, network.py:625-642). In test mode 'top'
-        with fewer anchors than `rpn_top_n`, `generator` draws the
-        proposals' random pad (default: a CPU generator seeded with
-        cfg.seed, as the JAX package keys it without an image uid)."""
+        batch: images (N, H, W, 3), im_hw (N, 2), labels (N * S, T)
+        image-major, all on the model's device. The backbone runs once an
+        image and each expression's gate reads its image's map in place.
+        Returns per-expression rois / scores / boxes and the gated conv
+        map for the follow-up mask prediction (reference test_image,
+        network.py:625-642), as N single-image calls would, expressions
+        image-major. In test mode 'top' with fewer anchors than
+        `rpn_top_n`, each image draws its proposals' random pad from its
+        own generator: `generator` is one (N = 1) or a sequence of N, in
+        image order (default: CPU generators seeded with cfg.seed, as the
+        JAX package keys them without an image uid). The JAX package gets
+        the N-image form from `jax.vmap` over one image
+        (`lang2seg_tpu/engine/evaluator.py::_batched_eval_fn`)."""
         cfg, m, ts = self.cfg, self.cfg.model, self.cfg.test
         if not m.use_language:
             raise NotImplementedError(
@@ -470,25 +478,42 @@ class Lang2Seg(nn.Module):
         labels = batch["labels"]
         e = labels.shape[0]
         net_conv_img = self.backbone.head(self._images(batch["images"]))
-        net_conv = net_conv_img.contiguous().expand(
-            e, *net_conv_img.shape[1:])
-        gated, response = self._condition(net_conv, labels)
+        num_images = net_conv_img.shape[0]
+        if e % num_images:
+            raise ValueError(f"test_forward: {e} expressions for "
+                             f"{num_images} images")
+        per_image = e // num_images
+        gated, response = self._condition(net_conv_img.contiguous(), labels,
+                                          exprs_per_map=per_image)
         rpn_cls, rpn_box = self.rpn_head(gated)
         _, h, w, a, _ = rpn_cls.shape
         anchors = shifted_anchors(h, w, m.feat_stride, m.anchor_scales,
                                   m.anchor_ratios, device=gated.device)
         n = anchors.shape[0]
-        hw = batch["im_hw"][0].float()
+        hw = batch["im_hw"].float()[:, None, :].expand(
+            num_images, per_image, 2).reshape(e, 2)         # per expression
         score_pos = torch.softmax(rpn_cls.reshape(e, n, 2), dim=-1)[..., 1]
         if ts.mode == "top":
-            if generator is None and n < ts.rpn_top_n:
-                generator = torch.Generator().manual_seed(cfg.seed)
+            order = None
+            if n < ts.rpn_top_n:
+                gens = (list(generator) if isinstance(generator,
+                                                      (list, tuple))
+                        else [generator])
+                if len(gens) != num_images:
+                    raise ValueError(f"test_forward: {len(gens)} generators "
+                                     f"for {num_images} images")
+                gens = [torch.Generator().manual_seed(cfg.seed) if g is None
+                        else g for g in gens]
+                order = torch.cat([
+                    torch.randint(0, n, (per_image, ts.rpn_top_n),
+                                  generator=g, device=g.device)
+                    for g in gens])
             props = proposal_top_layer(score_pos, rpn_box.reshape(e, n, 4),
-                                       anchors, hw[0], hw[1], ts.rpn_top_n,
-                                       generator)
+                                       anchors, hw[:, 0], hw[:, 1],
+                                       ts.rpn_top_n, order=order)
         else:
             props = proposal_layer(score_pos, rpn_box.reshape(e, n, 4),
-                                   anchors, hw[0], hw[1],
+                                   anchors, hw[:, 0], hw[:, 1],
                                    ts.rpn_pre_nms_top_n,
                                    ts.rpn_post_nms_top_n, ts.rpn_nms_thresh)
         spatial_fc7 = self._roi_features(gated, props.rois)

@@ -17,7 +17,10 @@ the filter split into a hi and a lo bf16 part. `tile_plan` is how the
 wrapper cuts a map into persistent blocks for both kernels, from the
 tiling each kernel reports (`fused_filter_tiling`); `plans` keeps the plan
 of each kernel's last launch. `launches` and `bwd_launches` count the two
-kernels' launches.
+kernels' launches. The forward reads one map per `exprs_per_map`
+consecutive expressions (an eval dispatch of N images x S expressions
+reads each image's map in place, S = exprs_per_map); the backward takes
+one map an expression (or one map for all of them).
 """
 
 from __future__ import annotations
@@ -35,14 +38,29 @@ bwd_launches = 0
 plans: Dict[str, Dict[str, object]] = {}
 
 
+def per_expression(net_conv: torch.Tensor, exprs_per_map: int
+                   ) -> torch.Tensor:
+    """The (E, H, W, C) map of each expression from (E // G, H, W, C) maps,
+    G = exprs_per_map consecutive expressions reading each: a stride-0 view
+    of a single map, a copy of several."""
+    if exprs_per_map == 1:
+        return net_conv
+    n = net_conv.shape[0]
+    return net_conv[:, None].expand(n, exprs_per_map, *net_conv.shape[1:]
+                                    ).reshape(n * exprs_per_map,
+                                              *net_conv.shape[1:])
+
+
 def fused_dynamic_filter_plain(net_conv: torch.Tensor, filt: torch.Tensor,
                                rfilt: torch.Tensor, num_filters: int = 7,
-                               gate: str = "sigmoid", normalize: bool = False
+                               gate: str = "sigmoid", normalize: bool = False,
+                               exprs_per_map: int = 1
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """net_conv (E, H, W, C); filt (E, C, K) f32; rfilt (E, K) f32.
-    Returns (gated (E, H, W, C) in net_conv's dtype, response (E, H, W, 1)
-    f32)."""
+    """net_conv (E // G, H, W, C), expression e reading map e // G (G =
+    exprs_per_map); filt (E, C, K) f32; rfilt (E, K) f32. Returns (gated
+    (E, H, W, C) in net_conv's dtype, response (E, H, W, 1) f32)."""
     from ..models.dynamic_filter import spatial_masks_7
+    net_conv = per_expression(net_conv, exprs_per_map)
     e, h, w, c = net_conv.shape
     k = num_filters
     x = net_conv.float()
@@ -105,14 +123,21 @@ def fused_dynamic_filter_bwd_plain(net_conv: torch.Tensor, filt: torch.Tensor,
 def _bind(lib, earlier: bool = False):
     """Declare the C entries' argument types on a loaded library built from
     `csrc/fused_filter.cu`: the port's or a variant, or with `earlier` a
-    source from before the wrapper planned the grids, whose forward takes
-    no `blocks` and which reports no tiling."""
+    source from before the wrapper planned the grids, whose forward
+    (`fused_filter_launch`) takes no `blocks` nor `exprs_per_map` and which
+    reports no tiling."""
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.fused_filter_launch.argtypes = (
-        [p, ctypes.c_longlong, p, p, i, i, i, i, i, i, i, ctypes.c_float]
-        + [i] * (not earlier) + [p, p, p])
-    lib.fused_filter_launch.restype = ctypes.c_int
+    if earlier:
+        lib.fused_filter_launch.argtypes = [
+            p, ctypes.c_longlong, p, p, i, i, i, i, i, i, i, ctypes.c_float,
+            p, p, p]
+        lib.fused_filter_launch.restype = ctypes.c_int
+    else:
+        lib.fused_filter_grouped_launch.argtypes = [
+            p, ctypes.c_longlong, i, p, p, i, i, i, i, i, i, i,
+            ctypes.c_float, i, p, p, p]
+        lib.fused_filter_grouped_launch.restype = ctypes.c_int
     lib.fused_filter_bwd_launch.argtypes = [
         p, ctypes.c_longlong, p, p, p, p, p, i, i, i, i, i, i, i,
         ctypes.c_float, i, p, p, p, p, p, p]
@@ -166,29 +191,34 @@ def tile_plan(e: int, h: int, w: int, tile_pixels: int, blocks_per_sm: int,
             "grid": (blocks, e)}
 
 
-def launch_plan(kernel: str, net_conv: torch.Tensor) -> Dict[str, object]:
+def launch_plan(kernel: str, net_conv: torch.Tensor,
+                exprs_per_map: int = 1) -> Dict[str, object]:
     """The plan `kernel` ("forward" or "backward") is launched with for
-    the CUDA map `net_conv` on its card. Raises ValueError for a shape or
-    C the kernels do not take; the launch checks the rest."""
+    the CUDA maps `net_conv`, each read by `exprs_per_map` expressions, on
+    their card. Raises ValueError for a shape or C the kernels do not
+    take; the launch checks the rest."""
     if net_conv.dim() != 4:
         raise ValueError("fused_dynamic_filter: net_conv must be (E, H, W, "
                          "C)")
-    e, h, w, c = net_conv.shape
+    n, h, w, c = net_conv.shape
+    e = n * exprs_per_map
     tp, per_sm = _tiling(kernel == "backward", c,
                          net_conv.dtype == torch.bfloat16)
     return tile_plan(e, h, w, tp, per_sm, _sms(net_conv.device.index))
 
 
-def _check_inputs(net_conv, filt, rfilt, num_filters, gate, what):
-    """Raise unless the kernels take these inputs; returns the map's
-    batch stride in elements."""
+def _check_inputs(net_conv, filt, rfilt, num_filters, gate, what,
+                  exprs_per_map=1):
+    """Raise unless the kernels take these inputs, expression e reading
+    map e // exprs_per_map; returns the maps' batch stride in elements."""
     if gate not in ("sigmoid", "multiply"):
         raise ValueError(f"{what}: unknown gate {gate!r}")
     if net_conv.dim() != 4 or net_conv.dtype not in (torch.bfloat16,
                                                      torch.float32):
         raise ValueError(f"{what}: net_conv must be (E, H, W, C) bfloat16 "
                          f"or float32")
-    e, h, w, c = net_conv.shape
+    n, h, w, c = net_conv.shape
+    e = n * exprs_per_map
     k = num_filters
     per_vec = 8 if net_conv.dtype == torch.bfloat16 else 4
     nv = c // (32 * per_vec)
@@ -210,30 +240,33 @@ def _check_inputs(net_conv, filt, rfilt, num_filters, gate, what):
     return s0
 
 
-def _forward(net_conv, filt, rfilt, num_filters, gate, normalize):
+def _forward(net_conv, filt, rfilt, num_filters, gate, normalize,
+             exprs_per_map=1):
     """The forward on the map's device: the plain version for a CPU
     tensor, the kernel on the current stream for a CUDA tensor."""
     if net_conv.device.type == "cpu":
         return fused_dynamic_filter_plain(net_conv, filt, rfilt, num_filters,
-                                          gate, normalize)
+                                          gate, normalize, exprs_per_map)
     if net_conv.device.type != "cuda":
         raise ValueError(f"fused_dynamic_filter: unsupported device "
                          f"{net_conv.device}")
-    plan = launch_plan("forward", net_conv)
+    plan = launch_plan("forward", net_conv, exprs_per_map)
     out = _launch_forward(_lib(), plan["blocks_per_expr"], net_conv, filt,
-                          rfilt, num_filters, gate, normalize)
+                          rfilt, num_filters, gate, normalize, exprs_per_map)
     plans["forward"] = plan
     return out
 
 
 def _launch_forward(lib, blocks, net_conv, filt, rfilt, num_filters, gate,
-                    normalize):
+                    normalize, exprs_per_map=1):
     """Check CUDA inputs and launch `lib`'s forward with `blocks` blocks
-    per expression on the current stream (`blocks` None: an earlier
-    source's entry, which planned its own grid)."""
+    per expression on the current stream, expression e reading map
+    e // exprs_per_map (`blocks` None: an earlier source's entry, which
+    plans its own grid and reads one map an expression)."""
     s0 = _check_inputs(net_conv, filt, rfilt, num_filters, gate,
-                       "fused_dynamic_filter")
-    e, h, w, c = net_conv.shape
+                       "fused_dynamic_filter", exprs_per_map)
+    _, h, w, c = net_conv.shape
+    e = filt.shape[0]
     k = num_filters
     gated = torch.empty((e, h, w, c), dtype=net_conv.dtype,
                         device=net_conv.device)
@@ -241,11 +274,18 @@ def _launch_forward(lib, blocks, net_conv, filt, rfilt, num_filters, gate,
                        device=net_conv.device)
     scale = 1.0 / (c ** 0.5) if normalize else 1.0
     stream = torch.cuda.current_stream(net_conv.device).cuda_stream
-    rc = lib.fused_filter_launch(
-        net_conv.data_ptr(), s0, filt.data_ptr(), rfilt.data_ptr(), e, h, w,
-        c, k, int(net_conv.dtype == torch.bfloat16), int(gate == "sigmoid"),
-        scale, *(() if blocks is None else (blocks,)), gated.data_ptr(),
-        resp.data_ptr(), stream)
+    args = (filt.data_ptr(), rfilt.data_ptr(), e, h, w, c, k,
+            int(net_conv.dtype == torch.bfloat16), int(gate == "sigmoid"),
+            scale)
+    out = (gated.data_ptr(), resp.data_ptr(), stream)
+    if blocks is None:
+        if exprs_per_map != 1:
+            raise ValueError("fused_dynamic_filter: an earlier source reads "
+                             "one map an expression")
+        rc = lib.fused_filter_launch(net_conv.data_ptr(), s0, *args, *out)
+    else:
+        rc = lib.fused_filter_grouped_launch(
+            net_conv.data_ptr(), s0, exprs_per_map, *args, blocks, *out)
     if rc != 0:
         raise RuntimeError(f"fused_filter kernel launch failed: cudaError "
                            f"{rc}")
@@ -258,14 +298,22 @@ def fused_dynamic_filter_bwd(net_conv: torch.Tensor, filt: torch.Tensor,
                              rfilt: torch.Tensor, fused: torch.Tensor,
                              d_gated: torch.Tensor, d_resp: torch.Tensor,
                              num_filters: int = 7, gate: str = "sigmoid",
-                             normalize: bool = False
+                             normalize: bool = False, exprs_per_map: int = 1
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """See `fused_dynamic_filter_bwd_plain`. A CPU tensor takes the plain
     version; a CUDA tensor launches the backward kernel and its fixed-order
     reduction on the current stream, or raises. On the card the inputs
     follow the forward's rules; d_gated is a contiguous map of
-    net_conv's dtype, fused and d_resp contiguous (E, H, W, 1) f32."""
+    net_conv's dtype, fused and d_resp contiguous (E, H, W, 1) f32.
+    Expressions read one map each (a stride-0 map for one read by all);
+    maps shared by some of them (exprs_per_map > 1) raise."""
+    if exprs_per_map != 1:
+        raise NotImplementedError(
+            f"fused_dynamic_filter_bwd: maps shared by {exprs_per_map} of "
+            f"{filt.shape[0]} expressions have no backward yet (ROADMAP "
+            f"Queue 1 #5.5: the training gather's in-place read); one map "
+            f"for all goes in as a stride-0 map")
     if net_conv.device.type == "cpu":
         return fused_dynamic_filter_bwd_plain(
             net_conv, filt, rfilt, fused, d_gated, d_resp, num_filters, gate,
@@ -329,11 +377,12 @@ class FusedDynamicFilter(torch.autograd.Function):
     through `fused_dynamic_filter_bwd` (the kernel on a card)."""
 
     @staticmethod
-    def forward(ctx, net_conv, filt, rfilt, num_filters, gate, normalize):
+    def forward(ctx, net_conv, filt, rfilt, num_filters, gate, normalize,
+                exprs_per_map):
         gated, fused = _forward(net_conv, filt, rfilt, num_filters, gate,
-                                normalize)
+                                normalize, exprs_per_map)
         ctx.save_for_backward(net_conv, filt, rfilt, fused)
-        ctx.args = (num_filters, gate, normalize)
+        ctx.args = (num_filters, gate, normalize, exprs_per_map)
         return gated, fused
 
     @staticmethod
@@ -342,18 +391,30 @@ class FusedDynamicFilter(torch.autograd.Function):
         d_conv, d_filt, d_rfilt = fused_dynamic_filter_bwd(
             net_conv, filt, rfilt, fused, d_gated.contiguous(),
             d_resp.contiguous(), *ctx.args)
-        return d_conv, d_filt, d_rfilt, None, None, None
+        return d_conv, d_filt, d_rfilt, None, None, None, None
 
 
 def fused_dynamic_filter(net_conv: torch.Tensor, filt: torch.Tensor,
                          rfilt: torch.Tensor, num_filters: int = 7,
-                         gate: str = "sigmoid", normalize: bool = False
+                         gate: str = "sigmoid", normalize: bool = False,
+                         exprs_per_map: int = 1
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """See `fused_dynamic_filter_plain`; differentiable in all three
-    tensors. A CPU tensor takes the plain versions; a CUDA tensor launches
-    the kernels on the current stream, or raises. On the card net_conv is
-    bf16 or f32, and each expression's (H, W, C) map must be contiguous;
-    the expression stride may be 0 (a broadcast map is read in place,
-    never copied)."""
+    tensors (in net_conv only when each map serves one expression, or one
+    map all of them). A CPU tensor takes the plain versions; a CUDA tensor
+    launches the kernels on the current stream, or raises. On the card
+    net_conv is bf16 or f32, and each (H, W, C) map must be contiguous;
+    the map stride may be 0 (a broadcast map is read in place, never
+    copied), and each map is read in place by its `exprs_per_map`
+    expressions. One map for all expressions goes in as the stride-0
+    broadcast."""
+    if exprs_per_map < 1 or net_conv.shape[0] * exprs_per_map != \
+            filt.shape[0]:
+        raise ValueError(f"fused_dynamic_filter: {net_conv.shape[0]} maps "
+                         f"of {exprs_per_map} expressions each for "
+                         f"{filt.shape[0]} filters")
+    if net_conv.shape[0] == 1 and exprs_per_map > 1:
+        net_conv = net_conv.expand(exprs_per_map, *net_conv.shape[1:])
+        exprs_per_map = 1
     return FusedDynamicFilter.apply(net_conv, filt, rfilt, num_filters, gate,
-                                    normalize)
+                                    normalize, exprs_per_map)

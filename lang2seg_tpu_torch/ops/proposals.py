@@ -25,6 +25,17 @@ class Proposals(NamedTuple):
     valid: torch.Tensor     # (E, post_nms_n) bool
 
 
+def _extents(im_h, im_w, e: int, device):
+    """im_h / im_w as f32 tensors on `device` that clip (E, N, 4) boxes:
+    scalars as they are, (E,) tensors as (E, 1, 1) against the (E, N, 1)
+    box coordinates."""
+    im_h, im_w = (torch.as_tensor(v, dtype=torch.float32, device=device)
+                  for v in (im_h, im_w))
+    if im_h.dim() == 1:
+        im_h, im_w = im_h.reshape(e, 1, 1), im_w.reshape(e, 1, 1)
+    return im_h, im_w
+
+
 @torch.no_grad()
 def proposal_layer(scores: torch.Tensor, deltas: torch.Tensor,
                    anchors: torch.Tensor, im_h, im_w, pre_nms_n: int,
@@ -36,11 +47,7 @@ def proposal_layer(scores: torch.Tensor, deltas: torch.Tensor,
     through the proposals (the reference detaches the rois before
     cropping, network.py:117)."""
     e, n = scores.shape
-    im_h, im_w = (torch.as_tensor(v, dtype=torch.float32,
-                                  device=scores.device) for v in (im_h, im_w))
-    if im_h.dim() == 1:
-        # (E,) -> (E, 1, 1) against the (E, N, 1) box coordinates
-        im_h, im_w = im_h.reshape(e, 1, 1), im_w.reshape(e, 1, 1)
+    im_h, im_w = _extents(im_h, im_w, e, scores.device)
     boxes = clip_boxes(decode_boxes(anchors, deltas.float()), im_h, im_w)
     k = min(pre_nms_n, n)
     # stable sort: equal scores keep ascending-index order, the tie order
@@ -68,8 +75,8 @@ def proposal_top_layer(scores: torch.Tensor, deltas: torch.Tensor,
     in ascending index order, as `lax.top_k` breaks ties), decoded and
     clipped. With fewer than top_n anchors the reference draws top_n
     indices uniformly with replacement instead: here from `generator`, on
-    its own device. `order` (E, top_n) injects the indices. Every row is
-    valid."""
+    its own device. `order` (E, top_n) injects the indices. im_h / im_w
+    as in `proposal_layer`. Every row is valid."""
     e, n = scores.shape
     if order is None:
         if n < top_n:
@@ -81,8 +88,7 @@ def proposal_top_layer(scores: torch.Tensor, deltas: torch.Tensor,
         else:
             order = torch.sort(-scores, dim=1, stable=True).indices[:, :top_n]
     order = order.to(scores.device, torch.int64)
-    im_h, im_w = (torch.as_tensor(v, dtype=torch.float32,
-                                  device=scores.device) for v in (im_h, im_w))
+    im_h, im_w = _extents(im_h, im_w, e, scores.device)
     boxes = decode_boxes(anchors[order], torch.gather(
         deltas.float(), 1, order[..., None].expand(e, top_n, 4)))
     return Proposals(clip_boxes(boxes, im_h, im_w),

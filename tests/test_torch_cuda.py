@@ -118,6 +118,33 @@ def test_gate_kernel_matches_plain(dev, dtype, k, gate, normalize):
     assert bool(((gk.float() - want).abs() <= tol).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("maps,per_map", [(2, 3), (3, 4), (1, 5)])
+def test_gate_kernel_reads_a_map_per_image(dev, dtype, maps, per_map):
+    """exprs_per_map: expression e reads map e // per_map in place, to the
+    tolerances above, one launch; the one-map case is the stride-0 call's
+    bits."""
+    g = torch.Generator().manual_seed(maps * 10 + per_map)
+    e, h, w, c = maps * per_map, 9, 20, 512
+    conv = torch.randn((maps, h, w, c), generator=g).to(dev, dtype)
+    filt = torch.tanh(torch.randn((e, c, 7), generator=g)).to(dev)
+    rfilt = torch.tanh(torch.randn((e, 7), generator=g)).to(dev)
+    before = fused_filter.launches
+    gk, rk = fused_filter.fused_dynamic_filter(conv, filt, rfilt, 7,
+                                               "sigmoid", True, per_map)
+    assert fused_filter.launches == before + 1
+    gp, rp = fused_dynamic_filter_plain(conv, filt, rfilt, 7, "sigmoid",
+                                        True, per_map)
+    assert float((rk - rp).abs().max()) <= 1e-3 * float(rp.abs().max())
+    rep = conv.repeat_interleave(per_map, 0)
+    want = (rep.float() * torch.sigmoid(rk)).to(dtype).float()
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    assert bool(((gk.float() - want).abs() <= ulp * want.abs() + 1e-30).all())
+    gr, rr = fused_filter.fused_dynamic_filter(rep, filt, rfilt, 7,
+                                               "sigmoid", True)
+    assert torch.equal(gk, gr) and torch.equal(rk, rr)
+
+
 def bf16_ulps_floored(got, want):
     """bf16 ulp distance, counted in ulps of max(|want|, 2^-8 max|want|).
     d_conv = d_gated * g + scale * (d_resp0 . filt) is rounded once to
@@ -478,6 +505,50 @@ def test_eval_split_bucketed_image_on_card(dev):
     assert accs["cuda"].num_sent == accs["cpu"].num_sent == 9
     assert accs["cuda"].det_correct == accs["cpu"].det_correct
     assert abs(accs["cuda"].cum_i - accs["cpu"].cum_i) <= 4
+
+
+def test_eval_split_chunks_on_card(dev):
+    """Two images a dispatch (the val image twice, then the train images
+    as val batches), staged and inline, the extent crop on: NMS and the
+    gate once a dispatch, and the state of one image a dispatch."""
+    from lang2seg_tpu_torch.data.loader import GtBatchLoader
+    from lang2seg_tpu_torch.engine.evaluator import Evaluator
+    from lang2seg_tpu_torch.models.network import build_model
+    from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator
+    from lang2seg_tpu_torch.weights import init_params
+    cfg, info, labels, read = _tiny_refer()
+    cfg.data.wire_extent_granularity = 32
+    loader = GtBatchLoader(info, labels, cfg, read_image=read)
+    batches = [loader.get_test_batch(sp, buckets=(8, 16))
+               for sp in ("val", "train", "train", "train", "val")]
+    sd = init_params(cfg, 7)
+    for k in ("rpn_cls_score_net.weight", "rpn_cls_score_net.bias"):
+        sd[k] = sd[k] * 100.0
+    model = build_model(cfg, device="cuda", state_dict=sd)
+    states = {}
+    for k, staged in ((1, True), (2, True), (2, False)):
+        acc = SegEvalAccumulator()
+        ev = Evaluator(model, cfg)
+        calls, real = [], ev._dispatch_staged
+
+        def counted(st, real=real, calls=calls):
+            c0 = (nms_cuda.launches, fused_filter.launches)
+            rec = real(st)
+            calls.append((nms_cuda.launches - c0[0],
+                          fused_filter.launches - c0[1]))
+            return rec
+
+        ev._dispatch_staged = counted
+        ev.eval_split(batches, images_per_dispatch=k, stage_uploads=staged,
+                      acc=acc)
+        assert calls and all(c == (1, 1) for c in calls)
+        states[(k, staged)] = (acc.num_sent, acc.det_correct,
+                               tuple(acc.seg_correct), acc.cum_i, acc.cum_u)
+    assert states[(2, True)] == states[(2, False)]
+    one, two = states[(1, True)], states[(2, True)]
+    assert one[:3] == two[:3]
+    assert abs(one[3] - two[3]) <= 4 * len(batches)
+    assert abs(one[4] - two[4]) <= 4 * len(batches)
 
 
 def test_nms_kernel_at_the_pretrain_shape(dev):

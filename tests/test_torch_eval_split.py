@@ -139,18 +139,20 @@ def test_eval_split_mask_bank_and_pipeline(setup):
     assert _state(_port_eval(setup, pipeline_depth=1)) == base
 
 
-def test_eval_split_restores_mode_and_refuses_chunks(setup):
+def test_eval_split_restores_mode_and_chunks_match(setup):
+    """eval_split leaves a model in train mode as it found it, and two
+    images a dispatch over the same val batches score as one."""
     _, port_files, jax_files, cfg, model, _, _ = setup
     pcfg = to_port_cfg(cfg)
     ev = Evaluator(model, pcfg, device="cpu")
     model.train()
     loader = GtBatchLoader(*port_files, pcfg, seed=3)
-    s = ev.eval_split(loader.iter_test_batches("val", buckets=BUCKETS))
+    batches = list(loader.iter_test_batches("val", buckets=BUCKETS))
+    s = ev.eval_split(batches)
     assert model.training
     model.eval()
     assert all(0.0 <= v <= 1.0 for v in s.values())
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        ev.eval_split([], images_per_dispatch=2)
+    assert ev.eval_split(batches, images_per_dispatch=2) == s
 
 
 def _jax_eval(setup, ev_kw, **data_kw):
