@@ -237,16 +237,49 @@ Phases, each fatal on failure (nothing is caught):
      and images/s, host -> device bytes, each dispatch's device span and
      the peak memory of each mode (from its checked pass), the device's
      idle share of a pass (torch.profiler) at 1 and 4 images a dispatch
-     with the crop on and staged uploads, the bucket-32 chunk's peak.
+     with the crop on and staged uploads, the bucket-32 chunk's peak;
+  28. the train step as a CUDA graph (`make_multi_train_step`): the
+     port's SGD (the LR read from device tensors) against torch SGD's
+     foreach step on the card, bit for bit; then for `response` and
+     `cycle_response` at full width (2 images x 16 expressions, RPN
+     12000 -> 2000) 3 dispatches of K = 4 and for MobileNetV1 + pool 3 of
+     K = 2 (the ROI pool kernels inside the graph), each with an LR decay
+     inside the run, against as many eager `train_step`s from the same
+     weights, batches and generator seed: every parameter, momentum
+     buffer, the generator's state and every step's losses bit for bit;
+     the wrappers' counts set to 0 before the graphed run and read after
+     it (the warm step and the capture: twice a kernel), the replays'
+     kernel runs counted by name in the trace of the last dispatch (K a
+     kernel); eager and graphed ms
+     a step (windows ending in a sync), the capture's s, the idle share of
+     eager steps and of a graphed dispatch under torch.profiler, the
+     graphed run's peak memory;
+  29. data parallel at world size 1 over NCCL (a file:// rendezvous):
+     `make_sharded_train_step` against `train_step` on one batch with
+     expr_uid and the same generators, bit for bit; then a sharded step
+     and 2 dispatches of `make_sharded_multi_step` (K = 4, the NCCL
+     all-reduce captured in the graph) against 9 eager sharded steps, bit
+     for bit; the wrappers called three times a kernel (the sharded step,
+     the warm step, the capture), the second dispatch's kernel runs
+     counted by name in its trace (4 a kernel);
+  30. two ranks on the one card over gloo (NCCL refuses two ranks on one
+     card; gloo with CUDA tensors is this check's configuration): two
+     processes of this script (`--dp-rank R DIR`) take one sharded step
+     on the two blocks of a full-width batch with expr_uid, against the
+     shardwise oracle in this process (each block's gradients in turn,
+     averaged, one update): parameters, momentum, losses and generators
+     bit for bit; then `eval_split_mesh` over phase 12's val and testA
+     images against one process's `eval_split`, equal.
 Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
 shape, its launches from the runs of that shape's path: serving in phases
 5, 14 and 24 and the bucket-16 images of phases 12, 16 and 20, training in
-phases 7, 9, 12, 14, 17g, 19, 21b and 24, the eval buckets 8 and 32 in
+phases 7, 9, 12, 14, 17g, 19, 21b, 24, 28 and 29 (the kernel runs traced
+in the profiled dispatches' replays) and 30 (both ranks), the eval buckets 8 and 32 in
 phases 12, 16 and 20, the pretraining shape (2, 12000) -> 2000 in phase
 17's steps, phase 27's dispatches at each entry's shape (every shape
 they launched a kernel at has an entry; NMS at 4, 64 and 128 lanes and
 the gate at E = 4 and on 4 or 2 maps only there); the gate's backward's from training; the C = 512 gate's from
-phases 14 and 24; the ROI pool entries, one for each shape at which
+phases 14, 24 and 28 (MobileNetV1); the ROI pool entries, one for each shape at which
 phases 24-26 launched the forward or the backward, with the launches at
 exactly that shape)
 and, last, the `{"ok": true, ...}` line. Details go to
@@ -268,6 +301,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -297,8 +331,10 @@ from lang2seg_tpu_torch.engine.evaluator import Evaluator  # noqa: E402
 from lang2seg_tpu_torch.engine.inference import Inference  # noqa: E402
 from lang2seg_tpu_torch.engine.train_captioner import (  # noqa: E402
     captioner_train_step, extract_caption_features, init_captioner_state)
+from lang2seg_tpu_torch.engine.optimizer import SGD, set_lr  # noqa: E402
 from lang2seg_tpu_torch.engine.train_state import (  # noqa: E402
-    create_train_state, to_device, train_step)
+    create_train_state, make_multi_train_step, stack_batches, to_device,
+    train_step)
 from lang2seg_tpu_torch.engine.trainer import Trainer  # noqa: E402
 from lang2seg_tpu_torch.models.network import build_model  # noqa: E402
 from lang2seg_tpu_torch.ops import (  # noqa: E402
@@ -307,6 +343,11 @@ from lang2seg_tpu_torch.ops.fused_filter import (  # noqa: E402
     fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain,
     per_expression)
 from lang2seg_tpu_torch.ops.nms import nms_padded  # noqa: E402
+from lang2seg_tpu_torch.parallel import (  # noqa: E402
+    initialize_multihost, make_sharded_multi_step, make_sharded_train_step,
+    shard_batch, sync_replicas)
+from lang2seg_tpu_torch.parallel.train import (  # noqa: E402
+    dropout_generator, sampling_generator, shardwise_step)
 from lang2seg_tpu_torch.tools.profile_gate import (  # noqa: E402
     SHAPES as GATE_SHAPES, bf16_ulp_distance, bf16_ulps_floored, gate_bound,
     gate_bwd_bound, gate_inputs, kernel_registers)
@@ -349,7 +390,11 @@ LAUNCHED_BY = {"serve": lambda counter: (("serve", counter),
                                          ("recipe_link", counter),
                                          ("train_att", counter),
                                          ("train_topdown", counter),
-                                         ("train_resnet_pool", counter))}
+                                         ("train_resnet_pool", counter),
+                                         ("graph_response", counter),
+                                         ("graph_cycle", counter),
+                                         ("dp_world1", counter),
+                                         ("dp_gloo", counter))}
 # phase 27's launches at the serving shape: one image of 16 sentences a
 # dispatch (NMS at 16 lanes, the gate through the stride-0 map)
 EVAL_MODE_KEY_16 = {"nms": "nms_16", "fused_filter": "fused_filter_1x16"}
@@ -358,7 +403,8 @@ EVAL_MODE_KEY_16 = {"nms": "nms_16", "fused_filter": "fused_filter_1x16"}
 # entries, their C = 512 gate to its own
 VGG_NMS_RUNS = {"serve": (("serve_vgg", "nms"),
                           ("serve_mobilenet", "nms")),
-                "train": (("train_vgg", "nms"), ("train_mobilenet", "nms"))}
+                "train": (("train_vgg", "nms"), ("train_mobilenet", "nms"),
+                          ("graph_mobilenet", "nms"))}
 EVAL_BUCKETS = (8, 16, 32)
 # the mini REFER split of phases 12, 20 and 21c: (image sizes, refs an
 # image, splits); 8 images, 4 of them val / testA with 6 to 18 sentences
@@ -1501,7 +1547,9 @@ def check_gate_vgg(dev):
                "registers": regs["forward"],
                "launched_by": ((path, "fused_filter"),
                                (path.replace("vgg", "mobilenet"),
-                                "fused_filter"))}
+                                "fused_filter"))
+               + ((("graph_mobilenet", "fused_filter"),)
+                  if path == "train_vgg" else ())}
         log(f"[vgg-gate] {maps}: kernel {ms:.4f} ms device time, plain "
             f"{plain_ms:.3f} ms, bound {bound * 1e3:.2f} us ({by}: {byts} B, "
             f"{ops} ops); plan {res['tile_plan']}, registers {regs}")
@@ -1542,7 +1590,8 @@ def check_gate_vgg(dev):
                          "tiles_per_block": plan["tiles_per_block"]},
            "registers": regs["backward"],
            "launched_by": (("train_vgg", "fused_filter_bwd"),
-                           ("train_mobilenet", "fused_filter_bwd"))}
+                           ("train_mobilenet", "fused_filter_bwd"),
+                           ("graph_mobilenet", "fused_filter_bwd"))}
     log(f"[vgg-gate-bwd] kernel {ms:.4f} ms device time, plain "
         f"{plain_ms:.3f} ms, bound {bound * 1e3:.2f} us ({by}: {byts} B, "
         f"{ops} ops); plan {res['tile_plan']}")
@@ -2716,7 +2765,453 @@ def demo_and_dumps(dev):
     return runs
 
 
+# ------------------------------------------------------------ phase 28
+
+def same_train_states(a, b):
+    """(parameters and buffers, momentum buffers) of two train states
+    equal bit for bit."""
+    pa, pb = a.model.state_dict(), b.model.state_dict()
+    params = all(torch.equal(v, pb[k]) for k, v in pa.items())
+    ma = [a.optimizer.state[p]["momentum_buffer"]
+          for g in a.optimizer.param_groups for p in g["params"]]
+    mb = [b.optimizer.state[p]["momentum_buffer"]
+          for g in b.optimizer.param_groups for p in g["params"]]
+    return params, len(ma) == len(mb) and all(
+        torch.equal(x, y) for x, y in zip(ma, mb))
+
+
+def profiled_window(fn):
+    """fn() under torch.profiler (the device only): (the host window in
+    ms, the device's busy ms, its idle share of the window, the hand
+    kernels' runs counted by name in the trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    busy = profile_eval.device_busy(prof)["busy_ms"]
+    return window, busy, 1.0 - busy / window, \
+        profile_eval.kernel_launches(prof)
+
+
+def timed_window(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def check_sgd_on_card(state):
+    """The port's SGD on the card (the LR read from device tensors,
+    `p.addcmul_(buf, -lr)`) against torch SGD's foreach step with the LR
+    as a float, bit for bit: 3 steps of random gradients on copies of
+    `state`'s trainable parameters, across an LR boundary."""
+    cfg = copy.deepcopy(state.model.cfg)
+    cfg.train.stepsize = (1,)
+    groups = [[p.detach().clone() for p in g["params"]]
+              for g in state.optimizer.param_groups]
+    twins = [[p.clone() for p in grp] for grp in groups]
+
+    def opt_of(cls, params, **kw):
+        return cls([{"params": ps, "lr_mult": g["lr_mult"],
+                     "weight_decay": g["weight_decay"]}
+                    for ps, g in zip(params, state.optimizer.param_groups)],
+                   lr=cfg.train.learning_rate, momentum=cfg.train.momentum,
+                   **kw)
+    ours = opt_of(SGD, groups)
+    ref = opt_of(torch.optim.SGD, twins, foreach=True)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for step in range(3):
+        for a, b in zip(sum(groups, []), sum(twins, [])):
+            a.grad = torch.randn(a.shape, generator=g, device="cuda")
+            b.grad = a.grad.clone()
+        for opt in (ours, ref):
+            set_lr(opt, cfg, step)
+            opt.step()
+    same = all(torch.equal(a, b) for a, b in zip(sum(groups, []),
+                                                 sum(twins, [])))
+    log(f"[sgd] the port's SGD (device LR) against torch SGD (foreach, "
+        f"float LR), 3 steps over {len(sum(groups, []))} tensors across an "
+        f"LR boundary: bit-identical={same}")
+    check(same, "the port's SGD differs from torch SGD on the card")
+    return same
+
+
+def graph_vs_eager(path, cfg, k=4, dispatches=3, decay_at=6, num_expr=16,
+                   check_sgd=False):
+    """Phase 28 for one configuration: K steps a dispatch for `dispatches`
+    dispatches through `make_multi_train_step` (the warm step, the capture
+    and the replays) against as many eager `train_step`s from the same
+    weights, batches (4 synthetic ones of 2 images x `num_expr`
+    expressions in turn) and generator seed, with an LR decay after step
+    `decay_at`: every parameter, momentum buffer, the generator's state
+    and every step's losses bit for bit. The wrappers' counts are set to
+    0 before the graphed run and read after it: the warm step and the
+    capture call each wrapper once a step. The replays run the kernels
+    without the wrappers: their runs are counted by name in the trace of
+    the profiled dispatches, K a dispatch for each kernel of the step.
+    Times: eager ms a step over steps K + 1 .. 2K and graphed over
+    dispatch 2 (each a window ending in a sync), the capture's s; the idle
+    share of the remaining eager steps and of the remaining dispatches
+    under torch.profiler; the graphed run's peak memory. With
+    `check_sgd`, first `check_sgd_on_card` on the model's groups. Returns
+    the kernels' runs traced in the profiled dispatches (the ROI pool's by
+    the one shape the wrappers saw)."""
+    cfg = copy.deepcopy(cfg)
+    cfg.train.stepsize = (decay_at,)
+    n = k * dispatches
+    host = [to_wire(cfg, synthetic_batch(cfg, 2, num_expr, seed=s))
+            for s in range(4)]
+    seq = [host[i % 4] for i in range(n)]
+    eager = create_train_state(cfg, "cuda", seed=0)
+    graphed = create_train_state(cfg, "cuda",
+                                 state_dict=eager.model.state_dict())
+    if check_sgd:
+        record["sgd_on_card"] = check_sgd_on_card(eager)
+    ge = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    gg = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    singles = [to_device(b, "cuda") for b in seq]
+    stacked = [to_device(stack_batches(seq[d * k:(d + 1) * k]), "cuda")
+               for d in range(dispatches)]
+    want = []
+
+    def eager_steps(lo, hi):
+        for j in range(lo, hi):
+            want.append(train_step(eager, singles[j], ge))
+    check(dispatches >= 3, "phase 28 times dispatch 2 and profiles 3")
+    eager_steps(0, k)
+    eager_ms = timed_window(lambda: eager_steps(k, 2 * k)) / k
+    _, eager_busy, eager_idle, _ = profiled_window(
+        lambda: eager_steps(2 * k, n))
+    eager_busy /= n - 2 * k
+    multi = make_multi_train_step(graphed, gg)
+    got = []
+    nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
+    reset_pool_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first_ms = timed_window(lambda: got.append(multi(stacked[0])))
+    graph_ms = timed_window(lambda: got.append(multi(stacked[1]))) / k
+    _, graph_busy, graph_idle, traced = profiled_window(
+        lambda: [got.append(multi(x)) for x in stacked[2:]])
+    graph_busy /= k * (dispatches - 2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    keys = ("nms", "fused_filter", "fused_filter_bwd", "roi_pool",
+            "roi_pool_bwd")
+    calls = dict(zip(keys, launch_counts() + pool_launch_counts()))
+    shapes = pool_shape_counts()
+    pool = cfg.model.pooling_mode == "pool"
+    want_step = (1, 1, 1) + ((1, 1) if pool else (0, 0))
+    replays = k * (dispatches - 2)
+    check(calls == {key: 2 * c for key, c in zip(keys, want_step)},
+          f"[{path}] the warm step and the capture called the wrappers "
+          f"{calls} times")
+    check(traced == {key: replays * c for key, c in zip(keys, want_step)},
+          f"[{path}] the trace of {replays} replays ran the kernels "
+          f"{traced} times")
+    runs = dict(traced)
+    if pool:
+        for key, counter in (("roi_pool", "roi_pool_shapes"),
+                             ("roi_pool_bwd", "roi_pool_bwd_shapes")):
+            check(len(shapes[counter]) == 1,
+                  f"[{path}] ROI pool launches at {dict(shapes[counter])}")
+            runs[counter] = collections.Counter(
+                {shape: traced[key] for shape in shapes[counter]})
+    params, momentum = same_train_states(eager, graphed)
+    gen = torch.equal(ge.get_state(), gg.get_state())
+    loss_bits = all(torch.equal(got[j // k][key][j % k], want[j][key])
+                    for j in range(n) for key in want[j])
+    lrs = [g["lr"] for g in graphed.optimizer.param_groups]
+    decayed = lrs == [g["lr"] for g in eager.optimizer.param_groups] and \
+        abs(lrs[0] - cfg.train.learning_rate * cfg.train.gamma) <= \
+        1e-12 * cfg.train.learning_rate
+    finite = all(bool(torch.isfinite(v).all()) for d in got
+                 for v in d.values())
+    log(f"[{path}] {dispatches} dispatches of K = {k} (LR decay after step "
+        f"{decay_at}) against {n} eager steps: parameters bit-identical="
+        f"{params}, momentum={momentum}, generator={gen}, losses={loss_bits}, "
+        f"LR decayed={decayed}, finite={finite}")
+    check(params and momentum and gen and loss_bits and decayed and finite,
+          f"[{path}] the graphed steps differ from the eager steps")
+    entry = {"k": k, "dispatches": dispatches, "decay_at": decay_at,
+             "eager_ms": eager_ms, "graphed_ms": graph_ms,
+             "first_dispatch_ms": first_ms, "capture_s": multi.capture_s,
+             "eager_busy_ms": eager_busy, "graphed_busy_ms": graph_busy,
+             "eager_idle": eager_idle, "graphed_idle": graph_idle,
+             "peak_gib": peak, "wrapper_calls": calls,
+             "traced_launches": traced, "traced_replays": replays,
+             "losses": [{key: float(v) for key, v in w.items()}
+                        for w in want]}
+    log(f"[{path}] eager {eager_ms:.2f} ms a step (device busy "
+        f"{eager_busy:.2f} ms, idle {100 * eager_idle:.1f}%), graphed "
+        f"{graph_ms:.2f} ms a step (busy {graph_busy:.2f} ms, idle "
+        f"{100 * graph_idle:.1f}%); first dispatch {first_ms:.1f} ms "
+        f"(capture {multi.capture_s:.2f} s); peak {peak:.2f} GiB; kernel "
+        f"runs traced in {replays} replays {traced}")
+    record[path] = entry
+    del eager, graphed, multi, singles, stacked
+    return runs
+
+
+def graphed_steps():
+    """Phase 28: the train step as a CUDA graph, for `response` and
+    `cycle_response` at full width (3 dispatches of K = 4) and MobileNetV1
+    + pool (3 dispatches of K = 2); the port's SGD against torch's on the
+    card first."""
+    runs = {"graph_response": graph_vs_eager("graph_response",
+                                             flagship_config(),
+                                             check_sgd=True),
+            "graph_cycle": graph_vs_eager(
+                "graph_cycle", flagship_config("cycle_response"))}
+    runs["graph_mobilenet"] = graph_vs_eager(
+        "graph_mobilenet", mobilenet_pool_config(), k=2, dispatches=3,
+        decay_at=3)
+    return runs
+
+
+# ------------------------------------------------------------ phase 29
+
+def uid_batches(cfg, n, blocks=1):
+    """n batches of `blocks` blocks of 2 images x 16 expressions with
+    stable uids (4 synthetic draws in turn), in the wire formats."""
+    out = []
+    for i in range(n):
+        parts = []
+        for r in range(blocks):
+            b = to_wire(cfg, synthetic_batch(cfg, 2, 16,
+                                             seed=(i % 4) * blocks + r))
+            b["expr_uid"] = np.arange(16, dtype=np.int32) + 16 * (
+                (i % 4) * blocks + r)
+            parts.append(b)
+        out.append({key: np.concatenate([p[key] for p in parts])
+                    for key in parts[0]})
+    return out
+
+
+def data_parallel_world1():
+    """Phase 29: data parallel at world size 1 over NCCL (a file:// rendezvous
+    in a temporary directory): `make_sharded_train_step` against a
+    single-device `train_step` on the same batch with expr_uid and the same
+    generators, bit for bit; then `make_sharded_multi_step` (K = 4, the
+    all-reduce captured in the graph), two dispatches, against 8 eager
+    sharded steps, bit for bit. The wrappers count the sharded step's,
+    the warm step's and the capture's calls; the second dispatch runs
+    under torch.profiler and its replays' kernel runs are counted by name.
+    Returns those traced runs."""
+    cfg = flagship_config()
+    batches = [to_device(b, "cuda") for b in uid_batches(cfg, 9)]
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = initialize_multihost(f"file://{tmp}/pg", 1, 0, device="cuda")
+        try:
+            check(mesh.backend == "nccl" and mesh.size == 1)
+            single = create_train_state(cfg, "cuda", seed=0)
+            sd = single.model.state_dict()
+            eager = create_train_state(cfg, "cuda", state_dict=sd)
+            graphed = create_train_state(cfg, "cuda", state_dict=sd)
+            gens = {name: (dropout_generator(cfg.seed, 0, "cuda"),
+                           sampling_generator(cfg.seed, "cuda"))
+                    for name in ("single", "eager", "graphed")}
+            for st in (eager, graphed):
+                sync_replicas(st.model, mesh)
+            ls = train_step(single, batches[0], gens["single"][0], None,
+                            gens["single"][1])
+            step_e = make_sharded_train_step(eager, mesh, *gens["eager"])
+            le = [step_e(batches[0])]
+            params, momentum = same_train_states(single, eager)
+            losses = all(torch.equal(ls[key], le[0][key]) for key in ls)
+            log(f"[dp-world1] sharded step against the single-device step "
+                f"(expr_uid draws): parameters bit-identical={params}, "
+                f"momentum={momentum}, losses={losses}")
+            check(params and momentum and losses,
+                  "the world-1 sharded step differs from the single step")
+            del single
+            le += [step_e(b) for b in batches[1:]]
+            nms_cuda.launches = fused_filter.launches = 0
+            fused_filter.bwd_launches = 0
+            step_g = make_sharded_train_step(graphed, mesh, *gens["graphed"])
+            multi = make_sharded_multi_step(graphed, mesh, *gens["graphed"])
+            check(multi.graphed, "the NCCL multi-step is not graphed")
+            lg = [step_g(batches[0])]
+
+            def dispatch(d):
+                stacked = {key: torch.stack([b[key] for b in
+                                             batches[1 + 4 * d:5 + 4 * d]])
+                           for key in batches[0]}
+                out = multi(stacked)
+                lg.extend({key: v[j] for key, v in out.items()}
+                          for j in range(4))
+            dispatch(0)
+            *_, traced = profiled_window(lambda: dispatch(1))
+            calls = dict(zip(("nms", "fused_filter", "fused_filter_bwd"),
+                             launch_counts()))
+            params, momentum = same_train_states(eager, graphed)
+            losses = all(torch.equal(a[key], b[key])
+                         for a, b in zip(le, lg) for key in a)
+            gen = all(torch.equal(a.get_state(), b.get_state()) for a, b in
+                      zip(gens["eager"], gens["graphed"]))
+            launches = {key: traced[key] for key in calls}
+            log(f"[dp-world1] a sharded step and 2 graphed dispatches of K = "
+                f"4 (the NCCL all-reduce captured) against 9 eager sharded "
+                f"steps: parameters bit-identical={params}, momentum="
+                f"{momentum}, losses={losses}, generators={gen}; capture "
+                f"{multi.capture_s:.2f} s; wrapper calls {calls}, kernel "
+                f"runs traced in dispatch 2 {traced}")
+            check(params and momentum and losses and gen,
+                  "the graphed NCCL multi-step differs from eager steps")
+            check(calls == {key: 3 for key in calls},
+                  f"the sharded step, the warm step and the capture called "
+                  f"the wrappers {calls} times")
+            check(launches == {key: 4 for key in calls},
+                  f"the trace of dispatch 2 ran the kernels {traced} times")
+            record["dp_world1"] = {"capture_s": multi.capture_s,
+                                   "wrapper_calls": calls,
+                                   "traced_launches": launches}
+            del eager, graphed, multi
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
+# ------------------------------------------------------------ phase 30
+
+DP_WORLD = 2
+
+
+def dp_eval_batches(cfg):
+    """Phase 12's mini split (in memory): the val and testA images at the
+    sentence buckets."""
+    info, labels, read = mini_refer_split(*FILE_SPLIT, seed=3)
+    loader = GtBatchLoader(info, labels, cfg, seed=3, read_image=read)
+    return [b for split in ("val", "testA")
+            for b in loader.iter_test_batches(split, buckets=EVAL_BUCKETS)]
+
+
+def dp_rank_worker(rank, root):
+    """One rank of phase 30 (`python3 chip_smoke.py --dp-rank R DIR`): the
+    gloo process group through DIR, the phase's weights and batch from
+    DIR on the card; one sharded step on block R (gloo all-reduces the
+    card's tensors through the host), the ranks' weights held equal after
+    it, then eval_split_mesh over the mini split. Writes DIR/out<R>.pt."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    payload = torch.load(os.path.join(root, "payload.pt"), weights_only=False)
+    cfg = payload["cfg"]
+    mesh = initialize_multihost(f"file://{root}/pg", DP_WORLD, rank,
+                                device="cuda", backend="gloo",
+                                timeout_s=600)
+    try:
+        state = create_train_state(cfg, "cuda",
+                                   state_dict=payload["weights"])
+        sync_replicas(state.model, mesh)
+        gen = dropout_generator(cfg.seed, rank, "cuda")
+        sgen = sampling_generator(cfg.seed, "cuda")
+        step = make_sharded_train_step(state, mesh, gen, sgen)
+        block = to_device(shard_batch(payload["batch"], DP_WORLD, rank),
+                          "cuda")
+        nms_cuda.launches = fused_filter.launches = 0
+        fused_filter.bwd_launches = 0
+        losses = step(block)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        sync_replicas(state.model, mesh)      # every rank holds rank 0's
+        ev = Evaluator(state.model, cfg, device="cuda")
+        summary = ev.eval_split_mesh(payload["eval"], mesh)
+        out = {"losses": {k: v.cpu() for k, v in losses.items()},
+               "launches": launches, "summary": summary,
+               "gen": gen.get_state(), "sampling": sgen.get_state()}
+        if rank == 0:
+            opt = state.optimizer
+            out["params"] = {k: v.cpu() for k, v in
+                             state.model.state_dict().items()}
+            out["momentum"] = [opt.state[p]["momentum_buffer"].cpu()
+                               for g in opt.param_groups
+                               for p in g["params"]]
+        torch.save(out, os.path.join(root, f"out{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel_two_ranks():
+    """Phase 30: two ranks on the one card over gloo (NCCL refuses two
+    ranks on one card: gloo is this test's configuration), two processes
+    of this script with CUDA tensors: one sharded step on a batch of two
+    blocks (2 images x 16 expressions each, with expr_uid) against the
+    one-process shardwise oracle on the card (each block's gradients in
+    turn, averaged, one update): parameters, momentum and losses bit for
+    bit; then `eval_split_mesh` over the mini split against one process's
+    `eval_split`, exactly. Returns the ranks' launches."""
+    cfg = flagship_config()
+    batch = uid_batches(cfg, 1, blocks=DP_WORLD)[0]
+    oracle = create_train_state(cfg, "cuda", seed=0)
+    weights = {k: v.cpu() for k, v in oracle.model.state_dict().items()}
+    evals = dp_eval_batches(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"cfg": cfg, "weights": weights, "batch": batch,
+                    "eval": evals}, os.path.join(tmp, "payload.pt"))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--dp-rank", str(r), tmp])
+                 for r in range(DP_WORLD)]
+        try:
+            codes = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(codes == [0] * DP_WORLD, f"the gloo ranks exited {codes}")
+        outs = [torch.load(os.path.join(tmp, f"out{r}.pt"),
+                           weights_only=False) for r in range(DP_WORLD)]
+        ranks_s = time.perf_counter() - t0
+    gens = [dropout_generator(cfg.seed, r, "cuda") for r in range(DP_WORLD)]
+    sgen = sampling_generator(cfg.seed, "cuda")
+    want = shardwise_step(oracle, batch, gens, sgen)
+    sd = oracle.model.state_dict()
+    params = all(torch.equal(v.cuda(), sd[k])
+                 for k, v in outs[0]["params"].items())
+    mom = [oracle.optimizer.state[p]["momentum_buffer"]
+           for g in oracle.optimizer.param_groups for p in g["params"]]
+    momentum = all(torch.equal(a.cuda(), b)
+                   for a, b in zip(outs[0]["momentum"], mom))
+    losses = all(torch.equal(o["losses"][k].cuda(), v)
+                 for o in outs for k, v in want.items())
+    gen = all(torch.equal(o["gen"], g.get_state()) and
+              torch.equal(o["sampling"], sgen.get_state())
+              for o, g in zip(outs, gens))
+    log(f"[dp-gloo] {DP_WORLD} ranks on one card (gloo, {ranks_s:.1f} s "
+        f"with the processes' start): the sharded step against the "
+        f"shardwise oracle: parameters bit-identical={params}, momentum="
+        f"{momentum}, losses={losses}, generators={gen}; launches "
+        f"{[o['launches'] for o in outs]}")
+    check(params and momentum and losses and gen,
+          "the two-rank step differs from the shardwise oracle")
+    check(all(o["launches"] == (1, 1, 1) for o in outs),
+          "a rank's step did not launch each kernel once")
+    del oracle
+    model = build_model(cfg, device="cuda", state_dict=outs[0]["params"])
+    acc = SegEvalAccumulator()
+    ref = Evaluator(model, cfg, device="cuda").eval_split(evals, acc=acc)
+    same = all(o["summary"] == ref for o in outs)
+    log(f"[dp-gloo] eval_split_mesh over {len(evals)} images (buckets "
+        f"{EVAL_BUCKETS}) against eval_split: equal={same}, {ref}")
+    check(same and acc.num_sent > 0,
+          "eval_split_mesh differs from eval_split")
+    record["dp_gloo"] = {"ranks_s": ranks_s, "summary": ref,
+                         "launches": [o["launches"] for o in outs]}
+    del model
+    return {"nms": sum(o["launches"][0] for o in outs),
+            "fused_filter": sum(o["launches"][1] for o in outs),
+            "fused_filter_bwd": sum(o["launches"][2] for o in outs)}
+
+
 def main():
+    if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
+        dp_rank_worker(int(sys.argv[2]), sys.argv[3])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA device", file=sys.stderr)
@@ -2767,6 +3262,9 @@ def main():
     mode_kernels, runs["eval_modes"] = eval_modes(
         dev, regs, {pc for kr in kernels for pc in kr["launched_by"]})
     kernels += mode_kernels
+    runs.update(graphed_steps())
+    runs["dp_world1"] = data_parallel_world1()
+    runs["dp_gloo"] = data_parallel_two_ranks()
     pool_kernels += pool_launches(runs, pool_kernels, dev, pool_regs)
     for kr in kernels:
         kr["launches"] = sum(runs[path].get(counter, 0)

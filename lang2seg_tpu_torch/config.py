@@ -85,8 +85,9 @@ class TrainConfig:
     # batching (ours; reference is 1 sentence / step)
     expressions_per_batch: int = 8
     images_per_batch: int = 2
-    steps_per_dispatch: int = 1             # several steps a dispatch; the
-                                            # port's Trainer takes only 1
+    steps_per_dispatch: int = 1             # K > 1: K steps a dispatch, a
+                                            # CUDA graph of the step replayed
+                                            # K times (engine/train_state.py)
 
 
 @dataclass
@@ -226,7 +227,9 @@ class DataConfig:
 @dataclass
 class ParallelConfig:
     data_axis: str = "data"
-    num_data: int = 1                       # data-parallel degree
+    num_data: int = 1                       # data-parallel degree: ranks of
+                                            # the process group, one block of
+                                            # each batch a rank (parallel/)
 
 
 @dataclass

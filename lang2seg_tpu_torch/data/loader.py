@@ -261,45 +261,55 @@ class GtBatchLoader(Loader):
     def get_batch(self, split: str = "train",
                   num_images: Optional[int] = None,
                   num_expr: Optional[int] = None,
-                  num_shards: Optional[int] = None) -> Dict[str, np.ndarray]:
-        """One fixed-shape training block of I images x E expressions."""
-        num_shards = num_shards or self.cfg.parallel.num_data
-        if num_shards > 1:
-            raise NotImplementedError(
-                "per-device blocks (num_shards > 1) come with data "
-                "parallel training (ROADMAP Queue 1 #5)")
-        return self._sample_block(split, num_images, num_expr)
+                  num_shards: Optional[int] = None,
+                  shard: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """A fixed-shape training batch.
 
-    def _sample_block(self, split: str, num_images: Optional[int],
-                      num_expr: Optional[int]) -> Dict[str, np.ndarray]:
-        """I images, E expressions drawn uniformly from those images'
-        (ref, sentence) pool (with replacement when it holds fewer than
-        E), as the JAX loader draws them."""
-        t, d, m = self.cfg.train, self.cfg.data, self.cfg.model
+        num_shards 1 (default cfg.parallel.num_data): one block of I
+        images x E expressions. num_shards n: n self-contained blocks, as
+        the JAX loader draws them (each block's `img_idx` indexes its own
+        I images), concatenated along axis 0, or with `shard` r only
+        block r (a data-parallel rank's). Every call makes the random
+        draws of all n blocks in order, so the loaders of all ranks stay
+        in step; only the blocks returned decode their images and masks.
+        `wrapped` is whether any block's draw wrapped an epoch."""
+        num_shards = num_shards or self.cfg.parallel.num_data
+        if num_shards <= 1:
+            return self._build_block(self._plan_block(
+                split, num_images, num_expr))
+        if shard is not None and not 0 <= shard < num_shards:
+            raise ValueError(f"shard {shard} outside 0..{num_shards - 1}")
+        plans = [self._plan_block(split, num_images, num_expr)
+                 for _ in range(num_shards)]
+        wrapped = any(p[1] for p in plans)
+        if shard is not None:
+            out = self._build_block(plans[shard])
+            out["wrapped"] = wrapped
+            return out
+        blocks = [self._build_block(p) for p in plans]
+        out = {k: np.concatenate([b[k] for b in blocks], axis=0)
+               for k in blocks[0] if k != "wrapped"}
+        out["wrapped"] = wrapped
+        return out
+
+    def _plan_block(self, split: str, num_images: Optional[int],
+                    num_expr: Optional[int]) -> Tuple:
+        """A block's random draws (its images, then E expressions drawn
+        uniformly from those images' (ref, sentence) pool, with
+        replacement when it holds fewer than E), as the JAX loader draws
+        them; no image is read. Returns (image ids, wrapped, draws)."""
+        t = self.cfg.train
         num_images = num_images or t.images_per_batch
         num_expr = num_expr or t.expressions_per_batch
         img_ids, wrapped = self._next_image_ids(split, num_images)
-
-        images = np.zeros((num_images, d.canvas_h, d.canvas_w, 3),
-                          np.uint8 if d.wire_uint8_images else np.float32)
-        im_hw = np.zeros((num_images, 2), np.float32)
-        scales = np.zeros((num_images,), np.float32)
         pool = []                                 # (image slot, ref, sentence)
-        extents = []
         for li, iid in enumerate(img_ids):
-            rec = self.Images[iid]
-            canvas, scale, sh, sw = self._image_to_canvas(self._image(rec))
-            images[li] = canvas
-            im_hw[li] = (sh, sw)
-            scales[li] = scale
-            extents.append((sh, sw))
-            for rid in rec["ref_ids"]:
+            for rid in self.Images[iid]["ref_ids"]:
                 ref = self.Refs[rid]
                 if split and ref["split"] != split:
                     continue
                 for sid in ref["sent_ids"]:
                     pool.append((li, rid, sid))
-
         if not pool:
             raise ValueError(f"no expressions for images {img_ids} in split "
                              f"{split}")
@@ -307,6 +317,25 @@ class GtBatchLoader(Loader):
                 self.rng.choice(len(pool), size=num_expr,
                                 replace=len(pool) < num_expr)] \
             if len(pool) != num_expr else pool
+        return img_ids, wrapped, take
+
+    def _build_block(self, plan: Tuple) -> Dict[str, np.ndarray]:
+        """A planned block's arrays: the canvases, boxes and masks."""
+        d, m = self.cfg.data, self.cfg.model
+        img_ids, wrapped, take = plan
+        num_images, num_expr = len(img_ids), len(take)
+        images = np.zeros((num_images, d.canvas_h, d.canvas_w, 3),
+                          np.uint8 if d.wire_uint8_images else np.float32)
+        im_hw = np.zeros((num_images, 2), np.float32)
+        scales = np.zeros((num_images,), np.float32)
+        extents = []
+        for li, iid in enumerate(img_ids):
+            canvas, scale, sh, sw = self._image_to_canvas(
+                self._image(self.Images[iid]))
+            images[li] = canvas
+            im_hw[li] = (sh, sw)
+            scales[li] = scale
+            extents.append((sh, sw))
 
         img_idx = np.asarray([p[0] for p in take], np.int32)
         expr_uid = np.asarray([self.sent_to_h5[p[2]] for p in take], np.int32)

@@ -49,8 +49,14 @@ a dispatch scores:
     the chunks before it; the compute stream waits on the copies' event
     when the chunk is dispatched. The worker launches no model kernel.
 
-Not ported yet (ROADMAP Queue 1 #4, data parallel): multi-device eval
-(the JAX package's `eval_split_mesh`).
+Several ranks (`eval_split_mesh`, the JAX package's device-parallel
+eval): rank r of a `parallel.Mesh` of n takes images r, r + n, ... of
+each sentence bucket, in the split's order, through the same dispatch
+paths (`images_per_dispatch` included), with the uids `eval_split` would
+give them; each image's detections and I / U counts are gathered from
+every rank and accumulated in the split's image order, so the summary is
+`eval_split`'s. JAX pads its last chunk for SPMD; a rank here just takes
+fewer images.
 """
 
 from __future__ import annotations
@@ -81,6 +87,37 @@ def _host_expand_bank(batch: Dict) -> Dict:
     out["gt_masks"] = np.asarray(out.pop("gt_mask_bank"))[
         np.asarray(out.pop("mask_ref_idx"), np.int64)]
     return out
+
+
+class _ImageRecord(SegEvalAccumulator):
+    """One image's detections and I / U counts, kept in arrival order
+    (`events`) for `eval_split_mesh` to replay in the split's order."""
+
+    def __init__(self):
+        super().__init__()
+        self.events: List[tuple] = []
+
+    def add_detection(self, pred_box, gt_box):
+        self.events.append(("det", np.asarray(pred_box), np.asarray(gt_box)))
+
+    def add_segmentation_iu(self, i: float, u: float):
+        self.events.append(("iu", i, u))
+
+
+class _ImageLog:
+    """An accumulator that keeps each image apart, by its uid."""
+
+    def __init__(self):
+        self.images: Dict[int, _ImageRecord] = {}
+
+    def image(self, uid: int) -> _ImageRecord:
+        return self.images.setdefault(uid, _ImageRecord())
+
+
+def _image_acc(acc, uid: int):
+    """Where an image's results go: its own record in an `_ImageLog`, or
+    the one accumulator."""
+    return acc.image(uid) if isinstance(acc, _ImageLog) else acc
 
 
 def _valid_of(batch: Dict, sent_valid=None) -> np.ndarray:
@@ -421,15 +458,17 @@ class Evaluator:
         inter = rec["inter"].cpu().numpy().reshape(n, s)
         union = rec["union"].cpu().numpy().reshape(n, s)
         for d, b in enumerate(rec["chunk"]):
+            a = _image_acc(acc, rec["uids"][d])
             for i in np.flatnonzero(rec["valid_flags"][d]):
                 gt_box = np.asarray(b["gt_boxes"][i, :4]) / rec["scales"][d]
-                acc.add_detection(sel[d, i], gt_box)
-                acc.add_segmentation_iu(int(inter[d, i]), int(union[d, i]))
+                a.add_detection(sel[d, i], gt_box)
+                a.add_segmentation_iu(int(inter[d, i]), int(union[d, i]))
         return n
 
     @torch.no_grad()
     def dispatch_image(self, batch: Dict[str, np.ndarray],
-                       sent_valid: Optional[np.ndarray] = None) -> Dict:
+                       sent_valid: Optional[np.ndarray] = None,
+                       uid: Optional[int] = None) -> Dict:
         """Enqueue all the device work of one image and return a record of
         device tensors for `drain`, without reading anything back. On the
         device-paste path that is a chunk of one image (`_dispatch_chunk`:
@@ -439,15 +478,16 @@ class Evaluator:
         `mask_ref_idx`, expanded on the device; a uint8 canvas on the
         extent-crop wire); on the host path the forward, the selection
         and the mask branch's probabilities (none without a mask head).
-        The image's uid is given out here."""
+        The image's uid is given out here, unless the caller gives it."""
         m = self.cfg.model
         scale, sh, sw, ih, iw = self._extents(batch)
-        uid = self._next_uid()
+        if uid is None:
+            uid = self._next_uid()
         if m.use_mask_head and self.device_paste and self._fits(ih, iw):
             return self._dispatch_chunk(
                 [batch], [_valid_of(batch, sent_valid)], [uid])
         rec = {"batch": batch, "scale": scale, "sent_valid": sent_valid,
-               "sh": sh, "sw": sw, "ih": ih, "iw": iw}
+               "sh": sh, "sw": sw, "ih": ih, "iw": iw, "uid": uid}
         if m.use_mask_head:
             rec["batch"] = _host_expand_bank(batch)
         out = self.model.test_forward({
@@ -473,6 +513,7 @@ class Evaluator:
         if "chunk" in rec:
             self._drain_chunk(rec, acc)
             return
+        acc = _image_acc(acc, rec.get("uid"))
         sel = rec["sel"].cpu().numpy()
         sent_valid = rec["sent_valid"]
         live = [i for i in range(sel.shape[0])
@@ -529,6 +570,58 @@ class Evaluator:
         arrives. `stage_uploads` then stacks and uploads each chunk on a
         worker thread, one chunk ahead of the dispatches."""
         acc = SegEvalAccumulator() if acc is None else acc
+        self._eval_images(((b, None) for b in batches), acc,
+                          verbose, pipeline_depth, images_per_dispatch,
+                          stage_uploads)
+        return acc.summary()
+
+    def eval_split_mesh(self, batches: Iterable[Dict[str, np.ndarray]],
+                        mesh, verbose: bool = False, pipeline_depth: int = 4,
+                        images_per_dispatch: int = 1,
+                        stage_uploads: bool = True,
+                        acc: Optional[SegEvalAccumulator] = None
+                        ) -> Dict[str, float]:
+        """`eval_split` over the ranks of `mesh` (parallel/mesh.py): every
+        rank passes the same batches and gets the same summary (of `acc`,
+        a fresh accumulator by default). Rank r
+        scores images r, r + n, ... of each sentence bucket (in the
+        split's order, through `eval_split`'s dispatch paths); the
+        per-image results are gathered from every rank and accumulated in
+        the split's image order. Each image keeps the uid `eval_split`
+        gives it."""
+        import torch.distributed as dist
+        batches = list(batches)
+        uids = [self._rng_uid + 1 + i for i in range(len(batches))]
+        self._rng_uid += len(batches)
+        buckets: Dict[int, List[int]] = {}
+        for i, b in enumerate(batches):
+            buckets.setdefault(b["labels"].shape[0], []).append(i)
+        mine = sorted(i for idx in buckets.values()
+                      for i in idx[mesh.rank::mesh.size])
+        log = _ImageLog()
+        self._eval_images(((batches[i], uids[i]) for i in mine), log,
+                          verbose, pipeline_depth, images_per_dispatch,
+                          stage_uploads)
+        gathered = [None] * mesh.size
+        dist.all_gather_object(
+            gathered, {u: r.events for u, r in log.images.items()},
+            group=mesh.group)
+        events: Dict[int, List[tuple]] = {}
+        for part in gathered:
+            events.update(part)
+        acc = SegEvalAccumulator() if acc is None else acc
+        for u in uids:
+            for kind, a, b in events.get(u, ()):
+                if kind == "det":
+                    acc.add_detection(a, b)
+                else:
+                    acc.add_segmentation_iu(a, b)
+        return acc.summary()
+
+    def _eval_images(self, items, acc, verbose: bool, pipeline_depth: int,
+                     images_per_dispatch: int, stage_uploads: bool) -> None:
+        """`eval_split`'s pipeline over (batch, uid) pairs into `acc`; a
+        None uid is given out as the image arrives."""
         pending, staged = deque(), deque()
         groups: Dict[tuple, list] = {}
         n_batch = max(1, images_per_dispatch)
@@ -549,7 +642,8 @@ class Evaluator:
             done += len(rec["chunk"]) if "chunk" in rec else 1
             # chunks advance the count by more than one image: print
             # whenever a multiple of 20 is crossed
-            if verbose and done // 20 > prev // 20:
+            if verbose and done // 20 > prev // 20 and \
+                    isinstance(acc, SegEvalAccumulator):
                 s = acc.summary()
                 print(f"[eval] {done} images: det_acc={s['det_acc']:.4f} "
                       f"IoU={s['overall_iou']:.4f}", flush=True)
@@ -574,19 +668,22 @@ class Evaluator:
         was_training = self.model.training
         self.model.eval()
         try:
-            for batch in batches:
+            for batch, uid in items:
                 if use_chunks and self._fits(*self._extents(batch)[3:]):
                     key = (batch["labels"].shape[0],
                            batch["gt_mask_bank"].shape[0]
                            if "gt_mask_bank" in batch else -1)
                     groups.setdefault(key, []).append(
                         (batch, _valid_of(batch, batch.get("sent_valid")),
-                         self._next_uid()))
+                         self._next_uid() if uid is None else uid))
                     if len(groups[key]) >= n_batch:
                         flush(key)
-                else:
+                elif uid is None:
                     pending.append(self.dispatch_image(
                         batch, batch.get("sent_valid")))
+                else:
+                    pending.append(self.dispatch_image(
+                        batch, batch.get("sent_valid"), uid))
                 if len(pending) >= max(1, pipeline_depth):
                     drain_one()
             for key in list(groups):
@@ -600,4 +697,3 @@ class Evaluator:
             if pool is not None:
                 pool.shutdown(wait=True)
             self.model.train(was_training)
-        return acc.summary()

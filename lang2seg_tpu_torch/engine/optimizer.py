@@ -20,6 +20,15 @@ add_decayed_weights, trace (momentum), the group multiplier and the LR.
 torch SGD applies weight decay, then the momentum trace, then its group's
 LR, so the multiplier rides in each group's LR: `set_lr` writes
 lr_schedule(step) x multiplier into every group before a step.
+
+A graph-replayable update (`SGD`): each group's LR also lives in a device
+tensor that `set_lr` fills in place, and the update reads it, so a step
+captured in a CUDA graph (`engine/train_state.py::make_multi_train_step`)
+meets every LR boundary. The update is torch's SGD with its last
+operation, `p += -lr * buf`, taken as `p.addcmul_(buf, -lr)` on the 0-dim
+LR tensor: bit for bit torch's step with the LR as a float, on the CPU
+(tests/test_torch_multistep.py) and on the card against its foreach step
+(chip_smoke.py phase 28).
 """
 
 from __future__ import annotations
@@ -76,17 +85,71 @@ def lr_schedule(cfg: Config, step: int) -> float:
                                             for s in t.stepsize)
 
 
-def build_optimizer(model: nn.Module, cfg: Config) -> torch.optim.SGD:
+class SGD(torch.optim.SGD):
+    """torch SGD (momentum, no dampening, no Nesterov) whose groups' LRs
+    are also 0-dim f32 tensors on the parameters' device (`neg_lr`, each
+    holding -lr), filled by `fill_lr`. `step` reads them and reads nothing
+    back to the host, so a captured step replays with the LR of the
+    moment. The state dict is torch SGD's."""
+
+    def __init__(self, params, lr: float, momentum: float):
+        super().__init__(params, lr=lr, momentum=momentum, dampening=0.0,
+                         nesterov=False)
+        dev = self.param_groups[0]["params"][0].device
+        self.neg_lr = [torch.zeros((), dtype=torch.float32, device=dev)
+                       for _ in self.param_groups]
+        self._filled = [None] * len(self.param_groups)
+        self.fill_lr()
+
+    def fill_lr(self) -> None:
+        """Each group's `lr` into its tensor, where it changed (a fill
+        kernel on the current stream, no host synchronisation)."""
+        for i, g in enumerate(self.param_groups):
+            if self._filled[i] != g["lr"]:
+                self.neg_lr[i].fill_(-g["lr"])
+                self._filled[i] = g["lr"]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for g, neg_lr in zip(self.param_groups, self.neg_lr):
+            params = [p for p in g["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if g["weight_decay"] != 0:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=g["weight_decay"])
+            bufs = [self.state[p].get("momentum_buffer") for p in params]
+            if all(b is not None for b in bufs):
+                torch._foreach_mul_(bufs, g["momentum"])
+                torch._foreach_add_(bufs, grads)
+            else:
+                # the first step: torch's own buffers, cloned gradients
+                for i, (p, b) in enumerate(zip(params, bufs)):
+                    if b is None:
+                        bufs[i] = self.state[p]["momentum_buffer"] = \
+                            grads[i].detach().clone()
+                    else:
+                        b.mul_(g["momentum"]).add_(grads[i])
+            for p, b in zip(params, bufs):
+                p.addcmul_(b, neg_lr)
+        return None
+
+
+def build_optimizer(model: nn.Module, cfg: Config) -> SGD:
     t = cfg.train
-    return torch.optim.SGD(param_groups(model, cfg), lr=t.learning_rate,
-                           momentum=t.momentum, dampening=0.0,
-                           nesterov=False)
+    return SGD(param_groups(model, cfg), lr=t.learning_rate,
+               momentum=t.momentum)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, cfg: Config, step: int) -> None:
+    """Each group's LR for the update after `step` updates, into its
+    `lr` and, for the port's `SGD`, into its device tensor."""
     lr = lr_schedule(cfg, step)
     for g in optimizer.param_groups:
         g["lr"] = lr * g["lr_mult"]
+    if isinstance(optimizer, SGD):
+        optimizer.fill_lr()
 
 
 def _l2_norm(g: torch.Tensor) -> torch.Tensor:

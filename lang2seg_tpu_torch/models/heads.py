@@ -71,8 +71,11 @@ class MaskHead(nn.Module):
     matmul to 4x256 channels plus depth-to-space (the JAX package's
     `_Upsample2x`). Only each row's labelled class is computed
     (`_ClassConv1x1`'s selected-class path, the one both callers of the
-    reference use): its kernel column and bias are taken with
-    index_select."""
+    reference use): its kernel column and bias are taken by a one-hot
+    product, exact in the forward (f32, TF32 off as the port runs), whose
+    gradient sums each class's rows in a fixed order (CUDA's index_select
+    backward adds them with atomics in an order that changes from run to
+    run, and a graphed step must replay the eager step's bits)."""
 
     def __init__(self, in_features: int = 2048, num_classes: int = 81,
                  features: int = 256):
@@ -93,7 +96,9 @@ class MaskHead(nn.Module):
         y = torch.matmul(x.reshape(-1, c), wt.reshape(c, f * 4))
         y = y.reshape(r, h, w, f, 2, 2).permute(0, 1, 4, 2, 5, 3)
         y = F.relu(y.reshape(r, 2 * h, 2 * w, f) + self.mask_up_sampling.bias)
-        lab = labels.long()
-        kcol = self.mask_pred_net.weight[:, :, 0, 0].index_select(0, lab)
-        bcol = self.mask_pred_net.bias.index_select(0, lab)
+        classes = torch.arange(self.mask_pred_net.out_channels,
+                               device=labels.device)
+        onehot = (labels.long()[:, None] == classes).to(y.dtype)
+        kcol = onehot @ self.mask_pred_net.weight[:, :, 0, 0]
+        bcol = onehot @ self.mask_pred_net.bias
         return torch.einsum("rhwf,rf->rhw", y, kcol) + bcol[:, None, None]

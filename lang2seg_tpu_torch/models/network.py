@@ -26,8 +26,9 @@ Mask R-CNN of the `pretrain` variant (no `rnn_encoder` / `dynamic_fc*` /
 an image with up to M GT boxes and masks), which trains but, as in the
 JAX package, cannot be served, and the attribute head (`att_head`: a
 multi-label BCE on the un-gated map cropped at each expression's GT box,
-`predict_attribute_scores`). `expr_uid` key folding (data parallel
-training) raises NotImplementedError here.
+`predict_attribute_scores`). A batch with `expr_uid` draws its anchor
+and ROI subsamples per example (`ops/targets.py::example_uniforms`), as
+the JAX package folds the uid into its sampling key.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ from ..device import device_constant, resolve_device
 from ..ops.anchors import shifted_anchors
 from ..ops.proposals import proposal_layer, proposal_top_layer
 from ..ops.roi_align import roi_crop_pool, roi_max_pool
-from ..ops.targets import anchor_targets, proposal_targets
+from ..ops.targets import (anchor_targets, example_uniforms,
+                           proposal_targets, step_key)
 from .caption_zoo import setup_captioner
 from .dynamic_filter import DynamicFilterGen
 from .heads import BoxHead, MaskHead, RPNHead
@@ -228,7 +230,8 @@ class Lang2Seg(nn.Module):
 
     def train_forward(self, batch: Dict[str, torch.Tensor],
                       targets: Optional[Tuple] = None,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      sampling_generator: Optional[torch.Generator] = None
                       ) -> Dict[str, torch.Tensor]:
         """Losses of one training batch; every tensor on the model's device.
 
@@ -261,13 +264,15 @@ class Lang2Seg(nn.Module):
         priorities, then VGG16's fc6 and fc7 dropout masks (the `vgg`
         variant; those of the attribute head's GT crops next), then the
         captioner's dropout masks (and its scheduled-sampling draws).
+        expr_uid (E,) int, optional: stable example ids. With them the
+        anchor and ROI priorities are `ops/targets.py::example_uniforms`
+        of the example's uid under one per-step key, drawn (in the anchor
+        priorities' place) from `sampling_generator`, or from `generator`
+        when that is None: an example draws the same subsample at any
+        position, block or rank, as JAX folds the uid into its key.
         Returns the loss dict with `total_loss`, all scalars on the
         device."""
         m, t = self.cfg.model, self.cfg.train
-        if "expr_uid" in batch:
-            raise NotImplementedError(
-                "expr_uid key folding is not ported (it comes with data "
-                "parallel training)")
         images = self._images(batch["images"])
         img_idx = batch["img_idx"].long()
         e = img_idx.shape[0]
@@ -295,9 +300,16 @@ class Lang2Seg(nn.Module):
         im_hw = batch["im_hw"].float().index_select(0, img_idx)   # (E, 2)
 
         at, pt = targets if targets is not None else (None, None)
+        key = uid = None
+        if "expr_uid" in batch and (at is None or pt is None):
+            key = step_key(sampling_generator if sampling_generator
+                           is not None else generator)
+            uid = batch["expr_uid"]
         if at is None:
             at = anchor_targets(
                 anchors, gt_boxes, gt_valid, im_hw[:, 0], im_hw[:, 1],
+                draws=None if key is None else [
+                    example_uniforms(key, uid, s, n) for s in (0, 1)],
                 generator=generator, rpn_batchsize=t.rpn_batchsize,
                 fg_fraction=t.rpn_fg_fraction,
                 pos_overlap=t.rpn_positive_overlap,
@@ -311,9 +323,14 @@ class Lang2Seg(nn.Module):
                     score_pos, rpn_box.reshape(e, n, 4), anchors,
                     im_hw[:, 0], im_hw[:, 1], t.rpn_pre_nms_top_n,
                     t.rpn_post_nms_top_n, t.rpn_nms_thresh)
+            cand = props.rois.shape[1] + gt_boxes.shape[1]
             pt = proposal_targets(
                 props.rois, props.valid, gt_boxes, gt_valid,
-                gt_masks.to(torch.uint8), generator=generator,
+                gt_masks.to(torch.uint8), draws=None if key is None else [
+                    example_uniforms(key, uid, 2, cand),
+                    example_uniforms(key, uid, 3, cand),
+                    example_uniforms(key, uid, 4, t.roi_batch_size)],
+                generator=generator,
                 num_rois=t.roi_batch_size, fg_fraction=t.fg_fraction,
                 fg_thresh=t.fg_thresh, bg_thresh_hi=t.bg_thresh_hi,
                 bg_thresh_lo=t.bg_thresh_lo, mask_size=m.mask_size,

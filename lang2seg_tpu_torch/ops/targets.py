@@ -12,6 +12,15 @@ uniforms are an argument (`draws`), or are drawn from a `torch.Generator`
 on its own device. The tests reproduce the JAX key chain and pass its
 numbers in, so the selections can be compared exactly.
 
+Per-example draws. With stable example ids (`expr_uid`), the uniforms
+come from `example_uniforms` instead: a counter-based hash of (a per-step
+key, the example's uid, the draw's stream, the element's index) in int64
+tensor ops on the device, so that an example draws the same subsample
+whichever batch position, block or data-parallel rank it lands in (JAX
+folds the uid into the step's sampling key, models/network.py:244-250).
+The hash is not JAX's threefry: the property is the contract, not the
+bits.
+
 Priority order. A class keeps its members with the smallest draws. Both
 samplers sort their masked keys with a stable sort, so equal keys keep
 ascending index order: the tie order of `lax.top_k` (anchor sampler) and
@@ -65,6 +74,46 @@ def _uniforms(draws, generator, shapes, device):
         draws = [torch.rand(s, generator=generator, device=generator.device)
                  for s in shapes]
     return [d.to(device=device, dtype=torch.float32) for d in draws]
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32) and a 32-bit constant,
+    by 16-bit halves of c so that no product leaves int64."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _MASK32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit avalanche mixer (xorshift-multiply, `lowbias32`) on int64
+    tensors holding 32-bit values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def step_key(generator: torch.Generator) -> torch.Tensor:
+    """The per-step sampling key of `example_uniforms`: two 32-bit words
+    (int64) drawn from `generator`, on its device."""
+    return torch.randint(0, 1 << 32, (2,), generator=generator,
+                         device=generator.device, dtype=torch.int64)
+
+
+def example_uniforms(key: torch.Tensor, uid: torch.Tensor, stream: int,
+                     length: int) -> torch.Tensor:
+    """(E, length) f32 uniforms in [0, 1) on 24 bits, a function of the
+    step `key`, each example's `uid` (E,), the `stream` (one per draw of
+    a step) and the element index alone."""
+    key = key.to(uid.device)
+    u = uid.to(torch.int64) & _MASK32
+    seed = _mix32(_mix32(key[0] ^ u)
+                  ^ ((key[1] + stream * 0x9E3779B9) & _MASK32))    # (E,)
+    idx = torch.arange(length, dtype=torch.int64, device=uid.device)
+    h = _mix32(_mix32((seed[:, None] + idx) & _MASK32) ^ key[1])
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
 @torch.no_grad()

@@ -206,6 +206,26 @@ def device_busy(prof) -> Dict[str, float]:
     return {"busy_ms": busy / 1e3, "copy_ms": copies / 1e3}
 
 
+# the hand kernels by the names of their device functions (a launch a
+# wrapper call; the gate's backward also runs `fused_filter_bwd_reduce`)
+KERNEL_NAMES = {"nms": ("nms_frontier_kernel",),
+                "fused_filter": ("fused_filter_mma_kernel",
+                                 "fused_filter_kernel"),
+                "fused_filter_bwd": ("fused_filter_bwd_kernel",),
+                "roi_pool": ("roi_pool_fwd_",),
+                "roi_pool_bwd": ("roi_pool_bwd_",)}
+
+
+def kernel_launches(prof) -> Dict[str, int]:
+    """The hand kernels' runs on the device in a profile, counted by
+    their names (`KERNEL_NAMES`): also the runs of a CUDA graph's kernel
+    nodes, which no wrapper counts."""
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {key: sum(any(f in n for f in funcs) for n in names)
+            for key, funcs in KERNEL_NAMES.items()}
+
+
 def profiled_pass(ev: Evaluator, batches, k: int, staged: bool) -> Dict:
     """One pass under torch.profiler, tracing the device only: the
     device's busy and idle share of the pass's host window."""

@@ -7,6 +7,7 @@ on a machine without it:
 
 `chip_smoke.py` runs the same comparisons at the flagship shapes."""
 
+import copy
 import os
 
 import numpy as np
@@ -932,3 +933,165 @@ def test_demo_on_card(dev, tmp_path):
     assert np.abs(got["cuda"]["box"] - got["cpu"]["box"]).max() <= 1e-2
     for d in ("cuda", "cpu"):
         assert os.path.exists(got[d]["response"])
+
+
+def _tiny_cfg():
+    """The tiny f32 `response` config of the CPU tests (resnet26, 128 x
+    192, 4 expressions), with an LR decay after step 2."""
+    from lang2seg_tpu_torch.config import apply_variant, load_config
+    cfg = load_config(None, [
+        "data.canvas_h", "128", "data.canvas_w", "192", "model.backbone",
+        "resnet26", "model.compute_dtype", "float32",
+        "model.normalize_response", "true", "train.expressions_per_batch",
+        "4", "train.stepsize", "[2]"])
+    return apply_variant(cfg, "response")
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    """torch's deterministic algorithms for one test: in f32 the card's
+    eager step is not the same twice (cuDNN's f32 convolution gradients;
+    the bf16 steps of chip_smoke.py phase 28 are), so a graph cannot be
+    held bit for bit against it without them."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def test_graphed_steps_equal_eager_steps(dev, deterministic):
+    """make_multi_train_step on the card (a warm step, the capture, the
+    replays; K = 3, two calls, an LR decay after step 2) against 6 eager
+    train_steps from the same weights and generator seed, at the tiny f32
+    config under deterministic algorithms: parameters, momentum, the
+    generator and every loss bit for bit. The wrappers count the warm
+    step's and the capture's calls; the second call's three replays run
+    NMS three times in its profiler trace."""
+    from lang2seg_tpu_torch.data.synthetic import synthetic_batch, to_wire
+    from lang2seg_tpu_torch.engine.train_state import (
+        create_train_state, make_multi_train_step, stack_batches, to_device,
+        train_step)
+    cfg = _tiny_cfg()
+    batches = [to_wire(cfg, synthetic_batch(cfg, 2, 4, seed=s))
+               for s in range(6)]
+    eager = create_train_state(cfg, dev, seed=1)
+    graphed = create_train_state(cfg, dev,
+                                 state_dict=eager.model.state_dict())
+    ge = torch.Generator(device=dev).manual_seed(3)
+    gg = torch.Generator(device=dev).manual_seed(3)
+    want = [train_step(eager, to_device(b, dev), ge) for b in batches]
+    from torch.profiler import ProfilerActivity, profile
+
+    from lang2seg_tpu_torch.tools.profile_eval import kernel_launches
+    multi = make_multi_train_step(graphed, gg)
+    assert multi.graphed
+    nms_cuda.launches = 0
+    got = [multi(to_device(stack_batches(batches[:3]), dev))]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got.append(multi(to_device(stack_batches(batches[3:]), dev)))
+        torch.cuda.synchronize()
+    assert nms_cuda.launches == 2
+    traced = kernel_launches(prof)
+    assert (traced["nms"], traced["fused_filter"],
+            traced["fused_filter_bwd"]) == (3, 3, 3)
+    for j, w in enumerate(want):
+        for k, v in w.items():
+            assert torch.equal(got[j // 3][k][j % 3], v), (j, k)
+    for (n, a), b in zip(eager.model.state_dict().items(),
+                         graphed.model.state_dict().values()):
+        assert torch.equal(a, b), n
+    for ga, gb in zip(eager.optimizer.param_groups,
+                      graphed.optimizer.param_groups):
+        for p, q in zip(ga["params"], gb["params"]):
+            assert torch.equal(eager.optimizer.state[p]["momentum_buffer"],
+                               graphed.optimizer.state[q]["momentum_buffer"])
+    assert torch.equal(ge.get_state(), gg.get_state())
+    with pytest.raises(ValueError, match="captured"):
+        multi(to_device(stack_batches([to_wire(cfg, synthetic_batch(
+            cfg, 2, 2, seed=0))] * 2), dev))
+
+
+def test_row_gather_is_deterministic_on_card(dev):
+    """The mask head's class gather (a one-hot product): index_select's
+    logits; the class weights' and biases' gradients the same bits on
+    every call (CUDA's index_select backward is not), and index_select's
+    up to the order of each class's sum."""
+    from lang2seg_tpu_torch.models.heads import MaskHead
+    torch.manual_seed(0)
+    head = MaskHead(in_features=256, num_classes=81, features=64).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((512, 7, 7, 256), generator=g, device=dev)
+    labels = torch.randint(0, 81, (512,), generator=g, device=dev)
+    cot = torch.randn((512, 14, 14), generator=g, device=dev)
+    w, bias = head.mask_pred_net.weight, head.mask_pred_net.bias
+
+    def plain():
+        up = head.mask_up_sampling
+        y = torch.matmul(x.reshape(-1, 256), up.weight.reshape(256, 256))
+        y = y.reshape(512, 7, 7, 64, 2, 2).permute(0, 1, 4, 2, 5, 3)
+        y = torch.relu(y.reshape(512, 14, 14, 64) + up.bias)
+        kcol = w[:, :, 0, 0].index_select(0, labels)
+        return torch.einsum("rhwf,rf->rhw", y, kcol) + \
+            bias.index_select(0, labels)[:, None, None]
+    assert torch.equal(head(x, labels), plain())
+    grads = [torch.autograd.grad((head(x, labels) * cot).sum(), (w, bias))
+             for _ in range(3)]
+    for a, b in zip(grads[0], grads[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(grads[0], grads[2]):
+        assert torch.equal(a, b)
+    want = torch.autograd.grad((plain() * cot).sum(), (w, bias))
+    for a, b in zip(grads[0], want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
+
+
+def test_trainer_graphed_groups_equal_single_steps(dev, deterministic,
+                                                   tmp_path):
+    """The Trainer at steps_per_dispatch 2 on the card, with snapshots
+    every 3 and an LR decay at 5 over 7 steps: groups [2], [1], [2], [1],
+    [1], so the graph is captured, eager steps run between its replays
+    and snapshots are written with the graph alive. Against the Trainer
+    at 1, bit for bit: parameters, momentum, the generator, and each
+    snapshot's model, optimizer, step, generator and loader state."""
+    from lang2seg_tpu_torch.data.synthetic import (FixedBatchLoader,
+                                                  synthetic_batch, to_wire)
+    from lang2seg_tpu_torch.engine.checkpoint import CheckpointManager
+    from lang2seg_tpu_torch.engine.trainer import Trainer
+    cfg = _tiny_cfg()
+    cfg.train.stepsize = (5,)
+    cfg.train.snapshot_iters = 3
+    cfg.train.snapshot_kept = 10
+    batches = [to_wire(cfg, synthetic_batch(cfg, 2, 4, seed=s))
+               for s in range(7)]
+    runs = {}
+    for k in (1, 2):
+        c = copy.deepcopy(cfg)
+        c.train.steps_per_dispatch = k
+        tr = Trainer(c, FixedBatchLoader(batches), str(tmp_path / f"k{k}"),
+                     device=dev, seed=1)
+        tr.train(7)
+        runs[k] = tr
+    a, b = runs[1].state, runs[2].state
+    assert runs[2].multi_step.graph is not None
+    for (n, x), y in zip(a.model.state_dict().items(),
+                         b.model.state_dict().values()):
+        assert torch.equal(x, y), n
+    for ga, gb in zip(a.optimizer.param_groups, b.optimizer.param_groups):
+        assert ga["lr"] == gb["lr"]
+        for p, q in zip(ga["params"], gb["params"]):
+            assert torch.equal(a.optimizer.state[p]["momentum_buffer"],
+                               b.optimizer.state[q]["momentum_buffer"])
+    assert torch.equal(runs[1].generator.get_state(),
+                       runs[2].generator.get_state())
+    ckpts = {k: CheckpointManager(str(tmp_path / f"k{k}" / "ckpt"))
+             for k in (1, 2)}
+    for it in (3, 5, 6, 7):
+        (sa, ha), (sb, hb) = (ckpts[k].restore(it) for k in (1, 2))
+        assert sa["step"] == sb["step"] == it
+        assert ha["loader_state"] == hb["loader_state"] == {"position": it}
+        assert torch.equal(sa["generator"], sb["generator"])
+        for n, x in sa["model"].items():
+            assert torch.equal(x, sb["model"][n]), (it, n)
+        for i, st in sa["optimizer"]["state"].items():
+            assert torch.equal(st["momentum_buffer"],
+                               sb["optimizer"]["state"][i]["momentum_buffer"])

@@ -293,8 +293,11 @@ def test_loader_from_memory(refer):
     with pytest.raises(FileNotFoundError):
         GtBatchLoader(info, labels, cfg, read_image=lambda p: None
                       ).get_batch("train")
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        a.get_batch("train", num_shards=2)
+    blocks = a.get_batch("train", num_shards=2)
+    i, e = cfg.train.images_per_batch, cfg.train.expressions_per_batch
+    assert blocks["images"].shape[0] == 2 * i
+    assert blocks["labels"].shape[0] == 2 * e
+    assert 0 <= blocks["img_idx"].min() and blocks["img_idx"].max() < i
 
 
 def test_xywh_to_xyxy():

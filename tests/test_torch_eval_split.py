@@ -313,7 +313,7 @@ def test_cli_defaults_to_the_card(setup, tmp_path, monkeypatch):
         cli_train.main(args + ["--max-iters", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         cli_eval.main(args)
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
+    with pytest.raises(RuntimeError, match="cuda"):
         cli_train.main(args + ["--data-parallel", "2"])
     for mod in ("train", "eval"):
         out = subprocess.run(

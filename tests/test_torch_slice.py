@@ -196,7 +196,8 @@ def test_port_imports_no_jax():
             "make_coco_minus_refer.py", "fixtures.py", "caption_metrics.py",
             "eval_captions.py", "attributes.py", "comprehension.py",
             "matching.py", "mobilenet.py", "visualization.py", "demo.py",
-            "roi_pool_cuda.py", "profile_roi_pool.py"} <= names
+            "roi_pool_cuda.py", "profile_roi_pool.py", "mesh.py"} <= names
+    assert (REPO / "lang2seg_tpu_torch" / "parallel" / "train.py") in files
     # the card's machine has no Pillow: the port keeps its own copies of
     # Pillow's resizes (utils/metrics.py)
     banned = ("jax", "jaxlib", "flax", "optax", "lang2seg_tpu", "PIL")

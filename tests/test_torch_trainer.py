@@ -165,14 +165,104 @@ def test_val_summaries_do_not_perturb(env, tmp_path):
     assert all(np.isfinite(e["total_loss"]) for e in val.values())
 
 
-def test_trainer_refuses_unported_options(env):
-    for section, key, value, item in (
-            ("train", "steps_per_dispatch", 2, "Queue 1 #4"),
-            ("parallel", "num_data", 2, "Queue 1 #5")):
+def test_trainer_steps_per_dispatch_runs(env, tmp_path):
+    """A 2-step CPU Trainer at steps_per_dispatch 2 (one multi-step call
+    over the file-backed loader): the same event log, weights and
+    generator as the Trainer at 1, and its snapshot at 2."""
+    runs, last = {}, {}
+    for k in (1, 2):
         cfg = copy.deepcopy(env[0])
-        setattr(getattr(cfg, section), key, value)
-        with pytest.raises(NotImplementedError, match=item):
-            Trainer(cfg, None, device="cpu")
+        cfg.train.steps_per_dispatch = k
+        runs[k] = _trainer(env, tmp_path / f"k{k}", cfg=cfg)
+        if k == 1:                 # no snapshot: only the weights compared
+            runs[k].ckpt = runs[k].writer = None
+        last[k] = runs[k].train(2)
+    assert _iters(tmp_path / "k2") == [2]
+    assert sorted(_events(tmp_path / "k2")) == [1, 2]
+    assert last[1] == last[2] == {
+        k: v for k, v in _events(tmp_path / "k2")[2].items()
+        if k not in ("step", "tag")}
+    for (n, v), w in zip(runs[1].state.model.state_dict().items(),
+                         runs[2].state.model.state_dict().values()):
+        assert torch.equal(v, w), n
+    assert torch.equal(runs[1].generator.get_state(),
+                       runs[2].generator.get_state())
+
+
+def _dp_trainer_job(rank, mesh, cfg, jp, hp, out_dir):
+    """Two ranks: an uninterrupted 4-step run, and a 2-step run resumed
+    from its snapshot to 4 by a fresh Trainer (its loader seeded
+    otherwise)."""
+    import torch.distributed as dist
+    from lang2seg_tpu_torch.parallel import train as ptrain
+
+    def run(out, steps, seed=3):
+        tr = Trainer(cfg, GtBatchLoader(jp, hp, cfg, seed=seed),
+                     os.path.join(out_dir, out), device="cpu", mesh=mesh)
+        if out == "a":             # the event log alone
+            tr.ckpt = None
+        tr.train(steps)
+        return tr
+
+    def state(tr):
+        opt = tr.state.optimizer
+        return {"params": tr.state.model.state_dict(), "step": tr.state.step,
+                "momentum": [opt.state[p]["momentum_buffer"]
+                             for g in opt.param_groups for p in g["params"]],
+                "gen": tr.generator.get_state(),
+                "sampling": tr.sampling_generator.get_state()}
+
+    a = run("a", 4)
+    run("b", 2)
+    dist.barrier()
+    resumed = run("b", 4, seed=99)
+    a, r = state(a), state(resumed)
+    # both ranks hold rank 0's weights (raises otherwise)
+    ptrain.sync_replicas(resumed.state.model, mesh)
+    same = (all(torch.equal(v, r["params"][k]) for k, v in a["params"].items())
+            and all(torch.equal(x, y)
+                    for x, y in zip(a["momentum"], r["momentum"])))
+    return {"same": same, "steps": (a["step"], r["step"]),
+            "gens": (a["gen"], r["gen"]),
+            "sampling": (a["sampling"], r["sampling"]),
+            "rpn_net": a["params"]["rpn_net.weight"]}
+
+
+def _dp_trainer_cfg(env):
+    """The env config on two ranks, 2 steps a dispatch, the newest
+    snapshot kept alone (the test's temporary space)."""
+    cfg = copy.deepcopy(env[0])
+    cfg.parallel.num_data = 2
+    cfg.train.steps_per_dispatch = 2
+    cfg.train.snapshot_kept = 1
+    return cfg
+
+
+def test_trainer_data_parallel_snapshot_resume(env, tmp_path):
+    """The Trainer on two gloo ranks (cfg.parallel.num_data 2, each rank
+    its block of 2 images x 4 expressions, steps_per_dispatch 2): both
+    ranks end with the same weights and momentum, each with its own
+    dropout generator; rank 0 alone writes the event log (one record a
+    step) and the snapshots, which hold both ranks' dropout generators;
+    a run resumed from the snapshot at 2 ends where the uninterrupted run
+    does, bit for bit on every rank."""
+    from tests.test_torch_parallel import run_ranks
+    cfg = _dp_trainer_cfg(env)
+    outs = run_ranks(_dp_trainer_job, tmp_path, cfg=cfg, jp=env[1],
+                     hp=env[2], out_dir=str(tmp_path))
+    for out in outs:
+        assert out["same"] and out["steps"] == (4, 4)
+        assert torch.equal(*out["gens"]) and torch.equal(*out["sampling"])
+        assert torch.equal(out["rpn_net"], outs[0]["rpn_net"])
+    assert not torch.equal(outs[0]["gens"][0], outs[1]["gens"][0])
+    assert _iters(tmp_path / "b") == [4]
+    with open(tmp_path / "a" / "events.jsonl") as f:
+        assert [e["step"] for e in map(json.loads, f)] == [1, 2, 3, 4]
+    assert _events(tmp_path / "a")[4] == _events(tmp_path / "b")[4]
+    saved, _ = CheckpointManager(str(tmp_path / "b" / "ckpt")).restore(4)
+    assert len(saved["generators"]) == 2
+    for out, g in zip(outs, saved["generators"]):
+        assert torch.equal(g, out["gens"][1])
 
 
 def test_checkpoint_manager(tmp_path):
