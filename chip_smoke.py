@@ -6,8 +6,8 @@
 Phases, each fatal on failure (nothing is caught):
   1. environment: device, `nvidia-smi` name and power limit, TF32 flags
      (both set off, so f32 matmuls and convolutions run in full f32);
-  2. build the CUDA kernels (NMS, the gate, the ROI pool) from
-     lang2seg_tpu_torch/csrc with nvcc for sm_90a, in parallel;
+  2. build the CUDA kernels (NMS, the gate, the ROI pool, the ROI crop)
+     from lang2seg_tpu_torch/csrc with nvcc for sm_90a, in parallel;
   3. NMS kernel against its plain version on the card, bit for bit:
      (16, 6000) -> 300 and (16, 12000) -> 2000 on RPN draws, uniform
      boxes, a dense cluster, a spread grid and jittered twins, and the
@@ -269,7 +269,24 @@ Phases, each fatal on failure (nothing is caught):
      shardwise oracle in this process (each block's gradients in turn,
      averaged, one update): parameters, momentum, losses and generators
      bit for bit; then `eval_split_mesh` over phase 12's val and testA
-     images against one process's `eval_split`, equal.
+     images against one process's `eval_split`, equal;
+  31. the ROI crop kernels (`csrc/roi_crop.cu`: a 4-tap bilinear gather
+     forward, a CTA an (expression, ROI); a fixed-order backward, a CTA an
+     (expression, 32-byte channel slab, band of rows) that sums each of its
+     elements in the one order (ROI, sample column), no atomics) against
+     their plain versions (`tools/profile_crop.py`) at serving 16 x 300,
+     training 16 x 256 (C = 1024 and 512), the mask crops 16 x 2, the
+     attribute crops 16 x 1 and test mode 'top' 16 x 5000 (compared in
+     chunks of ROIs), with edge ROIs: the forward the bits of its
+     algorithm in torch ops and within 3 bf16 ulps (at the scale of the
+     crop of |map|) of the einsum pair, the backward the bits of its
+     fixed-order plain version, the same bits on a second run, and within
+     3 ulps (at the scale of the backward of |grad|) of autograd of the
+     einsum pair; each timed beside its bound, the plain versions and one
+     `F.grid_sample` call (library_ms); then one full-width test-mode
+     'top' request of 16 expressions (R = 5000) through Inference.predict,
+     its ms and peak memory; last, every other shape at which phases 5-31
+     launched the crop kernels is checked and timed the same way.
 Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
 shape, its launches from the runs of that shape's path: serving in phases
 5, 14 and 24 and the bucket-16 images of phases 12, 16 and 20, training in
@@ -281,7 +298,10 @@ they launched a kernel at has an entry; NMS at 4, 64 and 128 lanes and
 the gate at E = 4 and on 4 or 2 maps only there); the gate's backward's from training; the C = 512 gate's from
 phases 14, 24 and 28 (MobileNetV1); the ROI pool entries, one for each shape at which
 phases 24-26 launched the forward or the backward, with the launches at
-exactly that shape)
+exactly that shape; the ROI crop entries, one for each shape at which
+phases 5-31 launched its forward or backward: the wrappers' counts, set
+to 0 before phase 5 and read after phase 31, the replays' kernel runs
+traced by name in phases 28-29 and phase 30's ranks' counts)
 and, last, the `{"ok": true, ...}` line. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device or
 outside a checkout of the repository.
@@ -338,7 +358,7 @@ from lang2seg_tpu_torch.engine.train_state import (  # noqa: E402
 from lang2seg_tpu_torch.engine.trainer import Trainer  # noqa: E402
 from lang2seg_tpu_torch.models.network import build_model  # noqa: E402
 from lang2seg_tpu_torch.ops import (  # noqa: E402
-    _build, fused_filter, nms_cuda, proposals, roi_pool_cuda)
+    _build, fused_filter, nms_cuda, proposals, roi_crop_cuda, roi_pool_cuda)
 from lang2seg_tpu_torch.ops.fused_filter import (  # noqa: E402
     fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain,
     per_expression)
@@ -359,6 +379,7 @@ from lang2seg_tpu_torch.tools.profile_roi_pool import (  # noqa: E402
     check_shape as check_pool_shape, checks_pass as pool_checks_pass,
     compare_shape as compare_pool_shape, phase_clocks as pool_phase_clocks)
 from lang2seg_tpu_torch.tools import learn_synthetic  # noqa: E402
+from lang2seg_tpu_torch.tools import profile_crop  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_eval  # noqa: E402
 from lang2seg_tpu_torch.tools.tiny_step import (  # noqa: E402
     card_vs_cpu, launch_counts, pool_launch_counts)
@@ -734,6 +755,52 @@ def pool_shape_counts():
                 roi_pool_cuda.bwd_shapes)}
 
 
+# ------------------------------------------------- ROI crop launch counts
+
+def crop_counts():
+    """The ROI crop kernels' launches, forward and backward."""
+    return roi_crop_cuda.launches, roi_crop_cuda.bwd_launches
+
+
+# the main path's crop launches by shape (`roi_crop_cuda.shape_key`) that
+# no wrapper counted: the crop kernels' runs in graph replays, traced by
+# name (phases 28-29), and the gloo ranks' launches (phase 30). The
+# wrappers' own counts are set to 0 once, before phase 5, and read after
+# phase 31 (`crop_launches`); every check and timing of the crop in this
+# script launches through the uncounted `launch_forward` /
+# `launch_backward`
+CROP_EXTRA = {"fwd": collections.Counter(), "bwd": collections.Counter()}
+
+
+def reset_crop_counts():
+    """Sets the ROI crop kernels' counts, in total and by shape, to 0."""
+    roi_crop_cuda.launches = roi_crop_cuda.bwd_launches = 0
+    roi_crop_cuda.shapes.clear()
+    roi_crop_cuda.bwd_shapes.clear()
+    for c in CROP_EXTRA.values():
+        c.clear()
+
+
+def crop_shape_snapshot():
+    """The wrappers' crop launches by shape so far, (forward, backward)."""
+    return (collections.Counter(roi_crop_cuda.shapes),
+            collections.Counter(roi_crop_cuda.bwd_shapes))
+
+
+def add_traced_crops(before, traced, path):
+    """Attributes the crop kernels' runs traced in a run's replays to the
+    one shape at which its wrappers launched them since `before` (a
+    `crop_shape_snapshot`)."""
+    for side, key, now in zip(("fwd", "bwd"), ("roi_crop", "roi_crop_bwd"),
+                              crop_shape_snapshot()):
+        seen = now - before[("fwd", "bwd").index(side)]
+        if not traced.get(key):
+            continue
+        check(len(seen) == 1, f"[{path}] crop {side} launches at "
+              f"{dict(seen)}")
+        CROP_EXTRA[side][next(iter(seen))] += traced[key]
+
+
 # ---------------------------------------------------------------- phase 5
 
 def serve_full_width():
@@ -771,15 +838,17 @@ def serve_requests(path, cfg, sizes=((4, 1), (8, 2), (16, 3)), model=None):
     torch.cuda.reset_peak_memory_stats()
     nms_cuda.launches = fused_filter.launches = 0
     reset_pool_counts()
+    crop0 = roi_crop_cuda.launches
     pool = m.pooling_mode == "pool"
-    # predict: the box head's crops; eval_image: those and, with a mask
-    # head, the crops of each expression's box
-    want = (1, 1, int(pool))
-    want_eval = (1, 1, int(pool) * (1 + int(m.use_mask_head)))
+    # predict: the box head's ROI pool or crop; eval_image: that and, with
+    # a mask head, the pool or crop of each expression's box
+    want = (1, 1, int(pool), int(not pool))
+    want_eval = (1, 1) + tuple(x * (1 + int(m.use_mask_head))
+                               for x in want[2:])
 
     def counts():
         return (nms_cuda.launches, fused_filter.launches,
-                roi_pool_cuda.launches)
+                roi_pool_cuda.launches, roi_crop_cuda.launches)
     for num_expr, seed in sizes:
         b = synthetic_eval_request(cfg, num_expr, seed, 1.6)
         c0 = counts()
@@ -819,7 +888,8 @@ def serve_requests(path, cfg, sizes=((4, 1), (8, 2), (16, 3)), model=None):
                         "eval_image_ms": t_eval})
         log(f"[{path}] request E={num_expr}: predict {t_pred:.1f} ms, "
             f"eval_image {t_eval:.1f} ms")
-    launches = dict(zip(("nms", "fused_filter", "roi_pool"), counts()))
+    launches = dict(zip(("nms", "fused_filter", "roi_pool", "roi_crop"),
+                        counts()[:3] + (roi_crop_cuda.launches - crop0,)))
     summary = acc.summary()
     check(all(0.0 <= float(v) <= 1.0 for v in summary.values()))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -924,15 +994,20 @@ def train_full_width(path, cfg, batches=None):
 
     buffers = {n: b.clone() for n, b in model.named_buffers()}
     pool = cfg.model.pooling_mode == "pool"
-    # per step: NMS, the gate, its backward, and in pool mode the ROI pool
-    # kernel and its backward, once each
-    want_step = (1, 1, 1) + ((1, 1) if pool else (0, 0))
+    # per step: NMS, the gate, its backward once each, and the ROI pool
+    # kernel and its backward in pool mode, else the ROI crop kernels, once
+    # each (twice with the attribute head's crops at the GT boxes)
+    k = 1 + int(cfg.model.use_attribute_head)
+    want_step = (1, 1, 1) + ((k, k, 0, 0) if pool else (0, 0, k, k))
 
     def counts():
-        return launch_counts() + pool_launch_counts()
+        return launch_counts() + pool_launch_counts() + crop_counts()
 
     nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
     reset_pool_counts()
+    # the crop counts run on from phase 5 to phase 31: this run's are the
+    # differences from here
+    start = (0,) * 5 + crop_counts()
     bwd_inputs, undo = record_gate_bwd_inputs()
     t0 = time.perf_counter()
     try:
@@ -941,7 +1016,7 @@ def train_full_width(path, cfg, batches=None):
         undo()
     torch.cuda.synchronize()
     log(f"[{path}] warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    per_step = [counts()]
+    per_step = [tuple(b - a for a, b in zip(start, counts()))]
     (d_gated, d_resp), = bwd_inputs
     bwd_in = {"d_gated_dtype": str(d_gated.dtype),
               "d_gated_contiguous": d_gated.is_contiguous(),
@@ -980,12 +1055,14 @@ def train_full_width(path, cfg, batches=None):
         times.append((time.perf_counter() - t0) * 1e3)
         per_step.append(tuple(b - a for a, b in zip(c0, counts())))
     launches = dict(zip(("nms", "fused_filter", "fused_filter_bwd",
-                         "roi_pool", "roi_pool_bwd"), counts()))
+                         "roi_pool", "roi_pool_bwd", "roi_crop",
+                         "roi_crop_bwd"),
+                        (b - a for a, b in zip(start, counts()))))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[{path}] step ms {[round(t, 2) for t in times]} (mean "
         f"{sum(times) / len(times):.2f}); peak device memory {peak:.2f} GiB; "
-        f"launches per step (nms, gate, gate bwd, roi pool, roi pool bwd) "
-        f"{per_step}")
+        f"launches per step (nms, gate, gate bwd, roi pool, roi pool bwd, "
+        f"roi crop, roi crop bwd) {per_step}")
     for i, ls in enumerate(steps):
         log(f"[{path}] step {i + 1} losses "
             f"{ {k: round(v, 4) for k, v in sorted(ls.items())} }")
@@ -2891,6 +2968,7 @@ def graph_vs_eager(path, cfg, k=4, dispatches=3, decay_at=6, num_expr=16,
     got = []
     nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
     reset_pool_counts()
+    crops0, crop_shapes0 = crop_counts(), crop_shape_snapshot()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     first_ms = timed_window(lambda: got.append(multi(stacked[0])))
@@ -2900,11 +2978,12 @@ def graph_vs_eager(path, cfg, k=4, dispatches=3, decay_at=6, num_expr=16,
     graph_busy /= k * (dispatches - 2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     keys = ("nms", "fused_filter", "fused_filter_bwd", "roi_pool",
-            "roi_pool_bwd")
-    calls = dict(zip(keys, launch_counts() + pool_launch_counts()))
+            "roi_pool_bwd", "roi_crop", "roi_crop_bwd")
+    calls = dict(zip(keys, launch_counts() + pool_launch_counts() + tuple(
+        b - a for a, b in zip(crops0, crop_counts()))))
     shapes = pool_shape_counts()
     pool = cfg.model.pooling_mode == "pool"
-    want_step = (1, 1, 1) + ((1, 1) if pool else (0, 0))
+    want_step = (1, 1, 1) + ((1, 1, 0, 0) if pool else (0, 0, 1, 1))
     replays = k * (dispatches - 2)
     check(calls == {key: 2 * c for key, c in zip(keys, want_step)},
           f"[{path}] the warm step and the capture called the wrappers "
@@ -2913,6 +2992,7 @@ def graph_vs_eager(path, cfg, k=4, dispatches=3, decay_at=6, num_expr=16,
           f"[{path}] the trace of {replays} replays ran the kernels "
           f"{traced} times")
     runs = dict(traced)
+    add_traced_crops(crop_shapes0, traced, path)
     if pool:
         for key, counter in (("roi_pool", "roi_pool_shapes"),
                              ("roi_pool_bwd", "roi_pool_bwd_shapes")):
@@ -3031,6 +3111,7 @@ def data_parallel_world1():
             le += [step_e(b) for b in batches[1:]]
             nms_cuda.launches = fused_filter.launches = 0
             fused_filter.bwd_launches = 0
+            crops0, crop_shapes0 = crop_counts(), crop_shape_snapshot()
             step_g = make_sharded_train_step(graphed, mesh, *gens["graphed"])
             multi = make_sharded_multi_step(graphed, mesh, *gens["graphed"])
             check(multi.graphed, "the NCCL multi-step is not graphed")
@@ -3045,8 +3126,12 @@ def data_parallel_world1():
                           for j in range(4))
             dispatch(0)
             *_, traced = profiled_window(lambda: dispatch(1))
-            calls = dict(zip(("nms", "fused_filter", "fused_filter_bwd"),
-                             launch_counts()))
+            calls = dict(zip(("nms", "fused_filter", "fused_filter_bwd",
+                              "roi_crop", "roi_crop_bwd"),
+                             launch_counts() + tuple(
+                                 b - a for a, b in zip(crops0,
+                                                       crop_counts()))))
+            add_traced_crops(crop_shapes0, traced, "dp_world1")
             params, momentum = same_train_states(eager, graphed)
             losses = all(torch.equal(a[key], b[key])
                          for a, b in zip(le, lg) for key in a)
@@ -3114,14 +3199,16 @@ def dp_rank_worker(rank, root):
                           "cuda")
         nms_cuda.launches = fused_filter.launches = 0
         fused_filter.bwd_launches = 0
+        reset_crop_counts()
         losses = step(block)
         torch.cuda.synchronize()
-        launches = launch_counts()
+        launches = launch_counts() + crop_counts()
         sync_replicas(state.model, mesh)      # every rank holds rank 0's
         ev = Evaluator(state.model, cfg, device="cuda")
         summary = ev.eval_split_mesh(payload["eval"], mesh)
         out = {"losses": {k: v.cpu() for k, v in losses.items()},
                "launches": launches, "summary": summary,
+               "crop_shapes": crop_shape_snapshot(),
                "gen": gen.get_state(), "sampling": sgen.get_state()}
         if rank == 0:
             opt = state.optimizer
@@ -3189,8 +3276,11 @@ def data_parallel_two_ranks():
         f"{[o['launches'] for o in outs]}")
     check(params and momentum and losses and gen,
           "the two-rank step differs from the shardwise oracle")
-    check(all(o["launches"] == (1, 1, 1) for o in outs),
+    check(all(o["launches"] == (1, 1, 1, 1, 1) for o in outs),
           "a rank's step did not launch each kernel once")
+    for o in outs:
+        for side, shapes in zip(("fwd", "bwd"), o["crop_shapes"]):
+            CROP_EXTRA[side].update(shapes)
     del oracle
     model = build_model(cfg, device="cuda", state_dict=outs[0]["params"])
     acc = SegEvalAccumulator()
@@ -3208,6 +3298,190 @@ def data_parallel_two_ranks():
             "fused_filter_bwd": sum(o["launches"][2] for o in outs)}
 
 
+# ------------------------------------------------------------ phase 31
+
+# the JAX package computes the crop in plain XLA (two einsums, and their
+# transposes for the gradient), no Pallas kernel
+CROP_REPLACES = "lang2seg_tpu/ops/roi_align.py:80"
+
+
+def crop_registers():
+    """ptxas's (registers a thread, stack frame, spill store and spill load
+    bytes) of the crop kernels, by (side, dtype) (the backward's 7 x 7
+    instance)."""
+    regs = kernel_registers(_build.library_path("roi_crop").with_name(
+        "build.log"))
+    out = {}
+    for side in ("fwd", "bwd"):
+        for dtype, t in (("bfloat16", "__nv_bfloat16"), ("float32", "float")):
+            kernel = f"roi_crop_{side}_kernel<{t}" + (
+                ">" if side == "fwd" else ", 7>")
+            hits = [v for name, v in regs.items() if kernel in name]
+            out[side, dtype] = list(hits[0]) if len(hits) == 1 else None
+    return out
+
+
+def check_crop_shape_logged(name, e, r, h, w, c, maps, train, dev, reps,
+                            dtype=torch.bfloat16, s=7):
+    """`profile_crop.check_shape` with phase 31's checks and log line;
+    returns its numbers."""
+    res = profile_crop.check_shape(name, e, r, h, w, c, maps, train, dev,
+                                   reps=reps, seed=31, dtype=dtype, s=s)
+    errs = {k: v for k, v in res.items() if k.startswith(
+        ("forward_", "bwd_repeat", "bwd_plain", "bwd_einsum"))}
+    log(f"[roi-crop] {name} ({maps} maps): {errs}; forward {res['ms']:.4f} "
+        f"ms ({res['gb_per_s']:.0f} GB/s), plain {res['plain_ms']:.2f} ms, "
+        f"grid_sample {res['library_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']})"
+        + (f"; backward {res['bwd_ms']:.4f} ms ({res['bwd_gb_per_s']:.0f} "
+           f"GB/s), plain {res['bwd_plain_ms']:.1f} ms, einsum autograd "
+           f"{res['bwd_einsum_ms']:.2f} ms, grid_sample "
+           f"{res['bwd_library_ms']:.3f} ms, bound "
+           f"{res['bwd_bound_ms']:.4f} ms; plan {res['band_plan']}"
+           if train else ""))
+    check(profile_crop.checks_pass(res), f"the ROI crop kernels differ from "
+          f"the plain versions at {name}")
+    record[f"roi_crop_{name}"] = res
+    return res
+
+
+def top_request_16():
+    """Test mode 'top' at E = 16: one full-width request of 16 expressions
+    through `Inference.predict` with the top 5000 proposals an expression
+    (R = 5000; the einsum pair's intermediate alone would be 46 GB), after
+    a warm-up request of 2; its ms, peak memory, and one crop launch at (16,
+    5000). Returns the request's numbers."""
+    cfg = flagship_config()
+    cfg.test.mode = "top"
+    model = build_model(cfg, device="cuda", seed=0)
+    inf = Inference(model, cfg)
+    warm = synthetic_eval_request(cfg, 2, seed=9, im_scale=1.6)
+    inf.predict(warm["images"], warm["im_hw"], warm["labels"])
+    b = synthetic_eval_request(cfg, 16, seed=10, im_scale=1.6)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = (nms_cuda.launches, roi_crop_cuda.launches)
+    shapes0 = crop_shape_snapshot()[0]
+    t0 = time.perf_counter()
+    out = inf.predict(b["images"], b["im_hw"], b["labels"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    r = cfg.test.rpn_top_n
+    launched = (nms_cuda.launches - c0[0], roi_crop_cuda.launches - c0[1])
+    key = roi_crop_cuda.shape_key(16, r, cfg.model.pooling_size, 40, 64,
+                                  cfg.model.c4_feat_dim, model.compute_dtype)
+    seen = crop_shape_snapshot()[0] - shapes0
+    finite = all(bool(torch.isfinite(out[k].float()).all())
+                 for k in ("rois", "cls_prob", "bbox_pred"))
+    log(f"[roi-crop] test mode 'top' at E = 16 (R = {r}): predict "
+        f"{ms:.1f} ms, peak {peak:.2f} GiB; launches (nms, crop) "
+        f"{launched} at {dict(seen)}; outputs finite {finite}")
+    check(tuple(out["cls_prob"].shape) == (16, r, cfg.model.num_classes)
+          and bool(out["roi_valid"].all()) and finite,
+          "the 'top' request at E = 16")
+    check(launched == (0, 1) and seen == {key: 1},
+          "the 'top' request at E = 16 did not crop once at (16, 5000)")
+    del model, inf, out
+    torch.cuda.empty_cache()
+    return {"predict_ms": ms, "peak_gib": peak, "rois": r,
+            "launches": launched}
+
+
+def check_crop(dev):
+    """Phase 31: the ROI crop kernels (`csrc/roi_crop.cu`) against their
+    plain versions at `profile_crop.SHAPES` and `TOP_SHAPE` (serving 16 x
+    300, training 16 x 256 at C = 1024 and 512, the mask crops 16 x 2,
+    the attribute crops 16 x 1, 'top' 16 x 5000 compared in chunks), with
+    the edge ROIs: the forward the bits of its algorithm in torch ops and
+    within `FWD_ULPS` of the einsum pair, the backward the bits of its
+    fixed-order plain version on two runs and within `BWD_ULPS` of
+    autograd of the einsum pair; each timed beside its bound, the plain
+    versions and `F.grid_sample` (`library_ms`); then `top_request_16`.
+    Returns the checked shapes' numbers by launch key."""
+    regs = crop_registers()
+    log(f"[roi-crop] registers, stack, spill stores, spill loads: "
+        f"{ {f'{a}/{b}': v for (a, b), v in regs.items()} }")
+    record["roi_crop_registers"] = {f"{a}/{b}": v
+                                    for (a, b), v in regs.items()}
+    checked = {}
+    for shape in profile_crop.SHAPES + (profile_crop.TOP_SHAPE,):
+        name, e, r, h, w, c, maps, train = shape
+        res = check_crop_shape_logged(*shape, dev, reps=10)
+        checked[roi_crop_cuda.shape_key(e, r, 7, h, w, c,
+                                        torch.bfloat16)] = res
+        torch.cuda.empty_cache()
+    record["top_request_16"] = top_request_16()
+    return checked, regs
+
+
+def crop_entries(res, key, regs, launched):
+    """The `kernels` entries of one checked crop shape: the forward's, and
+    the backward's when the main path launched it, with the launches at
+    exactly that shape."""
+    e, r, s, h, w, c, dtype = key
+    tag = f"{e}x{r}_{h}x{w}x{c}_{dtype}" + ("" if s == 7 else f"_s{s}")
+    fwd = {"name": f"roi_crop_{tag}", "route": "cuda",
+           "source": "lang2seg_tpu_torch/csrc/roi_crop.cu",
+           "replaces": CROP_REPLACES, "launches": launched["fwd"][key],
+           "max_abs_err": res["forward_max_abs_err"], "ms": res["ms"],
+           "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+           "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+           "kernel": "roi_crop_fwd_kernel", "registers": regs["fwd", dtype]}
+    if not launched["bwd"][key]:
+        return [fwd]
+    return [fwd, {
+        "name": f"roi_crop_bwd_{tag}", "route": "cuda",
+        "source": "lang2seg_tpu_torch/csrc/roi_crop.cu",
+        "replaces": CROP_REPLACES, "launches": launched["bwd"][key],
+        "max_abs_err": res["bwd_max_abs_err"], "ms": res["bwd_ms"],
+        "plain_ms": res["bwd_plain_ms"], "bound_ms": res["bwd_bound_ms"],
+        "bound_by": res["bwd_bound_by"],
+        "library_ms": res["bwd_library_ms"],
+        "kernel": "roi_crop_bwd_kernel", "registers": regs["bwd", dtype]}]
+
+
+def crop_launches(checked, regs, dev):
+    """Phase 31, last: the main path's crop launches by shape, from phase 5
+    to the 'top' request (the wrappers' counts, the traced replays and the
+    gloo ranks'), one entry each forward and backward; a shape phase 31
+    did not check is checked and timed here on maps of its layout
+    (gathered where the backward ran, else distinct). Serving (16, 300),
+    training (16, 256), the mask crops and 'top' (16, 5000) must have been
+    launched. Returns the entries."""
+    launched = {"fwd": collections.Counter(roi_crop_cuda.shapes),
+                "bwd": collections.Counter(roi_crop_cuda.bwd_shapes)}
+    for side in launched:
+        launched[side].update(CROP_EXTRA[side])
+    log(f"[roi-crop] main-path launches by (E, R, S, H, W, C, dtype): "
+        f"forward {dict(launched['fwd'])}, backward "
+        f"{dict(launched['bwd'])}")
+    check(set(launched["bwd"]) <= set(launched["fwd"]),
+          "a crop backward launch with no forward at its shape")
+    must = {"serving": (16, 300), "training": (16, 256), "top": (16, 5000),
+            "mask crops": None}
+    for what, er in must.items():
+        hit = [k for k in launched["fwd"] if k[3:6] == (40, 64, 1024) and
+               (k[:2] == er if er else k[1] in (1, 2))]
+        check(hit, f"the main path launched no crop for {what}")
+    check(any(k[:2] == (16, 256) for k in launched["bwd"]),
+          "the main path launched no crop backward for training")
+    entries = []
+    for key in sorted(launched["fwd"]):
+        e, r, s, h, w, c, dtype = key
+        res = checked.get(key)
+        if res is None or (launched["bwd"][key] and "bwd_ms" not in res):
+            train = bool(launched["bwd"][key])
+            res = check_crop_shape_logged(
+                f"{e}x{r}_{h}x{w}x{c}_{dtype}", e, r, h, w, c,
+                "gathered" if train else "distinct", train, dev, reps=10,
+                dtype=getattr(torch, dtype), s=s)
+            torch.cuda.empty_cache()
+        entries += crop_entries(res, key, regs, launched)
+    return entries
+
+
 def main():
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
         dp_rank_worker(int(sys.argv[2]), sys.argv[3])
@@ -3223,6 +3497,8 @@ def main():
     regs = gate_registers()
     kernels = check_nms(dev) + check_gate(dev, regs) + [
         check_gate_bwd(dev, regs)]
+    # the crop kernels' counts run from here to phase 31 (`crop_launches`)
+    reset_crop_counts()
     runs = {"serve": serve_full_width()}
     small_reference()
     # the phase-7 trainer is dropped here, so that phase 9's peak memory
@@ -3266,6 +3542,8 @@ def main():
     runs["dp_world1"] = data_parallel_world1()
     runs["dp_gloo"] = data_parallel_two_ranks()
     pool_kernels += pool_launches(runs, pool_kernels, dev, pool_regs)
+    crop_checked, crop_regs = check_crop(dev)
+    crop_kernels = crop_launches(crop_checked, crop_regs, dev)
     for kr in kernels:
         kr["launches"] = sum(runs[path].get(counter, 0)
                              for path, counter in kr["launched_by"])
@@ -3274,7 +3552,7 @@ def main():
     reported = {pc for kr in kernels for pc in kr["launched_by"]}
     check(all(("eval_modes", key) in reported for key in runs["eval_modes"]),
           "a phase-27 launch shape has no kernels entry")
-    kernels += pool_kernels
+    kernels += pool_kernels + crop_kernels
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tile_plan", "cluster_size", "kernel", "registers")

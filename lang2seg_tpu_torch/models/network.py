@@ -56,6 +56,27 @@ from .resnet import ResNetC4
 from .vgg import VGG16
 
 
+# crops one call of the ROI tail takes at most outside training; past it
+# the tail runs on pieces of TAIL_PIECE crops into one output. Test mode
+# 'top' at 16 expressions crops 80,000 ROIs, and layer4's temporaries
+# (each 2048-channel 7 x 7 map 16 GB in bf16) would need more than an
+# 80 GB card; every other path (the evaluator's 4 x 32 chunk crops 38,400)
+# takes one call
+TAIL_CROPS = 40960
+TAIL_PIECE = 8192
+
+
+def _in_pieces(fn, x: torch.Tensor, piece: int) -> torch.Tensor:
+    """fn(x) for a function of each row of x alone, on `piece` rows a call,
+    written into one output."""
+    first = fn(x[:piece])
+    out = first.new_empty((x.shape[0], *first.shape[1:]))
+    out[:piece] = first
+    for i in range(piece, x.shape[0], piece):
+        out[i:i + piece] = fn(x[i:i + piece])
+    return out
+
+
 def smooth_l1(pred, target, inside_w, outside_w, sigma: float):
     """Reference _smooth_l1_loss (network.py:357-370): per-element huber on
     inside-weighted diffs, scaled by outside weights; the caller reduces.
@@ -195,9 +216,14 @@ class Lang2Seg(nn.Module):
         e, r = crops.shape[:2]
         flat = crops.reshape(e * r, *crops.shape[2:])
         if m.backbone == "vgg16":
-            fc7 = self.vgg.tail(flat, generator)
+            def tail(x):
+                return self.vgg.tail(x, generator)
         else:
-            fc7 = self.backbone.tail(flat)
+            tail = self.backbone.tail
+        if torch.is_grad_enabled() or flat.shape[0] <= TAIL_CROPS:
+            fc7 = tail(flat)
+        else:
+            fc7 = _in_pieces(tail, flat, TAIL_PIECE)
         return fc7.reshape(e, r, *fc7.shape[1:])
 
     def _gt_masks(self, gt_masks: torch.Tensor, canvas_w: int

@@ -5,9 +5,12 @@ Counterpart of `lang2seg_tpu/ops/roi_align.py::crop_and_resize` /
 bilinear grid_sample with align_corners, nets/network.py:104-146)
 samples the feature map at linspace(x1, x2, S) x linspace(y1, y2, S) in
 feature-pixel coordinates with zero padding. Bilinear interpolation is
-separable, so the crop is two contractions with hat weights
+separable, so the plain version is two contractions with hat weights
 w = max(0, 1 - |coord - index|), cast to the feature dtype as the JAX
-package does.
+package does. `crop_and_resize` runs it for a CPU tensor; a CUDA tensor
+launches the hand kernels of `ops/roi_crop_cuda.py` (a 4-tap gather
+forward and its fixed-order backward, `RoICrop`), which read the same
+sample coordinates and round as the einsum pair does.
 
 `roi_max_pool` is the counterpart of the JAX package's `roi_max_pool`
 (POOLING_MODE 'pool', `lang2seg_tpu/ops/roi_align.py:123-216`): the
@@ -38,22 +41,155 @@ def _sample_coords(rois: torch.Tensor, out_size: int, spatial_scale: float):
     return ys, xs
 
 
+def _hat(coords: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """(..., n) hat weights max(0, 1 - |coord - index|) of (...) sample
+    coordinates on an axis of n cells, in f32, cast to `dtype`."""
+    idx = torch.arange(n, dtype=torch.float32, device=coords.device)
+    return torch.clamp(1.0 - torch.abs(coords[..., None] - idx),
+                       min=0.0).to(dtype)
+
+
+def crop_and_resize_plain(feat: torch.Tensor, ys: torch.Tensor,
+                          xs: torch.Tensor) -> torch.Tensor:
+    """The einsum pair at given sample coordinates: feat (E, H, W, C), ys
+    / xs (E, R, S) f32 in map cells -> (E, R, S, S, C) in feat's dtype."""
+    h, w = feat.shape[1], feat.shape[2]
+    wy = _hat(ys, h, feat.dtype)                           # (E, R, S, H)
+    wx = _hat(xs, w, feat.dtype)                           # (E, R, S, W)
+    # contract x first (W is usually the larger extent), then y per ROI
+    tmp = torch.einsum("eyxc,erjx->eryjc", feat, wx)       # (E, R, H, S, C)
+    return torch.einsum("eriy,eryjc->erijc", wy, tmp)      # (E, R, S, S, C)
+
+
+def _taps(coords: torch.Tensor, n: int, dtype: torch.dtype):
+    """The two taps floor(coord) + k, k = 0, 1, of (...) sample
+    coordinates on an axis of n cells: [(index clamped to the axis,
+    int64; hat weight in `dtype` as f32, 0 for a tap off the axis)] x 2."""
+    first = torch.floor(coords)
+    out = []
+    for k in (0, 1):
+        idx = first + k
+        weight = torch.clamp(1.0 - torch.abs(coords - idx), min=0.0).to(dtype)
+        inside = (idx >= 0) & (idx < n)
+        out.append((idx.clamp(0, n - 1).long(),
+                    torch.where(inside, weight.float(), 0.0)))
+    return out
+
+
+def crop_gather_plain(feat: torch.Tensor, ys: torch.Tensor,
+                      xs: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's algorithm in torch ops, the 4-tap gather: for
+    each sample, each of its two rows' two x taps weighted and summed in
+    f32, rounded to feat's dtype, then the two rows weighted and summed in
+    f32, rounded. A tap off the map adds 0. feat (E, H, W, C), ys / xs (E,
+    R, S) -> (E, R, S, S, C) in feat's dtype."""
+    e, h, w, c = feat.shape
+    dt = feat.dtype
+    f = feat.float()
+    ar = torch.arange(e, device=feat.device)[:, None, None, None]
+    xtaps = _taps(xs, w, dt)
+    out = 0.0
+    for yi, wy in _taps(ys, h, dt):
+        row = 0.0
+        for xi, wx in xtaps:
+            row = row + wx[:, :, None, :, None] * \
+                f[ar, yi[:, :, :, None], xi[:, :, None, :]]
+        out = out + wy[:, :, :, None, None] * row.to(dt).float()
+    return out.to(dt)
+
+
+def crop_bwd_coords_plain(grad: torch.Tensor, ys: torch.Tensor,
+                          xs: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The crop's gradient with respect to the map at given sample
+    coordinates, as the backward kernel computes it: for each ROI r in
+    order and each sample column j in order, u = the sum over i = 0..S-1
+    in order of wy * grad in f32, rounded to grad's dtype (the einsum's
+    rounded intermediate), then wx * u added in f32 at the column's two
+    taps; the sum rounded once. grad (E, R, S, S, C) -> (E, h, w, C)."""
+    e, r, s, _, c = grad.shape
+    dt, dev = grad.dtype, grad.device
+    ytaps = _taps(ys, h, dt)                               # 2 x (E, R, S)
+    xtaps = _taps(xs, w, dt)
+    g = grad.float()
+    ar = torch.arange(e, device=dev)
+    acc = torch.zeros((e, h, w, c), dtype=torch.float32, device=dev)
+    # only a sample's two taps have a weight that is not zero, and a tap
+    # off the map adds 0 at a clamped index: each sum stays as it is
+    for q in range(r):
+        u = torch.zeros((e, h, s, c), dtype=torch.float32, device=dev)
+        for i in range(s):
+            for idx, weight in ytaps:
+                y = idx[:, q, i]
+                u[ar, y] = u[ar, y] + weight[:, q, i, None, None] * g[:, q, i]
+        u = u.to(dt).float()
+        for j in range(s):
+            for idx, weight in xtaps:
+                x = idx[:, q, j]
+                acc[ar, :, x] = acc[ar, :, x] + \
+                    weight[:, q, j, None, None] * u[:, :, j]
+    return acc.to(dt)
+
+
+def crop_and_resize_bwd_plain(feat: torch.Tensor, rois: torch.Tensor,
+                              grad: torch.Tensor, out_size: int,
+                              spatial_scale: float = 1.0) -> torch.Tensor:
+    """The gradient of `crop_and_resize` with respect to feat (read for
+    its shape alone), in the backward kernel's fixed order
+    (`crop_bwd_coords_plain`). grad (E, R, S, S, C) -> (E, H, W, C) in
+    grad's dtype."""
+    ys, xs = _sample_coords(rois.float(), out_size, spatial_scale)
+    return crop_bwd_coords_plain(grad, ys.contiguous(), xs.contiguous(),
+                                 feat.shape[1], feat.shape[2])
+
+
+class RoICrop(torch.autograd.Function):
+    """The crop at given sample coordinates as an autograd node: the
+    kernels on the card, the einsum pair and `crop_bwd_coords_plain` on
+    the CPU. It saves the coordinates alone (the backward never reads the
+    map); no gradient reaches them."""
+
+    @staticmethod
+    def forward(ctx, feat, ys, xs):
+        ctx.save_for_backward(ys, xs)
+        ctx.map_hw = (feat.shape[1], feat.shape[2])
+        if feat.device.type == "cuda":
+            from . import roi_crop_cuda
+            return roi_crop_cuda.roi_crop_forward(feat, ys, xs)
+        return crop_and_resize_plain(feat, ys, xs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ys, xs = ctx.saved_tensors
+        h, w = ctx.map_hw
+        if grad.device.type == "cuda":
+            from . import roi_crop_cuda
+            return (roi_crop_cuda.roi_crop_backward(grad.contiguous(), ys, xs,
+                                                    h, w), None, None)
+        return crop_bwd_coords_plain(grad, ys, xs, h, w), None, None
+
+
 def crop_and_resize(feat: torch.Tensor, rois: torch.Tensor, out_size: int,
                     spatial_scale: float = 1.0) -> torch.Tensor:
     """feat: (E, H, W, C); rois: (E, R, 4) [x1 y1 x2 y2] in image coords
     (times spatial_scale gives feature coords). Returns (E, R, S, S, C)
-    in feat's dtype."""
-    h, w = feat.shape[1], feat.shape[2]
+    in feat's dtype, differentiable in feat (never in the ROIs: proposals
+    and GT boxes carry no gradient, and ROIs that require one raise). A
+    CPU tensor takes the plain version, a CUDA tensor the kernels (each
+    expression's (H, W, C) map contiguous, the expression stride free, 0
+    for a broadcast map); another device raises."""
+    if feat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"crop_and_resize: unsupported device {feat.device}")
+    if torch.is_grad_enabled() and rois.requires_grad:
+        raise ValueError("crop_and_resize: the ROIs carry no gradient; "
+                         "detach them")
     ys, xs = _sample_coords(rois.float(), out_size, spatial_scale)
-    iy = torch.arange(h, dtype=torch.float32, device=feat.device)
-    ix = torch.arange(w, dtype=torch.float32, device=feat.device)
-    wy = torch.clamp(1.0 - torch.abs(ys[..., None] - iy), min=0.0)
-    wx = torch.clamp(1.0 - torch.abs(xs[..., None] - ix), min=0.0)
-    wy = wy.to(feat.dtype)                                 # (E, R, S, H)
-    wx = wx.to(feat.dtype)                                 # (E, R, S, W)
-    # contract x first (W is usually the larger extent), then y per ROI
-    tmp = torch.einsum("eyxc,erjx->eryjc", feat, wx)       # (E, R, H, S, C)
-    return torch.einsum("eriy,eryjc->erijc", wy, tmp)      # (E, R, S, S, C)
+    ys, xs = ys.contiguous(), xs.contiguous()
+    if torch.is_grad_enabled() and feat.requires_grad:
+        return RoICrop.apply(feat, ys, xs)
+    if feat.device.type == "cuda":
+        from . import roi_crop_cuda
+        return roi_crop_cuda.roi_crop_forward(feat, ys, xs)
+    return crop_and_resize_plain(feat, ys, xs)
 
 
 def roi_crop_pool(feat: torch.Tensor, rois: torch.Tensor, pooling_size: int,

@@ -1,0 +1,200 @@
+"""The ROI crop: the hand-written CUDA kernels (`csrc/roi_crop.cu`), a
+bilinear 4-tap gather forward and its fixed-order backward with respect to
+the map.
+
+No Pallas kernel precedes them: the JAX package computes the crop in plain
+XLA as two einsums against hat weights (`lang2seg_tpu/ops/roi_align.py::
+crop_and_resize`), a form shaped by the TPU's matrix unit.
+`ops/roi_align.py::crop_and_resize` calls these wrappers for CUDA tensors
+and its plain version (that einsum pair) for CPU tensors. Both read the
+sample coordinates `_sample_coords` computes.
+
+`band_plan` is how the wrapper cuts a map for the backward: a CTA holds
+a 32-byte channel slab of `band_rows` map rows in f32 in shared memory,
+beside the gradient's slab of a chunk of ROIs.
+`launches` and `bwd_launches` count the two C entries' launches through
+`roi_crop_forward` / `roi_crop_backward`; `shapes` and `bwd_shapes` count
+the same launches by `shape_key`. `launch_forward` / `launch_backward`
+launch without counting, for tools that compare or time the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+from typing import Dict, Tuple
+
+import torch
+
+from . import _build
+
+launches = 0
+bwd_launches = 0
+shapes: collections.Counter = collections.Counter()
+bwd_shapes: collections.Counter = collections.Counter()
+
+_DTYPES = (torch.float32, torch.bfloat16)
+# dynamic shared memory a block may opt in to on an H100 (232,448 B), less
+# the backward's static staging of 32 ROIs' taps and spans (8.5 KiB) and a
+# margin
+SMEM_BYTES = 227 * 1024 - 8704 - 64
+SLAB_BYTES = 32
+# the column ranges a backward CTA splits its rows into, a thread each
+X_SPLIT = 3
+MAX_SAMPLES = 16
+# ROIs whose taps and gradient slab the backward stages at a time, at most
+ROI_CHUNK = 32
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("roi_crop")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.roi_crop_fwd_launch.argtypes = [p, ll, i, i, i, i, i, p, p, i, i, p,
+                                        p]
+    lib.roi_crop_fwd_launch.restype = i
+    lib.roi_crop_bwd_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i,
+                                        p, p]
+    lib.roi_crop_bwd_launch.restype = i
+    return lib
+
+
+def band_plan(h: int, w: int, c: int, dtype: torch.dtype,
+              s: int = 7) -> Dict[str, int]:
+    """How the backward cuts an (E, h, w, c) map of `dtype` for S x S
+    crops: `channels` a CTA (32 bytes of a pixel: 16 bf16 or 8 f32) in
+    `slabs` slabs, bands of `band_rows` rows (`bands` of them), a thread a
+    row, channel pair and one of `X_SPLIT` ranges of columns (`threads`,
+    at most 1024), each row (w + 1) x
+    channels f32 of shared memory, then the gradient's slab of `chunk`
+    ROIs (S x S x 32 bytes each, at most `ROI_CHUNK`) beside it (`smem`
+    bytes a CTA)."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    cs = SLAB_BYTES // elem
+    row_bytes = (w + 1) * cs * 4
+    roi_bytes = s * s * SLAB_BYTES
+    band_rows = min(h, (SMEM_BYTES - roi_bytes) // row_bytes,
+                    1024 // (cs // 2 * X_SPLIT))
+    if band_rows <= 0:
+        raise ValueError(f"roi_crop: a map row of {w} pixels does not fit the "
+                         f"backward's shared memory ({SMEM_BYTES} B)")
+    chunk = min(ROI_CHUNK, (SMEM_BYTES - band_rows * row_bytes) // roi_bytes)
+    return {"channels": cs, "slabs": -(-c // cs), "band_rows": band_rows,
+            "bands": -(-h // band_rows),
+            "threads": band_rows * cs // 2 * X_SPLIT,
+            "chunk": chunk, "smem": band_rows * row_bytes + chunk * roi_bytes}
+
+
+def shape_key(e: int, r: int, s: int, h: int, w: int, c: int,
+              dtype: torch.dtype) -> Tuple:
+    """The key of `shapes` / `bwd_shapes` for a crop of (E, R, 4) ROIs
+    at S x S samples from (E, H, W, C) maps of `dtype`."""
+    return (e, r, s, h, w, c, str(dtype).split(".")[-1])
+
+
+def _check_coords(ys: torch.Tensor, xs: torch.Tensor, e: int,
+                  device: torch.device) -> Tuple[int, int]:
+    if ys.dim() != 3 or ys.shape != xs.shape or ys.shape[0] != e or \
+            ys.dtype != torch.float32 or xs.dtype != torch.float32 or \
+            not ys.is_contiguous() or not xs.is_contiguous() or \
+            ys.device != device or xs.device != device:
+        raise ValueError(f"roi_crop: ys and xs must be contiguous (E, R, S) "
+                         f"float32 on the map's device, got "
+                         f"{tuple(ys.shape)} {ys.dtype} and "
+                         f"{tuple(xs.shape)} {xs.dtype}")
+    r, s = ys.shape[1], ys.shape[2]
+    if not 2 <= s <= MAX_SAMPLES:
+        raise ValueError(f"roi_crop: the kernels take 2 to {MAX_SAMPLES} "
+                         f"samples a side, got {s}")
+    return r, s
+
+
+def _check_map(feat: torch.Tensor) -> None:
+    if feat.device.type != "cuda":
+        raise ValueError(f"roi_crop: feat must be a CUDA tensor, got "
+                         f"{feat.device}")
+    if feat.dtype not in _DTYPES or feat.dim() != 4:
+        raise ValueError(f"roi_crop: feat must be (E, H, W, C) float32 or "
+                         f"bfloat16, got {tuple(feat.shape)} {feat.dtype}")
+    _, h, w, c = feat.shape
+    if feat.stride()[1:] != (w * c, c, 1) and h * w * c > 0:
+        raise ValueError("roi_crop: each expression's (H, W, C) map must be "
+                         "contiguous")
+    if c % 8 or (feat.stride(0) * feat.element_size()) % 16 or \
+            feat.data_ptr() % 16:
+        raise ValueError("roi_crop: C must be a multiple of 8, and the map "
+                         "and its expression stride 16-byte aligned")
+
+
+def launch_forward(feat: torch.Tensor, ys: torch.Tensor,
+                   xs: torch.Tensor) -> torch.Tensor:
+    """One launch of the forward kernel, counted nowhere: feat (E, H, W, C)
+    bf16 or f32 on the card (each expression's map contiguous, the
+    expression stride free, 0 for a broadcast map), ys / xs (E, R, S) f32
+    sample coordinates in map cells -> (E, R, S, S, C) in feat's dtype."""
+    _check_map(feat)
+    e, h, w, c = feat.shape
+    r, s = _check_coords(ys, xs, e, feat.device)
+    out = torch.empty((e, r, s, s, c), dtype=feat.dtype, device=feat.device)
+    stream = torch.cuda.current_stream(feat.device).cuda_stream
+    with torch.cuda.device(feat.device):
+        rc = _lib().roi_crop_fwd_launch(
+            feat.data_ptr(), feat.stride(0), e, h, w, c,
+            int(feat.dtype == torch.bfloat16), ys.data_ptr(), xs.data_ptr(),
+            r, s, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"roi_crop forward launch failed: cudaError {rc}")
+    return out
+
+
+def roi_crop_forward(feat: torch.Tensor, ys: torch.Tensor,
+                     xs: torch.Tensor) -> torch.Tensor:
+    """`launch_forward`, counted in `launches` and `shapes`."""
+    out = launch_forward(feat, ys, xs)
+    global launches
+    launches += 1
+    e, h, w, c = feat.shape
+    shapes[shape_key(e, ys.shape[1], ys.shape[2], h, w, c, feat.dtype)] += 1
+    return out
+
+
+def launch_backward(grad: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                    h: int, w: int) -> torch.Tensor:
+    """One launch of the backward kernel, counted nowhere: grad (E, R, S,
+    S, C) of the crops, contiguous on the card; ys / xs as the forward
+    took them -> the maps' gradient (E, h, w, C) in grad's dtype, each
+    element summed in f32 in one fixed order and rounded once."""
+    if grad.device.type != "cuda" or grad.dtype not in _DTYPES or \
+            grad.dim() != 5 or not grad.is_contiguous() or \
+            grad.data_ptr() % 16 or grad.shape[2] != grad.shape[3]:
+        raise ValueError(f"roi_crop backward: grad must be a contiguous (E, "
+                         f"R, S, S, C) float32 or bfloat16 CUDA tensor, got "
+                         f"{tuple(grad.shape)} {grad.dtype} on "
+                         f"{grad.device}")
+    e, r, s, _, c = grad.shape
+    if _check_coords(ys, xs, e, grad.device) != (r, s) or c % 8:
+        raise ValueError("roi_crop backward: grad must be shaped as the "
+                         "forward's output, C a multiple of 8")
+    plan = band_plan(h, w, c, grad.dtype, s)
+    dfeat = torch.empty((e, h, w, c), dtype=grad.dtype, device=grad.device)
+    stream = torch.cuda.current_stream(grad.device).cuda_stream
+    with torch.cuda.device(grad.device):
+        rc = _lib().roi_crop_bwd_launch(
+            grad.data_ptr(), ys.data_ptr(), xs.data_ptr(), e, h, w, c,
+            int(grad.dtype == torch.bfloat16), r, s, plan["band_rows"],
+            plan["chunk"], dfeat.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"roi_crop backward launch failed: cudaError {rc}")
+    return dfeat
+
+
+def roi_crop_backward(grad: torch.Tensor, ys: torch.Tensor,
+                      xs: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """`launch_backward`, counted in `bwd_launches` and `bwd_shapes`."""
+    dfeat = launch_backward(grad, ys, xs, h, w)
+    global bwd_launches
+    bwd_launches += 1
+    e, r, s, _, c = grad.shape
+    bwd_shapes[shape_key(e, r, s, h, w, c, grad.dtype)] += 1
+    return dfeat

@@ -213,7 +213,9 @@ KERNEL_NAMES = {"nms": ("nms_frontier_kernel",),
                                  "fused_filter_kernel"),
                 "fused_filter_bwd": ("fused_filter_bwd_kernel",),
                 "roi_pool": ("roi_pool_fwd_",),
-                "roi_pool_bwd": ("roi_pool_bwd_",)}
+                "roi_pool_bwd": ("roi_pool_bwd_",),
+                "roi_crop": ("roi_crop_fwd_",),
+                "roi_crop_bwd": ("roi_crop_bwd_",)}
 
 
 def kernel_launches(prof) -> Dict[str, int]:

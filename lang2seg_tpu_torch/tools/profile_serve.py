@@ -5,9 +5,11 @@
 Builds the flagship `response` model at full width (random weights from
 a seed), serves a warm-up request, then times one request stage by stage
 with CUDA events (each stage is the model's own code, in the order of
-`Lang2Seg.test_forward` and `Evaluator.eval_image`), and prints the ten
-largest device-time entries of `torch.profiler` over one more request.
-Prints one JSON line with the stage times. Needs a CUDA device.
+`Lang2Seg.test_forward` and `Evaluator.eval_image`; the ROI crop stage is
+the crop kernel, `roi_crop_kernel`, whose one launch the stage checks),
+and prints the ten largest device-time entries of `torch.profiler` over
+one more request. Prints one JSON line with the stage times. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from ..config import flagship_config
 from ..data.synthetic import synthetic_eval_request
 from ..engine.evaluator import Evaluator
 from ..models.network import build_model
+from ..ops import roi_crop_cuda
 from ..ops.anchors import shifted_anchors
 from ..ops.proposals import proposal_layer
 from ..ops.roi_align import roi_crop_pool
@@ -71,9 +74,12 @@ def staged_request(model, cfg, b, dev):
                            hw[1], ts.rpn_pre_nms_top_n,
                            ts.rpn_post_nms_top_n, ts.rpn_nms_thresh)
     st.mark("proposals_with_nms")
+    launched = roi_crop_cuda.launches
     crops = roi_crop_pool(gated, props.rois, m.pooling_size,
                           1.0 / m.feat_stride, m.max_pool)
-    st.mark("roi_crop")
+    st.mark("roi_crop_kernel")
+    if roi_crop_cuda.launches != launched + 1:
+        raise RuntimeError("the crop stage did not launch the crop kernel")
     r = crops.shape[1]
     fc7 = model.backbone.tail(crops.reshape(e * r, *crops.shape[2:]))
     st.mark("layer4_tail")

@@ -15,7 +15,8 @@ loop, its backward, and the backward through layer4. With VGG16 (`vgg`)
 its tail, fc6 and fc7, is timed alone forward and backward on the step's
 number of ROI crops. It profiles one more step with `torch.profiler`:
 the device's busy time against the host window, the
-time of the port's three hand kernels, and the twelve largest
+time of the port's hand kernels (NMS, the gate and its backward, the ROI
+crop and its backward), and the twelve largest
 device-time entries. A last step records its NMS input: per lane the
 boxes kept and the last box examined, the kernel's device time alone on
 that input and its cycles a tile by phase (`profile_nms.phase_cycles`).
@@ -39,7 +40,8 @@ from ..ops import nms_cuda, proposals
 from .profile_nms import device_ms, lane_stats, phase_cycles
 
 # the port's own kernels, by the names nvcc gives them
-HAND_KERNELS = ("nms_", "fused_filter_mma_kernel", "fused_filter_bwd_")
+HAND_KERNELS = ("nms_", "fused_filter_mma_kernel", "fused_filter_bwd_",
+                "roi_crop_fwd_kernel", "roi_crop_bwd_kernel")
 
 
 def staged_step(state, batch, generator):

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from lang2seg_tpu_torch.ops import fused_filter, nms_cuda, roi_pool_cuda
+from lang2seg_tpu_torch.ops import (fused_filter, nms_cuda, roi_crop_cuda,
+                                    roi_pool_cuda)
 from lang2seg_tpu_torch.ops.fused_filter import (
     fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain)
 from lang2seg_tpu_torch.ops.nms import nms_padded
@@ -1095,3 +1096,129 @@ def test_trainer_graphed_groups_equal_single_steps(dev, deterministic,
         for i, st in sa["optimizer"]["state"].items():
             assert torch.equal(st["momentum_buffer"],
                                sb["optimizer"]["state"][i]["momentum_buffer"])
+
+
+# ---------------------------------------------------------------------------
+# the ROI crop kernels (csrc/roi_crop.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("maps", ["gathered", "broadcast", "distinct"])
+@pytest.mark.parametrize("c,s", [(64, 7), (24, 7), (64, 14)])
+def test_roi_crop_kernels_match_plain(dev, dtype, maps, c, s):
+    """The crop kernels against their plain versions on small maps with
+    the edge ROIs (`profile_crop.compare_shape`): the forward bit for bit
+    against its algorithm in torch ops and within `FWD_ULPS` of the einsum
+    pair, the backward bit for bit against its fixed-order plain version,
+    the same bits on a second run, and within `BWD_ULPS` of autograd of
+    the einsum pair; a partial channel slab (C = 24) and the 14 x 14 crop
+    of `max_pool`."""
+    from lang2seg_tpu_torch.tools.profile_crop import (checks_pass,
+                                                       compare_shape)
+    res, _ = compare_shape(3, 20, 20, 30, c, maps, dev, True, seed=4,
+                           dtype=dtype, s=s)
+    assert res["forward_gather_equal"] and res["bwd_plain_equal"] and \
+        res["bwd_repeat_equal"], res
+    assert checks_pass(res), res
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_roi_crop_kernels_in_bands(dev, dtype):
+    """A map past one band of the backward (120 x 128: several bands, a
+    chunk of a few ROIs), with the crop kernels against their plain
+    versions as above."""
+    from lang2seg_tpu_torch.tools.profile_crop import (checks_pass,
+                                                       compare_shape)
+    assert roi_crop_cuda.band_plan(120, 128, 48, dtype)["bands"] > 1
+    res, _ = compare_shape(2, 40, 120, 128, 48, "gathered", dev, True,
+                           seed=5, dtype=dtype)
+    assert checks_pass(res), res
+
+
+def test_roi_crop_autograd_launches_both_kernels(dev):
+    """`roi_crop_pool` on the card with a map that wants a gradient
+    launches the forward kernel once and, under backward, the backward
+    kernel once (each counted by shape); under no_grad the forward alone.
+    The results are the plain versions' bits."""
+    from lang2seg_tpu_torch.ops.roi_align import (_sample_coords,
+                                                  crop_bwd_coords_plain,
+                                                  crop_gather_plain,
+                                                  roi_crop_pool)
+    from lang2seg_tpu_torch.tools.profile_crop import crop_inputs
+    feat, rois, grad = crop_inputs(2, 16, 20, 30, 64, "gathered", dev)
+    ys, xs = (t.contiguous() for t in _sample_coords(rois, 7, 1 / 16))
+    before = (roi_crop_cuda.launches, roi_crop_cuda.bwd_launches)
+    key = roi_crop_cuda.shape_key(2, 16, 7, 20, 30, 64, torch.bfloat16)
+    shapes = (roi_crop_cuda.shapes[key], roi_crop_cuda.bwd_shapes[key])
+    leaf = feat.detach().requires_grad_(True)
+    out = roi_crop_pool(leaf, rois, 7, 1 / 16)
+    out.backward(grad)
+    assert (roi_crop_cuda.launches, roi_crop_cuda.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert (roi_crop_cuda.shapes[key], roi_crop_cuda.bwd_shapes[key]) == \
+        (shapes[0] + 1, shapes[1] + 1)
+    assert torch.equal(out, crop_gather_plain(feat, ys, xs))
+    assert torch.equal(leaf.grad, crop_bwd_coords_plain(grad, ys, xs, 20,
+                                                        30))
+    with torch.no_grad():
+        served = roi_crop_pool(leaf, rois, 7, 1 / 16)
+    assert served.grad_fn is None and torch.equal(served, out)
+    assert (roi_crop_cuda.launches, roi_crop_cuda.bwd_launches) == \
+        (before[0] + 2, before[1] + 1)
+
+
+def test_roi_crop_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """C not a multiple of 8, a map whose pixels are not contiguous,
+    coordinates of another shape or dtype, S past 16: each raises before
+    any launch."""
+    feat = torch.zeros((2, 8, 12, 64), device=dev, dtype=torch.bfloat16)
+    ys = torch.zeros((2, 3, 7), device=dev)
+    before = roi_crop_cuda.launches
+    for bad in (feat[..., :12], feat[:, :, ::2]):
+        with pytest.raises(ValueError):
+            roi_crop_cuda.roi_crop_forward(bad, ys, ys)
+    for y, x in ((ys, ys[:, :2]), (ys.double(), ys.double()),
+                 (torch.zeros((2, 3, 17), device=dev),) * 2):
+        with pytest.raises(ValueError):
+            roi_crop_cuda.roi_crop_forward(feat, y, x)
+    assert roi_crop_cuda.launches == before
+
+
+def test_graphed_step_replays_the_crop_kernels(dev, deterministic):
+    """The tiny f32 step as a CUDA graph (K = 2, two calls) against 4
+    eager steps, bit for bit, with the crop kernels inside the graph: the
+    wrappers count the warm step's and the capture's calls, and the
+    second call's two replays run the crop forward and backward twice
+    each in its profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lang2seg_tpu_torch.data.synthetic import synthetic_batch, to_wire
+    from lang2seg_tpu_torch.engine.train_state import (
+        create_train_state, make_multi_train_step, stack_batches, to_device,
+        train_step)
+    from lang2seg_tpu_torch.tools.profile_eval import kernel_launches
+    cfg = _tiny_cfg()
+    batches = [to_wire(cfg, synthetic_batch(cfg, 2, 4, seed=s))
+               for s in range(4)]
+    eager = create_train_state(cfg, dev, seed=1)
+    graphed = create_train_state(cfg, dev,
+                                 state_dict=eager.model.state_dict())
+    ge = torch.Generator(device=dev).manual_seed(3)
+    gg = torch.Generator(device=dev).manual_seed(3)
+    want = [train_step(eager, to_device(b, dev), ge) for b in batches]
+    multi = make_multi_train_step(graphed, gg)
+    before = (roi_crop_cuda.launches, roi_crop_cuda.bwd_launches)
+    got = [multi(to_device(stack_batches(batches[:2]), dev))]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got.append(multi(to_device(stack_batches(batches[2:]), dev)))
+        torch.cuda.synchronize()
+    assert (roi_crop_cuda.launches - before[0],
+            roi_crop_cuda.bwd_launches - before[1]) == (2, 2)
+    traced = kernel_launches(prof)
+    assert (traced["roi_crop"], traced["roi_crop_bwd"]) == (2, 2)
+    for j, w in enumerate(want):
+        for k, v in w.items():
+            assert torch.equal(got[j // 2][k][j % 2], v), (j, k)
+    for (n, a), b in zip(eager.model.state_dict().items(),
+                         graphed.model.state_dict().values()):
+        assert torch.equal(a, b), n
