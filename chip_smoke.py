@@ -271,18 +271,21 @@ Phases, each fatal on failure (nothing is caught):
      bit for bit; then `eval_split_mesh` over phase 12's val and testA
      images against one process's `eval_split`, equal;
   31. the ROI crop kernels (`csrc/roi_crop.cu`: a 4-tap bilinear gather
-     forward, a CTA an (expression, ROI); a fixed-order backward, a CTA an
-     (expression, 32-byte channel slab, band of rows) that sums each of its
-     elements in the one order (ROI, sample column), no atomics) against
-     their plain versions (`tools/profile_crop.py`) at serving 16 x 300,
-     training 16 x 256 (C = 1024 and 512), the mask crops 16 x 2, the
-     attribute crops 16 x 1 and test mode 'top' 16 x 5000 (compared in
-     chunks of ROIs), with edge ROIs: the forward the bits of its
-     algorithm in torch ops and within 3 bf16 ulps (at the scale of the
-     crop of |map|) of the einsum pair, the backward the bits of its
-     fixed-order plain version, the same bits on a second run, and within
-     3 ulps (at the scale of the backward of |grad|) of autograd of the
-     einsum pair; each timed beside its bound, the plain versions and one
+     forward, a thread an (expression, ROI, sample column, 16-byte channel
+     vector) walking the sample rows, streaming stores; a fixed-order
+     backward, a CTA of one warp an (expression, 4 pixels of a row, slab
+     of channels), a lane a channel vector with its sums in registers,
+     the warp walking the ROIs in order and summing only their terms on
+     its pixels, each element summed in the one order (ROI, sample column),
+     no atomics) against their plain versions (`tools/profile_crop.py`)
+     at serving 16 x 300, training 16 x 256 (C = 1024 and 512), the mask
+     crops 16 x 2, the attribute crops 16 x 1 and test mode 'top' 16 x
+     5000 (compared in chunks of ROIs), with edge ROIs: the forward the
+     bits of its algorithm in torch ops and within 3 bf16 ulps (at the
+     scale of the crop of |map|) of the einsum pair, the backward the bits
+     of its fixed-order plain version, the same bits on a second run, and
+     within 3 ulps (at the scale of the backward of |grad|) of autograd of
+     the einsum pair; each timed beside its bound, the plain versions and one
      `F.grid_sample` call (library_ms); then one full-width test-mode
      'top' request of 16 expressions (R = 5000) through Inference.predict,
      its ms and peak memory; last, every other shape at which phases 5-31
@@ -3307,15 +3310,15 @@ CROP_REPLACES = "lang2seg_tpu/ops/roi_align.py:80"
 
 def crop_registers():
     """ptxas's (registers a thread, stack frame, spill store and spill load
-    bytes) of the crop kernels, by (side, dtype) (the backward's 7 x 7
-    instance)."""
+    bytes) of the crop kernels, by (side, dtype) (the backward's instance
+    of 4 pixels a warp)."""
     regs = kernel_registers(_build.library_path("roi_crop").with_name(
         "build.log"))
     out = {}
     for side in ("fwd", "bwd"):
         for dtype, t in (("bfloat16", "__nv_bfloat16"), ("float32", "float")):
             kernel = f"roi_crop_{side}_kernel<{t}" + (
-                ">" if side == "fwd" else ", 7>")
+                ">" if side == "fwd" else ", 4>")
             hits = [v for name, v in regs.items() if kernel in name]
             out[side, dtype] = list(hits[0]) if len(hits) == 1 else None
     return out

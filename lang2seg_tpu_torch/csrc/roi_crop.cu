@@ -23,41 +23,51 @@
 //   pass is one rounding of a two-term f32 sum, as the einsum's f32
 //   accumulator gives it.
 //
-// What bounds it on an H100: bytes. The forward must write the crops
-// (482 MB at serving) and read the maps under the ROIs (at most 84 MB);
-// the backward must read the crops' gradient and write the maps' gradient
-// (411 MB + 84 MB in training). At 3.35 TB/s that is about 0.17 ms and
-// 0.15 ms; the operations (8 multiply-adds an output) are far below the
-// card's rate.
+// What bounds it on an H100. The forward must write the crops (482 MB at
+// serving, 0.15 ms at 3.35 TB/s) and, for each output vector, read four
+// tap vectors: where samples are more than a cell apart no two outputs
+// share a tap, so about 4 x 482 MB crosses from L2 to the SMs, and the
+// kernel takes about what a copy of the crops takes (`tools/
+// profile_crop.py`'s `copy_ms`). The backward must read the crops'
+// gradient and write the maps' gradient (411 MB + 84 MB in training, 0.15
+// ms); its sums in the fixed order cost tens of instructions a term, so it
+// is bound by issue and by the latency of its loads.
 //
-// Design (simple first: making it fast is later work):
-//   * forward (`roi_crop_fwd_kernel`): a CTA for each (expression, ROI).
-//     Threads 0..2S-1 put the ROI's taps and weights in shared memory;
-//     then each thread takes 16-byte channel vectors of output samples,
-//     reads the up to 4 map pixels' vectors (the map's expression stride
-//     is free, 0 for a broadcast map), and writes one 16-byte vector.
-//   * backward (`roi_crop_bwd_kernel`): a CTA for each (expression,
-//     32-byte channel slab, band of map rows) holds its band's gradient in
-//     f32 in shared memory; a thread owns one row, one channel pair and one
-//     of three ranges of columns of it (960 threads for a bf16 map of 40
-//     rows). The CTA walks the ROIs r = 0..R-1 in order, up to 32 at a
-//     time: their taps, their first and last tap row and column, and their
-//     gradient's slab, (chunk, S, S, 32 bytes), staged in shared memory by
-//     16-byte loads. A thread passes over a ROI whose taps miss its row or
-//     its columns; else, for each sample column j in order whose two taps
-//     fall in its range, it sums the S samples' y weights times the
-//     gradient in f32 (i = 0..S-1 in order), rounds that to the map's
-//     dtype (the einsum's rounded intermediate), and adds wx times it at
-//     the taps. Every element is owned by one thread and summed in the one
-//     order (r, j): there are no atomics, and two runs give the same bits.
-//     The band is rounded once to the map's dtype and written once.
-//     `crop_bwd_coords_plain` is this algorithm in torch ops, bit for bit.
-//     What made it faster than a thread a row and channel pair reading the
-//     gradient from global memory: the staged slab (one coalesced read),
-//     three times the warps (the CTA's shared memory allows one CTA an
-//     SM), the passes over ROIs and columns a thread has no tap of, and S
-//     fixed at compile time (`tools/profile_crop.py --baseline` times an
-//     earlier source beside this one).
+// Forward (`roi_crop_fwd_kernel`): a thread a (expression, ROI, sample
+// column j, 16-byte channel vector), the thread index running over the
+// vectors first, so that a warp reads and writes 512 contiguous bytes. The
+// thread computes its column's x taps once, then walks the S sample rows:
+// no division an output, no shared memory and no barrier, few registers,
+// a CTA of 128 threads. Each output is written once with a streaming
+// store (`__stcs`), so that the crops do not evict the maps from L2.
+//
+// Backward (`roi_crop_bwd_kernel`): a CTA of one warp for each
+// (expression, 4 pixels of a map row, slab of 256 bf16 or 128 f32
+// channels), or 1 pixel where 4 would give fewer warps than the card
+// holds; a lane owns one 16-byte vector of channels of the pixels, its
+// sums in f32 registers. The warp takes the ROIs in order, 32 at a
+// time: lane q tests whether ROI q's taps can reach its pixels (the box
+// from floor(min) to floor(max) + 1 of its sample coordinates); for each
+// that can, lanes j < S compute sample column j's x taps and lanes 16 + i
+// sample row i's y weight on the warp's row, and one ballot gives the
+// columns with a tap of weight not zero among its pixels and the rows
+// with a weight on the row. For each such column j in order the warp sums
+// u = wy_i * grad[i][j] over those rows i in order in f32 (the vectors
+// read from L2, where the gradient of the expression the running warps
+// share stays), rounds u to the map's dtype (the einsum's rounded
+// intermediate) and adds wx * u at the column's taps among its pixels. A
+// ROI costs a warp only its terms on the warp's pixels: the ROI's S x S
+// samples spread over the warps they reach, at most 2S rows, whatever its
+// area. Every control decision is the warp's, none a lane's. One warp a
+// CTA lets 32 CTAs share an SM, so that a warp with many terms (the middle
+// of the map) does not hold up others, as it did in a CTA of many warps.
+//
+// The summing order, the same as `crop_bwd_coords_plain` (bit for bit):
+// every element of the maps' gradient belongs to one lane, which adds the
+// ROIs' terms in the order (ROI r, sample column j, tap) in f32; each u
+// sums its sample rows i in order; the element is rounded once, at the end,
+// and written once. A term whose weight is zero is left out (adding it
+// would change nothing). No atomics: two runs give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,11 +75,15 @@
 
 namespace {
 
-constexpr int kFwdThreads = 256;
-constexpr int kMaxS = 16;        // samples a side at most
-constexpr int kRoiChunk = 32;    // ROIs whose taps the backward stages
-constexpr int kSlabBytes = 32;   // a backward CTA's channels of a pixel
-constexpr int kXSplit = 3;       // column ranges of a band, a thread each
+constexpr int kFwdThreads = 128;
+constexpr int kMaxS = 16;         // samples a side at most
+// the backward: a warp (a CTA) 4 pixels of a row, or 1 (`band_plan` in
+// ops/roi_crop_cuda.py chooses); at most 65536 / (32 x 64) = 32 of them
+// an SM (64 registers a thread)
+constexpr int kBwdMinBlocks = 32;
+// elements of T a 16-byte vector
+template <typename T>
+constexpr int kVec = 16 / sizeof(T);
 
 __device__ __forceinline__ float rounded(float v, float*) { return v; }
 __device__ __forceinline__ float rounded(float v, __nv_bfloat16*) {
@@ -126,40 +140,35 @@ __device__ __forceinline__ void taps(float coord, int n, int* first,
 
 // feat (E, H, W, C) with each expression's map contiguous at
 // batch_stride elements from the last; ys, xs (E, R, S) f32; out (E, R,
-// S, S, C). Grid E * R CTAs.
+// S, S, C). A thread a (ROI, sample column j, 16-byte vector), the thread
+// index running over the vectors first: it computes its column's x taps
+// once and walks the S sample rows.
 template <typename T>
 __global__ void __launch_bounds__(kFwdThreads)
     roi_crop_fwd_kernel(const T* __restrict__ feat, long long batch_stride,
                         int h, int w, int c, const float* __restrict__ ys,
-                        const float* __restrict__ xs, int r, int s,
-                        T* __restrict__ out) {
+                        const float* __restrict__ xs, long long rois, int r,
+                        int s, T* __restrict__ out) {
   constexpr int V = 16 / sizeof(T);
-  __shared__ int tap0[2][kMaxS];      // [0] rows, [1] columns
-  __shared__ float wt[2][kMaxS][2];
-  const long long roi = blockIdx.x;   // e * R + r
-  const int e = static_cast<int>(roi / r);
-  const int t = threadIdx.x;
-  if (t < 2 * s) {
-    const int axis = t / s, k = t % s;
-    const float coord = (axis ? xs : ys)[roi * s + k];
-    if (axis) {
-      taps<T>(coord, w, &tap0[1][k], &wt[1][k][0], &wt[1][k][1]);
-    } else {
-      taps<T>(coord, h, &tap0[0][k], &wt[0][k][0], &wt[0][k][1]);
-    }
-  }
-  __syncthreads();
-  const T* map = feat + e * batch_stride;
   const int cv = c / V;
-  const int items = s * s * cv;
-  T* o = out + roi * s * s * c;
-  for (int it = t; it < items; it += blockDim.x) {
-    const int v = it % cv;
-    const int j = (it / cv) % s;
-    const int i = it / (cv * s);
-    const int y0 = tap0[0][i], x0 = tap0[1][j];
-    const float wy[2] = {wt[0][i][0], wt[0][i][1]};
-    const float wx[2] = {wt[1][j][0], wt[1][j][1]};
+  const long long item =
+      static_cast<long long>(blockIdx.x) * kFwdThreads + threadIdx.x;
+  const long long per_roi = static_cast<long long>(cv) * s;
+  const long long roi = item / per_roi;
+  if (roi >= rois) return;
+  const int rest = static_cast<int>(item - roi * per_roi);
+  const int v = rest % cv, j = rest / cv;
+  const int e = static_cast<int>(roi / r);
+  int x0;
+  float wx[2];
+  taps<T>(xs[roi * s + j], w, &x0, &wx[0], &wx[1]);
+  const T* map = feat + e * batch_stride + v * V;
+  T* o = out + (roi * s * s + j) * c + v * V;
+#pragma unroll 1
+  for (int i = 0; i < s; ++i) {
+    int y0;
+    float wy[2];
+    taps<T>(ys[roi * s + i], h, &y0, &wy[0], &wy[1]);
     float acc[V];
 #pragma unroll
     for (int k = 0; k < V; ++k) acc[k] = 0.0f;
@@ -176,167 +185,158 @@ __global__ void __launch_bounds__(kFwdThreads)
         if (x < 0 || x >= w) continue;
         float f[V];
         unpack(*reinterpret_cast<const uint4*>(
-                   map + (static_cast<long long>(y) * w + x) * c + v * V),
+                   map + (static_cast<long long>(y) * w + x) * c),
                f);
 #pragma unroll
         for (int k = 0; k < V; ++k) row[k] = row[k] + wx[b] * f[k];
       }
 #pragma unroll
-      for (int k = 0; k < V; ++k) acc[k] = acc[k] + wy[a] * round_to<T>(row[k]);
+      for (int k = 0; k < V; ++k) {
+        acc[k] = acc[k] + wy[a] * round_to<T>(row[k]);
+      }
     }
-    *reinterpret_cast<uint4*>(o + (i * s + j) * c + v * V) = pack(acc);
+    __stcs(reinterpret_cast<uint4*>(o + static_cast<long long>(i) * s * c),
+           pack(acc));
   }
 }
 
-// a channel pair of shared memory as floats
-__device__ __forceinline__ void load_pair(const float* p, float* a, float* b) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  *a = v.x;
-  *b = v.y;
-}
-__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float* a,
-                                          float* b) {
-  const float2 v =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  *a = v.x;
-  *b = v.y;
+// What a warp needs of a ROI: lane j < S holds sample column j's first x
+// tap and the two taps' weights, lane 16 + i sample row i's y weight on
+// the warp's row; `cols` and `rows` the sample columns with a tap of
+// weight not zero among the warp's pixels and the sample rows with a
+// weight on its row (bit j, bit i).
+struct RoiTerms {
+  int x0;
+  float wx0, wx1, wy;
+  unsigned cols, rows;
+};
+
+template <typename T, int P>
+__device__ __forceinline__ RoiTerms roi_terms(const float* yq,
+                                              const float* xq, int s, int w,
+                                              float fy, int xb, int lane) {
+  RoiTerms o = {-2, 0.0f, 0.0f, 0.0f, 0u, 0u};
+  bool take = false;
+  if (lane < s) {
+    taps<T>(xq[lane], w, &o.x0, &o.wx0, &o.wx1);
+    take = (o.wx0 != 0.0f && o.x0 >= xb && o.x0 < xb + P) ||
+           (o.wx1 != 0.0f && o.x0 + 1 >= xb && o.x0 + 1 < xb + P);
+  } else if (lane >= 16 && lane - 16 < s) {
+    o.wy = round_to<T>(fmaxf(0.0f, 1.0f - fabsf(yq[lane - 16] - fy)));
+    take = o.wy != 0.0f;
+  }
+  const unsigned mask = __ballot_sync(0xffffffffu, take);
+  o.cols = mask & 0xffffu;
+  o.rows = mask >> 16;
+  return o;
 }
 
 // grad (E, R, S, S, C), ys, xs (E, R, S) f32, dfeat (E, H, W, C), all
-// contiguous. Grid (slabs, E, bands); band_rows * CS / 2 * kXSplit
-// threads, a thread a (row, channel pair, range of columns); a warp holds
-// 4 rows of one range. S the samples a side when fixed at compile time
-// (the 7 x 7 crop and the 14 x 14 of `max_pool`), else 0 and s is read.
-// Dynamic shared memory: the band, rows of
-// (W + 1) * CS f32 (a row padded by one pixel, so that a warp's rows fall
-// on other banks), then the gradient's slab of `chunk` ROIs, (chunk, S, S,
-// CS) of T.
-template <typename T, int S>
-__global__ void __launch_bounds__(1024)
+// contiguous. Grid (H * segments of P pixels a row, slabs of 32 * V
+// channels, E), a CTA of one warp: the warp owns P pixels of a row
+// and a lane a 16-byte vector (V elements) of their channels, its
+// P sums in registers. The warp takes the ROIs 32 at a time, a
+// lane a ROI testing whether its taps can reach the warp's pixels; then,
+// in order, for each that can, it finds the terms (roi_terms) and sums
+// them: for each sample column j in order, u = the sum over its rows i in
+// order of wy_i * grad[i][j] in f32 (the 16-byte vectors read from
+// global memory: L2, the warps of one expression run together), rounded
+// to T, then wx * u at the column's taps among its pixels.
+template <typename T, int P>
+__global__ void __launch_bounds__(32, kBwdMinBlocks)
     roi_crop_bwd_kernel(const T* __restrict__ grad,
                         const float* __restrict__ ys,
                         const float* __restrict__ xs, int h, int w, int c,
-                        int r, int s, int band_rows, int chunk,
-                        T* __restrict__ dfeat) {
-  constexpr int CS = kSlabBytes / sizeof(T);   // channels a slab
-  constexpr int PAIRS = CS / 2;
+                        int r, int s, T* __restrict__ dfeat) {
   constexpr int V = 16 / sizeof(T);
-  constexpr int VS = CS / V;                   // 16-byte vectors a pixel
-  constexpr int NS = S ? S : kMaxS;            // the weights a thread holds
-  if (S) s = S;
-  extern __shared__ __align__(16) float acc[];
-  __shared__ float ys_s[kRoiChunk][kMaxS];
-  __shared__ int x0_s[kRoiChunk][kMaxS];
-  __shared__ float wx_s[kRoiChunk][kMaxS][2];
-  // each staged ROI's first and last tap row and column
-  __shared__ float span_s[kRoiChunk][4];
-  const int slab = blockIdx.x, e = blockIdx.y;
-  const int y_lo = blockIdx.z * band_rows;
-  const int rows = min(band_rows, h - y_lo);
-  const int row_floats = (w + 1) * CS;
-  T* gs = reinterpret_cast<T*>(acc + band_rows * row_floats);
-  const int t = threadIdx.x;
-  const int part = t / (band_rows * PAIRS);
-  const int ty = t / PAIRS % band_rows, cp = t % PAIRS;
-  const int x_lo = part * w / kXSplit, x_hi = (part + 1) * w / kXSplit;
-  const bool active = ty < rows && slab * CS + 2 * cp < c && x_lo < x_hi;
-  for (int k = t; k < band_rows * row_floats; k += blockDim.x) acc[k] = 0.0f;
-  const float fy = static_cast<float>(y_lo + ty);
-  float* my = acc + ty * row_floats + 2 * cp;
-  const int ss = s * s;
-  for (int r0 = 0; r0 < r; r0 += chunk) {
-    const int n = min(chunk, r - r0);
-    __syncthreads();
-    for (int k = t; k < n * s; k += blockDim.x) {
-      const int q = k / s, j = k % s;
-      const long long at = (static_cast<long long>(e) * r + r0 + q) * s + j;
-      ys_s[q][j] = ys[at];
-      taps<T>(xs[at], w, &x0_s[q][j], &wx_s[q][j][0], &wx_s[q][j][1]);
-      if (j == 0) {
-        // the samples run from the first to the last (a linspace), and a
-        // sample's taps are floor(coord) and the cell after it
-        const float* yq = ys + at;
-        const float* xq = xs + at;
-        span_s[q][0] = floorf(fminf(yq[0], yq[s - 1]));
-        span_s[q][1] = floorf(fmaxf(yq[0], yq[s - 1])) + 1.0f;
-        span_s[q][2] = floorf(fminf(xq[0], xq[s - 1]));
-        span_s[q][3] = floorf(fmaxf(xq[0], xq[s - 1])) + 1.0f;
-      }
-    }
-    // the chunk's gradient slab, 16 bytes a load (channels past C zero)
-    const T* src = grad + (static_cast<long long>(e) * r + r0) * ss * c +
-                   slab * CS;
-    for (int k = t; k < n * ss * VS; k += blockDim.x) {
-      const int v = k % VS, px = k / VS;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (slab * CS + v * V < c) {
-        raw = *reinterpret_cast<const uint4*>(
-            src + static_cast<long long>(px) * c + v * V);
-      }
-      *reinterpret_cast<uint4*>(gs + px * CS + v * V) = raw;
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int q = 0; q < n; ++q) {
-      if (fy < span_s[q][0] || fy > span_s[q][1] ||
-          span_s[q][3] < static_cast<float>(x_lo) ||
-          span_s[q][2] >= static_cast<float>(x_hi)) {
-        continue;
-      }
-      float wy[NS];
-      bool any = false;
+  const int lane = threadIdx.x;
+  const int segs = (w + P - 1) / P;
+  const int y = blockIdx.x / segs;
+  const int xb = blockIdx.x % segs * P;
+  const int ch = blockIdx.y * 32 * V + lane * V;
+  const int e = blockIdx.z;
+  const long long roi0 = static_cast<long long>(e) * r;
+  const float fy = static_cast<float>(y);
+
+  float acc[P][V];
 #pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        wy[i] = i < s ? round_to<T>(
-                            fmaxf(0.0f, 1.0f - fabsf(ys_s[q][i] - fy)))
-                      : 0.0f;
-        any = any || wy[i] != 0.0f;
-      }
-      if (!any) continue;
-      const T* g = gs + q * ss * CS + 2 * cp;
-      for (int j = 0; j < s; ++j) {
-        // neither of the column's taps in this thread's range: it adds
-        // nothing here
-        const int x0 = x0_s[q][j];
-        if (x0 + 1 < x_lo || x0 >= x_hi) continue;
-        float u0 = 0.0f, u1 = 0.0f;
+  for (int p = 0; p < P; ++p) {
 #pragma unroll
-        for (int i = 0; i < NS; ++i) {
-          if (wy[i] == 0.0f) continue;
-          float g0, g1;
-          load_pair(g + (i * s + j) * CS, &g0, &g1);
-          u0 = u0 + wy[i] * g0;
-          u1 = u1 + wy[i] * g1;
+    for (int m = 0; m < V; ++m) acc[p][m] = 0.0f;
+  }
+
+  for (int base = 0; base < r; base += 32) {
+    // lane q: whether ROI base + q's taps can reach the warp's pixels (a
+    // sample's taps are floor(coord) and the cell after it)
+    bool hit = false;
+    if (base + lane < r) {
+      const float* yq = ys + (roi0 + base + lane) * s;
+      const float* xq = xs + (roi0 + base + lane) * s;
+      float ylo = yq[0], yhi = ylo, xlo = xq[0], xhi = xlo;
+      for (int i = 1; i < s; ++i) {
+        ylo = fminf(ylo, yq[i]);
+        yhi = fmaxf(yhi, yq[i]);
+        xlo = fminf(xlo, xq[i]);
+        xhi = fmaxf(xhi, xq[i]);
+      }
+      hit = floorf(ylo) <= fy && floorf(yhi) + 1.0f >= fy &&
+            floorf(xlo) <= static_cast<float>(xb + P - 1) &&
+            floorf(xhi) + 1.0f >= static_cast<float>(xb);
+    }
+    for (unsigned m = __ballot_sync(0xffffffffu, hit); m; m &= m - 1) {
+      const long long roi = roi0 + base + __ffs(m) - 1;
+      const RoiTerms o = roi_terms<T, P>(ys + roi * s, xs + roi * s, s, w,
+                                         fy, xb, lane);
+      if (!o.cols || !o.rows) continue;
+      const T* gq = grad + roi * s * s * c + ch;
+      for (unsigned cj = o.cols; cj; cj &= cj - 1) {
+        const int j = __ffs(cj) - 1;
+        const int xj = __shfl_sync(0xffffffffu, o.x0, j);
+        const float w0 = __shfl_sync(0xffffffffu, o.wx0, j);
+        const float w1 = __shfl_sync(0xffffffffu, o.wx1, j);
+        float u[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) u[k] = 0.0f;
+        for (unsigned ci = o.rows; ci; ci &= ci - 1) {
+          const int i = __ffs(ci) - 1;
+          const float wi = __shfl_sync(0xffffffffu, o.wy, 16 + i);
+          uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+          if (ch < c) {
+            raw = *reinterpret_cast<const uint4*>(
+                gq + static_cast<long long>(i * s + j) * c);
+          }
+          float f[V];
+          unpack(raw, f);
+#pragma unroll
+          for (int k = 0; k < V; ++k) u[k] = u[k] + wi * f[k];
         }
-        u0 = round_to<T>(u0);
-        u1 = round_to<T>(u1);
 #pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int x = x0 + b;
-          const float wx = wx_s[q][j][b];
-          if (x < x_lo || x >= x_hi || wx == 0.0f) continue;
-          float2* a = reinterpret_cast<float2*>(my + x * CS);
-          float2 cur = *a;
-          cur.x = cur.x + wx * u0;
-          cur.y = cur.y + wx * u1;
-          *a = cur;
+        for (int k = 0; k < V; ++k) u[k] = round_to<T>(u[k]);
+        // the column's taps at pixels xj and xj + 1, where they are this
+        // warp's and their weights are not zero
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const int x = xb + p;
+          if (x == xj && w0 != 0.0f) {
+#pragma unroll
+            for (int k = 0; k < V; ++k) acc[p][k] = acc[p][k] + w0 * u[k];
+          } else if (x == xj + 1 && w1 != 0.0f) {
+#pragma unroll
+            for (int k = 0; k < V; ++k) acc[p][k] = acc[p][k] + w1 * u[k];
+          }
         }
       }
     }
   }
-  __syncthreads();
-  // the band out, 16 bytes a store, each element rounded once
-  T* out = dfeat + (static_cast<long long>(e) * h + y_lo) * w * c;
-  for (int k = t; k < rows * w * VS; k += blockDim.x) {
-    const int v = k % VS, x = (k / VS) % w, y = k / (VS * w);
-    const int c0 = slab * CS + v * V;
-    if (c0 >= c) continue;
-    float f[V];
-    const float* from = acc + y * row_floats + x * CS + v * V;
+  // the warp's pixels out, 16 bytes a lane, each element rounded once
+  if (ch >= c) return;
+  T* out = dfeat + ((static_cast<long long>(e) * h + y) * w + xb) * c + ch;
 #pragma unroll
-    for (int q = 0; q < V; ++q) f[q] = from[q];
-    *reinterpret_cast<uint4*>(out + (static_cast<long long>(y) * w + x) * c +
-                              c0) = pack(f);
+  for (int p = 0; p < P; ++p) {
+    if (xb + p < w) {
+      *reinterpret_cast<uint4*>(out + static_cast<long long>(p) * c) =
+          pack(acc[p]);
+    }
   }
 }
 
@@ -344,36 +344,31 @@ template <typename T>
 cudaError_t fwd(const void* feat, long long batch_stride, int e, int h, int w,
                 int c, const float* ys, const float* xs, int r, int s,
                 void* out, cudaStream_t stream) {
-  roi_crop_fwd_kernel<T><<<static_cast<unsigned>(static_cast<long long>(e) * r),
-                           kFwdThreads, 0, stream>>>(
-      static_cast<const T*>(feat), batch_stride, h, w, c, ys, xs, r, s,
-      static_cast<T*>(out));
+  const long long rois = static_cast<long long>(e) * r;
+  const long long items = rois * s * (c / kVec<T>);
+  const long long blocks = (items + kFwdThreads - 1) / kFwdThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  roi_crop_fwd_kernel<T><<<static_cast<unsigned>(blocks), kFwdThreads, 0,
+                           stream>>>(static_cast<const T*>(feat),
+                                     batch_stride, h, w, c, ys, xs, rois, r,
+                                     s, static_cast<T*>(out));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t bwd(const void* grad, const float* ys, const float* xs, int e,
-                int h, int w, int c, int r, int s, int band_rows, int chunk,
-                void* dfeat, cudaStream_t stream) {
-  constexpr int CS = kSlabBytes / sizeof(T);
-  const int threads = band_rows * (CS / 2) * kXSplit;
-  if (threads > 1024 || chunk < 1 || chunk > kRoiChunk) {
+                int h, int w, int c, int r, int s, int pixels, void* dfeat,
+                cudaStream_t stream) {
+  const int slabs = (c + 32 * kVec<T> - 1) / (32 * kVec<T>);
+  const long long warps =
+      static_cast<long long>(h) * ((w + pixels - 1) / pixels);
+  if (warps > 0x7fffffffLL || slabs > 65535 || e > 65535) {
     return cudaErrorInvalidValue;
   }
-  const size_t smem =
-      static_cast<size_t>(band_rows) * (w + 1) * CS * sizeof(float) +
-      static_cast<size_t>(chunk) * s * s * kSlabBytes;
-  auto kernel = s == 7    ? roi_crop_bwd_kernel<T, 7>
-                : s == 14 ? roi_crop_bwd_kernel<T, 14>
-                          : roi_crop_bwd_kernel<T, 0>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int slabs = (c + CS - 1) / CS;
-  const int bands = (h + band_rows - 1) / band_rows;
-  kernel<<<dim3(slabs, e, bands), threads, smem, stream>>>(
-      static_cast<const T*>(grad), ys, xs, h, w, c, r, s, band_rows, chunk,
+  auto kernel =
+      pixels == 4 ? roi_crop_bwd_kernel<T, 4> : roi_crop_bwd_kernel<T, 1>;
+  kernel<<<dim3(static_cast<unsigned>(warps), slabs, e), 32, 0, stream>>>(
+      static_cast<const T*>(grad), ys, xs, h, w, c, r, s,
       static_cast<T*>(dfeat));
   return cudaGetLastError();
 }
@@ -402,9 +397,6 @@ extern "C" int roi_crop_fwd_launch(const void* feat, long long batch_stride,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (static_cast<long long>(e) * r == 0) return 0;
-  if (static_cast<long long>(e) * r > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* y = static_cast<const float*>(ys);
   const float* x = static_cast<const float*>(xs);
@@ -417,17 +409,17 @@ extern "C" int roi_crop_fwd_launch(const void* feat, long long batch_stride,
 }
 
 // grad (E, R, S, S, C) of the map's dtype, ys, xs (E, R, S) f32, dfeat
-// (E, H, W, C) of the map's dtype, all contiguous and 16-byte aligned;
-// band_rows rows of the map a CTA (band_rows * 16 / elem * 3 threads), the
-// gradient staged `chunk` ROIs at a time (1 to 32): band_rows * (W + 1) *
-// 32 / elem * 4 + chunk * S * S * 32 bytes of dynamic shared memory.
-// Every element of dfeat is written. Returns a cudaError_t.
+// (E, H, W, C) of the map's dtype, all contiguous and 16-byte aligned,
+// C a multiple of 8, 2 <= S <= 16; pixels (1 or 4) of a row a warp.
+// Every element of dfeat is written. Launches on `stream`, allocates
+// nothing. Returns a cudaError_t.
 extern "C" int roi_crop_bwd_launch(const void* grad, const void* ys,
                                    const void* xs, int e, int h, int w, int c,
-                                   int is_bf16, int r, int s, int band_rows,
-                                   int chunk, void* dfeat, void* stream) {
+                                   int is_bf16, int r, int s, int pixels,
+                                   void* dfeat, void* stream) {
   if (c <= 0 || c % 8 || h <= 0 || w <= 0 || s < 2 || s > kMaxS || r < 0 ||
-      e < 0 || band_rows <= 0 || !aligned16(grad) || !aligned16(dfeat)) {
+      e < 0 || (pixels != 1 && pixels != 4) || !aligned16(grad) ||
+      !aligned16(dfeat)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (e == 0) return 0;
@@ -435,9 +427,8 @@ extern "C" int roi_crop_bwd_launch(const void* grad, const void* ys,
   const float* y = static_cast<const float*>(ys);
   const float* x = static_cast<const float*>(xs);
   const cudaError_t err =
-      is_bf16 ? bwd<__nv_bfloat16>(grad, y, x, e, h, w, c, r, s, band_rows,
-                                   chunk, dfeat, st)
-              : bwd<float>(grad, y, x, e, h, w, c, r, s, band_rows, chunk,
-                           dfeat, st);
+      is_bf16 ? bwd<__nv_bfloat16>(grad, y, x, e, h, w, c, r, s, pixels,
+                                   dfeat, st)
+              : bwd<float>(grad, y, x, e, h, w, c, r, s, pixels, dfeat, st);
   return static_cast<int>(err);
 }

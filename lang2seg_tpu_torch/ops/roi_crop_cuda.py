@@ -9,9 +9,22 @@ crop_and_resize`), a form shaped by the TPU's matrix unit.
 and its plain version (that einsum pair) for CPU tensors. Both read the
 sample coordinates `_sample_coords` computes.
 
-`band_plan` is how the wrapper cuts a map for the backward: a CTA holds
-a 32-byte channel slab of `band_rows` map rows in f32 in shared memory,
-beside the gradient's slab of a chunk of ROIs.
+The forward takes a thread a (ROI, sample column, 16-byte channel vector)
+that computes its column's x taps once and walks the sample rows, every
+output written once with a streaming store; it reads four tap vectors an
+output, from L2. The backward takes a CTA of one warp a (expression, 4
+pixels of a map row, slab of channels), a lane a 16-byte vector of
+channels and its 4 sums in registers: the warp walks the ROIs in order,
+32 at a time (a lane testing whether ROI q's taps can reach its pixels),
+and for each that can it finds the sample columns with a tap among its
+pixels and the sample rows with a weight on its row (a ballot), then sums
+those terms. A ROI costs a warp its terms on the warp's pixels, so the
+backward's cost follows the ROIs' S x S samples, not their area. Each
+element is summed in the one order (ROI, sample column) of
+`crop_bwd_coords_plain`, no atomics, and rounded once.
+
+`band_plan` is how the wrapper's backward cuts the maps: pixels a warp
+(4, or 1 for a launch of few warps), warps a row, channels a slab.
 `launches` and `bwd_launches` count the two C entries' launches through
 `roi_crop_forward` / `roi_crop_backward`; `shapes` and `bwd_shapes` count
 the same launches by `shape_key`. `launch_forward` / `launch_backward`
@@ -35,16 +48,13 @@ shapes: collections.Counter = collections.Counter()
 bwd_shapes: collections.Counter = collections.Counter()
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# dynamic shared memory a block may opt in to on an H100 (232,448 B), less
-# the backward's static staging of 32 ROIs' taps and spans (8.5 KiB) and a
-# margin
-SMEM_BYTES = 227 * 1024 - 8704 - 64
-SLAB_BYTES = 32
-# the column ranges a backward CTA splits its rows into, a thread each
-X_SPLIT = 3
+# the backward's pixels of a row a warp (a CTA of one warp): 4, or 1 where
+# that gives fewer warps than WIDE_WARPS (32 warps on each of an H100's
+# 132 SMs: small maps, few expressions), so that the card still has warps
+# to spread
+SEG_COLS = 4
+WIDE_WARPS = 132 * 32
 MAX_SAMPLES = 16
-# ROIs whose taps and gradient slab the backward stages at a time, at most
-ROI_CHUNK = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,36 +64,29 @@ def _lib():
     lib.roi_crop_fwd_launch.argtypes = [p, ll, i, i, i, i, i, p, p, i, i, p,
                                         p]
     lib.roi_crop_fwd_launch.restype = i
-    lib.roi_crop_bwd_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i,
-                                        p, p]
+    lib.roi_crop_bwd_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p,
+                                        p]
     lib.roi_crop_bwd_launch.restype = i
     return lib
 
 
-def band_plan(h: int, w: int, c: int, dtype: torch.dtype,
-              s: int = 7) -> Dict[str, int]:
-    """How the backward cuts an (E, h, w, c) map of `dtype` for S x S
-    crops: `channels` a CTA (32 bytes of a pixel: 16 bf16 or 8 f32) in
-    `slabs` slabs, bands of `band_rows` rows (`bands` of them), a thread a
-    row, channel pair and one of `X_SPLIT` ranges of columns (`threads`,
-    at most 1024), each row (w + 1) x
-    channels f32 of shared memory, then the gradient's slab of `chunk`
-    ROIs (S x S x 32 bytes each, at most `ROI_CHUNK`) beside it (`smem`
-    bytes a CTA)."""
+def band_plan(h: int, w: int, c: int, dtype: torch.dtype, s: int = 7,
+              e: int = 1) -> Dict[str, int]:
+    """How the backward cuts E (h, w, c) maps of `dtype` for S x S crops:
+    a CTA of one warp (`threads`) for each `pixels` pixels of a row
+    (`SEG_COLS`, or 1 where that gives fewer than `WIDE_WARPS` warps;
+    `segments` a row, `ctas` a map and slab) and each slab of `channels`
+    channels (a 16-byte vector a lane: 256 bf16 or 128 f32; `slabs` of
+    them), its sums in registers; `smem` bytes of shared memory (none)."""
     elem = torch.empty((), dtype=dtype).element_size()
-    cs = SLAB_BYTES // elem
-    row_bytes = (w + 1) * cs * 4
-    roi_bytes = s * s * SLAB_BYTES
-    band_rows = min(h, (SMEM_BYTES - roi_bytes) // row_bytes,
-                    1024 // (cs // 2 * X_SPLIT))
-    if band_rows <= 0:
-        raise ValueError(f"roi_crop: a map row of {w} pixels does not fit the "
-                         f"backward's shared memory ({SMEM_BYTES} B)")
-    chunk = min(ROI_CHUNK, (SMEM_BYTES - band_rows * row_bytes) // roi_bytes)
-    return {"channels": cs, "slabs": -(-c // cs), "band_rows": band_rows,
-            "bands": -(-h // band_rows),
-            "threads": band_rows * cs // 2 * X_SPLIT,
-            "chunk": chunk, "smem": band_rows * row_bytes + chunk * roi_bytes}
+    channels = 32 * 16 // elem
+    slabs = -(-c // channels)
+    pixels = SEG_COLS if h * -(-w // SEG_COLS) * slabs * e >= WIDE_WARPS \
+        else 1
+    segments = -(-w // pixels)
+    return {"channels": channels, "slabs": slabs, "pixels": pixels,
+            "segments": segments, "ctas": h * segments, "threads": 32,
+            "smem": 0}
 
 
 def shape_key(e: int, r: int, s: int, h: int, w: int, c: int,
@@ -176,14 +179,14 @@ def launch_backward(grad: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     if _check_coords(ys, xs, e, grad.device) != (r, s) or c % 8:
         raise ValueError("roi_crop backward: grad must be shaped as the "
                          "forward's output, C a multiple of 8")
-    plan = band_plan(h, w, c, grad.dtype, s)
+    plan = band_plan(h, w, c, grad.dtype, s, e)
     dfeat = torch.empty((e, h, w, c), dtype=grad.dtype, device=grad.device)
     stream = torch.cuda.current_stream(grad.device).cuda_stream
     with torch.cuda.device(grad.device):
         rc = _lib().roi_crop_bwd_launch(
             grad.data_ptr(), ys.data_ptr(), xs.data_ptr(), e, h, w, c,
-            int(grad.dtype == torch.bfloat16), r, s, plan["band_rows"],
-            plan["chunk"], dfeat.data_ptr(), stream)
+            int(grad.dtype == torch.bfloat16), r, s, plan["pixels"],
+            dfeat.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"roi_crop backward launch failed: cudaError {rc}")
     return dfeat

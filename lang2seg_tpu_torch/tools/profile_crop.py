@@ -22,9 +22,13 @@ against itself on a second run (the same bits).
 Then each is timed (the kernel by `profile_nms.device_ms`; the plain
 version and `library_ms`, one `F.grid_sample` call of the same function
 forward and its backward, by CUDA events) beside its bound (`crop_bound`,
-`crop_bwd_bound`). `--baseline` builds an earlier roi_crop.cu with the
-port's flags and times its two C entries on the same inputs. Prints one
-JSON line a shape and a last one with all of them. Needs a CUDA device.
+`crop_bwd_bound`) and, as yardsticks of the card's memory, a fill and a
+copy of a tensor of the crops' size (`fill_ms`, `copy_ms`). `--baseline`
+builds an earlier roi_crop.cu with the port's flags and times its two C
+entries beside this source's, in turns on the same inputs, at `SHAPES`,
+`TOP_SHAPE` and `MAIN_PATH_EXTRA` (every other shape the main path crops
+at), the outputs compared bit for bit. Prints one JSON line a shape and a
+last one with all of them. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -63,6 +67,24 @@ SHAPES = (("serve_16x300_40x64x1024", 16, 300, 40, 64, 1024, "distinct",
           ("att_16x1_40x64x1024", 16, 1, 40, 64, 1024, "gathered", True))
 TOP_SHAPE = ("top_16x5000_40x64x1024", 16, 5000, 40, 64, 1024, "distinct",
              False)
+# the other shapes the main path crops at (`chip_smoke.py`'s `kernels`
+# line), for `--baseline`: (expressions, ROIs, H, W, C, dtype, training):
+# eval and serving at 1-128 expressions, the mask crops, comprehension, the
+# demo, `vgg` serving (C = 512), `pretrain` (2 x 256, trained), 'top' at E
+# = 2, and the tiny f32 steps of the learning proof and the card-vs-CPU
+# checks on 8 x 12 maps
+MAIN_PATH_EXTRA = tuple(
+    [(e, r, 40, 64, 1024, torch.bfloat16, False) for e, r in (
+        (1, 1), (1, 16), (1, 300), (2, 1), (4, 1), (4, 2), (4, 300),
+        (8, 1), (8, 2), (8, 300), (16, 3), (16, 32), (32, 1), (32, 6),
+        (32, 32), (32, 300), (64, 1), (64, 300), (128, 1), (128, 300),
+        (2, 5000))]
+    + [(2, 256, 40, 64, 1024, torch.bfloat16, True)]
+    + [(e, 300, 40, 64, 512, torch.bfloat16, False) for e in (4, 8, 16)]
+    + [(e, r, 8, 12, 1024, torch.float32, train) for e, r, train in (
+        (2, 1, False), (2, 32, True), (3, 1, False), (3, 32, False),
+        (4, 1, True), (4, 32, True), (8, 32, True))]
+    + [(4, 32, 8, 12, 512, torch.float32, True)])
 # (expression, ROI) pairs a chunk of the plain version at most, where its
 # (E, R, H, S, C) intermediate (4.6 GB at 8000 pairs of a 40-row,
 # 1024-channel bf16 map) would not fit whole
@@ -146,23 +168,42 @@ def _bound(byts, ops):
             else "operations", byts, ops)
 
 
+def _touched(cs: torch.Tensor, n: int) -> torch.Tensor:
+    """(E, R, n): the cells of an axis of n under some tap of (E, R, S)
+    sample coordinates with a weight that is not zero."""
+    hit = torch.zeros(cs.shape[:2] + (n,), dtype=torch.int64)
+    for idx, weight in _taps(cs, n, torch.float32):
+        hit.scatter_add_(2, idx, (weight > 0).long())
+    return hit > 0
+
+
 def tap_pixels(rois: torch.Tensor, h: int, w: int, maps: str,
                s: int = S) -> int:
     """Map pixels the crop must read: those under some sample's taps (the
     rows of a ROI's y taps by the columns of its x taps), over one map for
     a stride-0 map, else summed over the E maps."""
     ys, xs = coords(rois.cpu(), s)
-
-    def touched(cs, n):                              # (E, R, n)
-        hit = torch.zeros(cs.shape[:2] + (n,), dtype=torch.int64)
-        for idx, weight in _taps(cs, n, torch.float32):
-            hit.scatter_add_(2, idx, (weight > 0).long())
-        return hit > 0
-    rows, cols = touched(ys, h), touched(xs, w)
+    rows, cols = _touched(ys, h), _touched(xs, w)
     covered = (rows[..., :, None] & cols[..., None, :]).any(1)   # (E, H, W)
     if maps == "broadcast":
         covered = covered.any(0)
     return int(covered.sum())
+
+
+def roi_reach(ys: torch.Tensor, xs: torch.Tensor, h: int) -> dict:
+    """What a crop's ROIs cover, from their (E, R, S) sample coordinates
+    in map cells: the mean and largest height and width in cells (last
+    sample less first), and the mean and largest number of map rows with a
+    y tap weight that is not zero (`_taps`), the rows a ROI's backward
+    reaches."""
+    ys, xs = ys.float().cpu(), xs.float().cpu()
+    height = (ys[..., -1] - ys[..., 0]).abs()
+    width = (xs[..., -1] - xs[..., 0]).abs()
+    rows = _touched(ys, h).sum(-1).float()
+    return {"height_mean": float(height.mean()),
+            "height_max": float(height.max()),
+            "width_mean": float(width.mean()), "width_max": float(width.max()),
+            "rows_mean": float(rows.mean()), "rows_max": int(rows.max())}
 
 
 def crop_bound(rois, h, w, c, elem, maps, s=S):
@@ -337,6 +378,13 @@ def check_shape(name, e, r, h, w, c, maps, train, dev, reps=20, seed=0,
     res["library_ms"] = time_ms(lib_fwd, reps, warmup=1)
     res["bound_ms"], res["bound_by"], res["bytes"], res["ops"] = \
         crop_bound(rois, h, w, c, elem, maps, s)
+    # what the card's memory takes for the crops' bytes: a fill of a
+    # tensor of their size, and a copy of one
+    crops = torch.empty((e, r, s, s, c), dtype=dtype, device=dev)
+    res["fill_ms"] = device_ms(lambda: crops.zero_(), reps)
+    src = torch.zeros_like(crops)
+    res["copy_ms"] = device_ms(lambda: crops.copy_(src), reps)
+    del crops, src
     res["gb_per_s"] = res["bytes"] / res["ms"] / 1e6
     if train:
         res["bwd_ms"] = device_ms(lambda: roi_crop_cuda.launch_backward(
@@ -355,15 +403,30 @@ def check_shape(name, e, r, h, w, c, maps, train, dev, reps=20, seed=0,
         res["bwd_bound_ms"], res["bwd_bound_by"], res["bwd_bytes"], _ = \
             crop_bwd_bound(rois, h, w, c, elem, s)
         res["bwd_gb_per_s"] = res["bwd_bytes"] / res["bwd_ms"] / 1e6
-        res["band_plan"] = roi_crop_cuda.band_plan(h, w, c, dtype, s)
+        res["band_plan"] = roi_crop_cuda.band_plan(h, w, c, dtype, s, e)
         del lib_bwd, gout
     return res
+
+
+def baseline_band_plan(h, w, c, dtype, s=S):
+    """(band_rows, chunk) that the earlier roi_crop.cu of `--baseline`
+    reads from its C entry's two plan arguments: a CTA a 32-byte channel
+    slab of a band of rows of (w + 1) pixels in f32 shared memory, a thread
+    a row, channel pair and third of the columns (at most 1024), and the
+    gradient of up to 32 ROIs staged beside it, within 227 KiB less its
+    8.5 KiB of static shared memory."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    smem, cs = 227 * 1024 - 8704 - 64, 32 // elem
+    row_bytes, roi_bytes = (w + 1) * cs * 4, s * s * 32
+    band_rows = min(h, (smem - roi_bytes) // row_bytes, 1024 // (cs // 2 * 3))
+    return band_rows, min(32, (smem - band_rows * row_bytes) // roi_bytes)
 
 
 def _baseline(path):
     """An earlier roi_crop.cu with this file's C interface, built with the
     port's flags beside its own libraries: (fwd(feat, ys, xs) -> out,
-    bwd(grad, ys, xs, h, w) -> dfeat)."""
+    bwd(grad, ys, xs, h, w) -> dfeat), the backward planned by
+    `baseline_band_plan`."""
     src = Path(path).read_bytes()
     flags = _build._flags("roi_crop")
     key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
@@ -399,12 +462,11 @@ def _baseline(path):
         e, r, s, _, c = grad.shape
         dfeat = torch.empty((e, h, w, c), dtype=grad.dtype,
                             device=grad.device)
-        plan = roi_crop_cuda.band_plan(h, w, c, grad.dtype, s)
+        band_rows, chunk = baseline_band_plan(h, w, c, grad.dtype, s)
         rc = lib.roi_crop_bwd_launch(
             grad.data_ptr(), ys.data_ptr(), xs.data_ptr(), e, h, w, c,
-            int(grad.dtype == torch.bfloat16), r, s, plan["band_rows"],
-            plan["chunk"], dfeat.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            int(grad.dtype == torch.bfloat16), r, s, band_rows, chunk,
+            dfeat.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"baseline roi_crop backward: cudaError {rc}")
         return dfeat
@@ -412,34 +474,52 @@ def _baseline(path):
     return fwd, bwd
 
 
+def side_by_side(base, feat, ys, xs, grad=None, reps=20, rounds=3):
+    """The baseline's kernels (`_baseline`'s pair) and this source's in
+    turns on one input (baseline, this, this, baseline; `rounds` times):
+    the mean device ms of each, forward and (with `grad`) backward, and
+    whether the two give the same bits."""
+    base_fwd, base_bwd = base
+    h, w = feat.shape[1:3]
+    fns = {"fwd": (lambda: base_fwd(feat, ys, xs),
+                   lambda: roi_crop_cuda.launch_forward(feat, ys, xs))}
+    if grad is not None:
+        fns["bwd"] = (lambda: base_bwd(grad, ys, xs, h, w),
+                      lambda: roi_crop_cuda.launch_backward(grad, ys, xs, h,
+                                                            w))
+    res = {}
+    for key, (old, new) in fns.items():
+        res[key + "_equal"] = bool(torch.equal(old(), new()))
+        times = {"baseline": [], "this": []}
+        for _ in range(rounds):
+            for which in ("baseline", "this", "this", "baseline"):
+                times[which].append(device_ms(
+                    old if which == "baseline" else new, reps))
+        res[key] = {k: float(np.mean(v)) for k, v in times.items()}
+    return res
+
+
 def baseline_ms(path, dev, reps=20, rounds=3):
-    """The baseline's and this source's kernels in turns (baseline, this,
-    this, baseline; `rounds` times) at each of `SHAPES`: the mean device
-    ms of each, forward and (training shapes) backward, and whether the
-    two forward outputs are equal."""
-    base_fwd, base_bwd = _baseline(path)
+    """`side_by_side` at `SHAPES`, `TOP_SHAPE` and `MAIN_PATH_EXTRA` (maps
+    gathered where the backward runs, else one an expression), one dict a
+    shape."""
+    base = _baseline(path)
+    shapes = [(name, e, r, h, w, c, maps, torch.bfloat16, train)
+              for name, e, r, h, w, c, maps, train in SHAPES + (TOP_SHAPE,)]
+    shapes += [(f"{e}x{r}_{h}x{w}x{c}_{str(dt).split('.')[-1]}", e, r, h, w,
+                c, "gathered" if train else "distinct", dt, train)
+               for e, r, h, w, c, dt, train in MAIN_PATH_EXTRA]
     out = []
-    for name, e, r, h, w, c, maps, train in SHAPES:
-        feat, rois, grad = crop_inputs(e, r, h, w, c, maps, dev,
+    for name, e, r, h, w, c, maps, dtype, train in shapes:
+        feat, rois, grad = crop_inputs(e, r, h, w, c, maps, dev, dtype,
                                        with_grad=train)
         ys, xs = coords(rois)
-        fns = {"fwd": (lambda: base_fwd(feat, ys, xs),
-                       lambda: roi_crop_cuda.launch_forward(feat, ys, xs))}
-        if train:
-            fns["bwd"] = (lambda: base_bwd(grad, ys, xs, h, w),
-                          lambda: roi_crop_cuda.launch_backward(
-                              grad, ys, xs, h, w))
-        res = {"name": name, "fwd_equal": bool(torch.equal(
-            base_fwd(feat, ys, xs), roi_crop_cuda.launch_forward(
-                feat, ys, xs)))}
-        for key, (base, this) in fns.items():
-            times = {"baseline": [], "this": []}
-            for _ in range(rounds):
-                for which in ("baseline", "this", "this", "baseline"):
-                    times[which].append(device_ms(
-                        base if which == "baseline" else this, reps))
-            res[key] = {k: float(np.mean(v)) for k, v in times.items()}
+        res = {"name": name, **side_by_side(base, feat, ys, xs, grad, reps,
+                                            rounds)}
+        print(json.dumps(res), flush=True)
         out.append(res)
+        del feat, rois, grad
+        torch.cuda.empty_cache()
     return out
 
 

@@ -19,7 +19,13 @@ time of the port's hand kernels (NMS, the gate and its backward, the ROI
 crop and its backward), and the twelve largest
 device-time entries. A last step records its NMS input: per lane the
 boxes kept and the last box examined, the kernel's device time alone on
-that input and its cycles a tile by phase (`profile_nms.phase_cycles`).
+that input and its cycles a tile by phase (`profile_nms.phase_cycles`);
+and its ROI crop's, the training crop's maps, sample coordinates and
+gradient: the ROIs' extents in cells and the map rows each reaches
+(`profile_crop.roi_reach`), the two crop kernels checked on that input
+against their plain versions (the same bits) and timed alone, and with
+`--baseline PATH` (an earlier roi_crop.cu) that source's kernels timed
+beside them in turns (`profile_crop.side_by_side`).
 Prints one JSON line. Needs a CUDA device.
 """
 
@@ -36,7 +42,9 @@ from ..config import flagship_config
 from ..data.synthetic import synthetic_batch, to_wire
 from ..engine.train_state import (apply_update, create_train_state,
                                   to_device, train_step)
-from ..ops import nms_cuda, proposals
+from ..ops import nms_cuda, proposals, roi_crop_cuda
+from ..ops.roi_align import crop_bwd_coords_plain, crop_gather_plain
+from .profile_crop import _baseline, roi_reach, side_by_side
 from .profile_nms import device_ms, lane_stats, phase_cycles
 
 # the port's own kernels, by the names nvcc gives them
@@ -128,6 +136,35 @@ def vgg_tail_stages(model, rois, generator):
     return times
 
 
+def step_crop(fwd_calls, bwd_calls, baseline=None):
+    """The crop of a step's largest crop backward, from the recorded
+    wrapper calls (the forward's (feat, ys, xs), the backward's (grad, ys,
+    xs, h, w)): its shape, the ROIs' extents (`roi_reach`), both kernels
+    checked against their plain versions (the same bits) and timed alone
+    on it, and beside an earlier roi_crop.cu's kernels when `baseline`
+    names one."""
+    grad, ys, xs, h, w = max(bwd_calls, key=lambda a: a[0].numel())
+    feat, = [f.detach() for f, fy, _ in fwd_calls
+             if fy.data_ptr() == ys.data_ptr() and fy.shape == ys.shape]
+    out = {"shape": list(grad.shape), "map": list(feat.shape),
+           "dtype": str(grad.dtype).split(".")[-1],
+           **roi_reach(ys, xs, h),
+           "fwd_gather_equal": bool(torch.equal(
+               roi_crop_cuda.launch_forward(feat, ys, xs),
+               crop_gather_plain(feat, ys, xs))),
+           "bwd_plain_equal": bool(torch.equal(
+               roi_crop_cuda.launch_backward(grad, ys, xs, h, w),
+               crop_bwd_coords_plain(grad, ys, xs, h, w))),
+           "fwd_ms": device_ms(lambda: roi_crop_cuda.launch_forward(
+               feat, ys, xs), 20),
+           "bwd_ms": device_ms(lambda: roi_crop_cuda.launch_backward(
+               grad, ys, xs, h, w), 20)}
+    if baseline:
+        out["baseline"] = side_by_side(_baseline(baseline), feat, ys, xs,
+                                       grad)
+    return out
+
+
 def _device_us(evt):
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0))
@@ -138,6 +175,9 @@ def main(argv=None):
     ap.add_argument("--expressions", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--variant", default="response")
+    ap.add_argument("--baseline", default=None,
+                    help="an earlier roi_crop.cu to time beside this one on "
+                         "the step's crop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -199,20 +239,35 @@ def main(argv=None):
           f"hand kernels {hand}")
     print(avgs.table(sort_by="cuda_time_total", row_limit=12))
 
-    # one more step, its NMS results kept aside (read after the step)
-    nms_calls = []
+    # one more step, its NMS results and crop inputs kept aside (read after
+    # the step)
+    nms_calls, crop_fwd, crop_bwd = [], [], []
     real_nms = proposals.nms_batched
+    real_crop = (roi_crop_cuda.roi_crop_forward,
+                 roi_crop_cuda.roi_crop_backward)
 
     def recorded_nms(*nms_in):
         out = real_nms(*nms_in)
         nms_calls.append(nms_in + out)
         return out
 
+    def recorded_crop(*crop_in):
+        crop_fwd.append(crop_in)
+        return real_crop[0](*crop_in)
+
+    def recorded_crop_bwd(*crop_in):
+        crop_bwd.append(crop_in)
+        return real_crop[1](*crop_in)
+
     proposals.nms_batched = recorded_nms
+    roi_crop_cuda.roi_crop_forward = recorded_crop
+    roi_crop_cuda.roi_crop_backward = recorded_crop_bwd
     try:
         train_step(state, batches[4], gen)
     finally:
         proposals.nms_batched = real_nms
+        roi_crop_cuda.roi_crop_forward, roi_crop_cuda.roi_crop_backward = \
+            real_crop
     (boxes, valid, thresh, max_out, keep_idx, keep_mask), = nms_calls
     e, n, _ = boxes.shape
     nms_args = (boxes, valid, thresh, max_out)
@@ -224,6 +279,8 @@ def main(argv=None):
     print(f"[nms] ({e}, {n})->{max_out} in a step: kept/lane {kept}; last "
           f"examined/lane {last}; kernel alone {nms_ms:.4f} ms; cycles a "
           f"tile {cycles}")
+    crop = step_crop(crop_fwd, crop_bwd, args.baseline) if crop_bwd else {}
+    print(f"[crop] in a step: {crop}")
     print(json.dumps({"device": smi, "variant": args.variant, "images": 2,
                       "expressions": args.expressions, "stages_ms": stages,
                       "caption_stages_ms": caption,
@@ -232,7 +289,8 @@ def main(argv=None):
                       "hand_kernels_ms": hand,
                       "nms_kept_per_lane": kept,
                       "nms_last_examined_per_lane": last,
-                      "nms_alone_ms": nms_ms, "nms_cycles_a_tile": cycles}))
+                      "nms_alone_ms": nms_ms, "nms_cycles_a_tile": cycles,
+                      "crop_in_step": crop}))
 
 
 if __name__ == "__main__":

@@ -270,25 +270,86 @@ def test_roi_features_and_gradient_match_jax(rng):
 @pytest.mark.parametrize("h,w,s", [(40, 64, 7), (40, 64, 14), (8, 12, 7),
                                    (120, 128, 7)])
 def test_band_plan_fits_shared_memory(dtype, h, w, s):
-    """The backward's plan: a 32-byte channel slab, whole bands of rows
-    (the 40 x 64 map of every full-width path in one band), at most 1024
-    threads (a row, a channel pair and a range of columns each), at least
-    one ROI's gradient slab staged beside the band, all within the shared
-    memory one block may take on an H100."""
+    """The backward's plan for 16 expressions: a CTA of one warp for each
+    4 pixels of a row (the 40 x 64 map of every full-width path in 40 x 16
+    warps), or for each pixel where that would give fewer than 32 warps
+    on each of 132 SMs, and a 16-byte vector of channels a lane (256
+    bf16 or 128 f32 a slab), its sums in registers: no shared memory, so
+    32 such CTAs share an SM of an H100 whatever the map, the samples or
+    the ROIs."""
     tdt, _ = DTYPES[dtype]
-    plan = roi_crop_cuda.band_plan(h, w, 1024, tdt, s)
+    plan = roi_crop_cuda.band_plan(h, w, 1024, tdt, s, 16)
     elem = 2 if tdt == torch.bfloat16 else 4
-    assert plan["channels"] * elem == 32
+    assert plan["channels"] * elem == 32 * 16
     assert plan["slabs"] * plan["channels"] == 1024
-    assert plan["bands"] * plan["band_rows"] >= h > \
-        (plan["bands"] - 1) * plan["band_rows"]
-    assert (h, w) != (40, 64) or plan["bands"] == 1
-    assert plan["threads"] == plan["band_rows"] * plan["channels"] // 2 * \
-        roi_crop_cuda.X_SPLIT <= 1024
-    assert 1 <= plan["chunk"] <= roi_crop_cuda.ROI_CHUNK
-    assert plan["smem"] == plan["band_rows"] * (w + 1) * 32 // elem * 4 + \
-        plan["chunk"] * s * s * 32
-    assert plan["smem"] + 8704 <= 227 * 1024        # beside the static
+    wide = h * -(-w // 4) * plan["slabs"] * 16 >= 132 * 32
+    assert plan["pixels"] == (4 if wide else 1)
+    assert plan["segments"] * plan["pixels"] >= w > \
+        (plan["segments"] - 1) * plan["pixels"]
+    assert plan["ctas"] == h * plan["segments"]
+    assert (h, w) != (40, 64) or plan["ctas"] == 640
+    assert (h, w) != (8, 12) or plan["pixels"] == 1
+    assert plan["threads"] == 32 and plan["smem"] == 0
+
+
+@pytest.mark.parametrize("h,w,c", [(1, 3, 8), (3, 17, 24), (40, 64, 512),
+                                   (41, 65, 1032)])
+def test_band_plan_tiles_cover_the_map(h, w, c):
+    """The warps and slabs of the plan cover every pixel and channel of a
+    map once, whatever its size (a row narrower than a warp's 4 pixels, a
+    partial slab of channels)."""
+    for tdt in (torch.bfloat16, torch.float32):
+        plan = roi_crop_cuda.band_plan(h, w, c, tdt, 7)
+        cols = [min(plan["pixels"], w - k * plan["pixels"])
+                for k in range(plan["segments"])]
+        chans = [min(plan["channels"], c - k * plan["channels"])
+                 for k in range(plan["slabs"])]
+        assert min(cols + chans) > 0
+        assert (sum(cols), sum(chans)) == (w, c)
+        assert plan["ctas"] * plan["pixels"] >= h * w
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("h,w,s", [(40, 64, 7), (40, 64, 14), (8, 12, 7),
+                                   (120, 128, 7)])
+def test_baseline_band_plan_fits_its_shared_memory(dtype, h, w, s):
+    """The plan `profile_crop --baseline` gives the earlier source's
+    backward: a 32-byte channel slab of rows of w + 1 pixels in f32, at
+    most 1024 threads (a row, channel pair and third of the columns each),
+    1 to 32 ROIs' gradient staged beside it, within 227 KiB less its
+    8.5 KiB of static shared memory."""
+    from lang2seg_tpu_torch.tools.profile_crop import baseline_band_plan
+    tdt, _ = DTYPES[dtype]
+    elem = 2 if tdt == torch.bfloat16 else 4
+    band_rows, chunk = baseline_band_plan(h, w, 1024, tdt, s)
+    assert 1 <= band_rows <= h and band_rows * 32 // elem // 2 * 3 <= 1024
+    assert (h, w) != (40, 64) or band_rows == 40
+    assert 1 <= chunk <= 32
+    assert band_rows * (w + 1) * 32 * 4 // elem + chunk * s * s * 32 + \
+        8704 <= 227 * 1024
+
+
+def test_roi_reach_counts_rows_with_a_weight():
+    """`profile_crop.roi_reach` (what `profile_train.py` prints of a step's
+    crop) against a brute force over every map row and sample on the edge
+    ROIs and proposals: the rows under a y tap whose weight is not zero
+    (at most 2 S, whatever the ROI's height), and the ROIs' extents in
+    cells."""
+    from lang2seg_tpu_torch.tools.profile_crop import roi_reach
+    rois = torch.cat([edge_rois(H, W)[None], _inputs(torch.float32, e=1,
+                                                     r=10)[1]], 1)
+    ys, xs = _coords(rois)
+    got = roi_reach(ys, xs, H)
+    rows = [sum(any(max(0.0, 1.0 - abs(float(v) - y)) > 0 for v in ys[0, q])
+                for y in range(H)) for q in range(ys.shape[1])]
+    heights = (ys[0, :, -1] - ys[0, :, 0]).abs()
+    widths = (xs[0, :, -1] - xs[0, :, 0]).abs()
+    assert got["rows_max"] == max(rows)
+    assert got["rows_mean"] == pytest.approx(np.mean(rows))
+    # off the map: no row; a ROI reaches at most two rows a sample row
+    assert 0 in rows and max(rows) <= 2 * ys.shape[2]
+    assert got["height_max"] == float(heights.max())
+    assert got["width_mean"] == pytest.approx(float(widths.mean()))
 
 
 def test_crop_bound_counts_tapped_pixels_once():

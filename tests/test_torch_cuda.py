@@ -1124,15 +1124,87 @@ def test_roi_crop_kernels_match_plain(dev, dtype, maps, c, s):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_roi_crop_kernels_in_bands(dev, dtype):
-    """A map past one band of the backward (120 x 128: several bands, a
-    chunk of a few ROIs), with the crop kernels against their plain
-    versions as above."""
+    """A map larger than the full-width paths' (120 x 128: a warp of the
+    backward for each 4 pixels of a row, 3,840 a slab and expression), with
+    the crop kernels against their plain versions as above."""
     from lang2seg_tpu_torch.tools.profile_crop import (checks_pass,
                                                        compare_shape)
-    assert roi_crop_cuda.band_plan(120, 128, 48, dtype)["bands"] > 1
+    assert roi_crop_cuda.band_plan(120, 128, 48, dtype, 7, 2)["ctas"] == 3840
     res, _ = compare_shape(2, 40, 120, 128, 48, "gathered", dev, True,
                            seed=5, dtype=dtype)
     assert checks_pass(res), res
+
+
+def _one_cell_rois(e):
+    """(e, 5, 4) ROIs whose 7 x 7 samples all fall in map cell (4, 8) at
+    stride 16."""
+    x1 = 130.0 + torch.arange(5, dtype=torch.float32)
+    return torch.stack([x1, torch.full_like(x1, 70.0), x1 + 3.0,
+                        torch.full_like(x1, 71.0)], -1).expand(e, 5, 4)
+
+
+def _crowded_rois(r):
+    """(1, r, 4) ROIs that all reach map rows 9-11 (flat, at stride 16),
+    spread over the columns: every warp of those rows takes many batches
+    of 32."""
+    k = torch.arange(r, dtype=torch.float32)
+    x1 = (k * 37.0) % 900.0
+    y1 = 150.0 + k % 8
+    return torch.stack([x1, y1, x1 + 10.0 + (k * 13.0) % 300.0, y1 + 20.0],
+                       -1)[None]
+
+
+# (name, E, R, H, W, C, maps, dtype, S, ROIs: None for drawn proposals)
+CROP_EDGE_CASES = [
+    ("one_cell", 2, 5, 20, 30, 64, "gathered", torch.bfloat16, 7,
+     _one_cell_rois(2)),
+    ("crowded_row", 1, 700, 20, 64, 64, "gathered", torch.bfloat16, 7,
+     _crowded_rois(700)),
+    ("r33", 2, 33, 20, 30, 64, "gathered", torch.bfloat16, 7, None),
+    ("r1", 3, 1, 20, 30, 64, "gathered", torch.bfloat16, 7, None),
+    ("c24", 2, 40, 20, 30, 24, "gathered", torch.bfloat16, 7, None),
+    ("s14", 2, 40, 20, 30, 64, "gathered", torch.bfloat16, 14, None),
+    ("f32", 2, 40, 20, 30, 64, "gathered", torch.float32, 7, None),
+    ("wide_two_slabs", 2, 60, 120, 128, 264, "gathered", torch.bfloat16, 7,
+     None),
+    ("broadcast", 3, 40, 20, 30, 64, "broadcast", torch.bfloat16, 7, None),
+    ("four_pixel_warps", 16, 20, 40, 64, 256, "gathered", torch.bfloat16, 7,
+     None),
+    ("four_pixel_one_cell", 16, 5, 40, 64, 256, "gathered", torch.float32,
+     7, _one_cell_rois(16)),
+]
+
+
+@pytest.mark.parametrize("case", CROP_EDGE_CASES, ids=lambda c: c[0])
+def test_roi_crop_kernels_on_edge_layouts(dev, case):
+    """The crop kernels bit for bit against their algorithms in torch ops
+    (the forward against `crop_gather_plain`, the backward against
+    `crop_bwd_coords_plain`) and the backward against itself on a second
+    run: a ROI whose samples all fall in one cell, 700 ROIs reaching one
+    row (22 batches of 32 for each warp there), R not a multiple of 32 and
+    R = 1, a partial channel slab (C = 24), S = 14, f32 maps, a map of
+    many warps and two slabs (the second partial), a stride-0 map read by
+    every expression (the forward); the two-slab map and the last two (16
+    expressions of 40 x 64 maps) launch a warp for each 4 pixels, the rest
+    a warp a pixel (`band_plan`)."""
+    from lang2seg_tpu_torch.ops.roi_align import (crop_bwd_coords_plain,
+                                                  crop_gather_plain)
+    from lang2seg_tpu_torch.tools.profile_crop import coords, crop_inputs
+    name, e, r, h, w, c, maps, dtype, s, rois = case
+    assert roi_crop_cuda.band_plan(h, w, c, dtype, s, e)["pixels"] == \
+        (4 if name in ("wide_two_slabs", "four_pixel_warps",
+                       "four_pixel_one_cell") else 1)
+    feat, drawn, grad = crop_inputs(e, r, h, w, c, maps, dev, dtype, seed=6,
+                                    s=s)
+    ys, xs = coords(drawn if rois is None else rois.to(dev), s)
+    out = roi_crop_cuda.launch_forward(feat, ys, xs)
+    assert torch.equal(out, crop_gather_plain(feat, ys, xs))
+    d1 = roi_crop_cuda.launch_backward(grad, ys, xs, h, w)
+    d2 = roi_crop_cuda.launch_backward(grad, ys, xs, h, w)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(d1.view(bits), d2.view(bits))
+    assert torch.equal(d1, crop_bwd_coords_plain(grad, ys, xs, h, w))
+    assert bool(d1.ne(0).any())
 
 
 def test_roi_crop_autograd_launches_both_kernels(dev):
