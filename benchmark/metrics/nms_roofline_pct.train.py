@@ -1,0 +1,12 @@
+"""NMS's bound (from each call's own arguments and output,
+`benchmark/bounds/nms.py`) summed over the window's calls, over the
+device time of every launch made inside those calls."""
+
+OP = "nms"
+
+
+def read(view):
+    t = view["summary"].op_device_s.get(OP)
+    if not t or OP not in view["bounds"]:
+        return None
+    return 100.0 * view["bounds"][OP] / t
