@@ -75,6 +75,7 @@ from ..ops.boxes import decode_boxes
 from ..utils.metrics import (SegEvalAccumulator, nearest_resize,
                              recover_masks, recover_masks_ref,
                              scipy_imresize)
+from ..utils.trace import count, span
 
 
 def _host_expand_bank(batch: Dict) -> Dict:
@@ -132,8 +133,9 @@ class Evaluator:
         """`device_paste` False pastes every mask back on the host;
         `reference_exact` reproduces the reference's metric chain on the
         host (pair it with cfg.data.reference_exact_masks for the
-        loader's GT masks). `h2d_bytes` counts the bytes the evaluator
-        has copied to the device."""
+        loader's GT masks). The counters `eval.h2d_bytes` and
+        `eval.images` (`utils/trace.py`) count the bytes copied to the
+        device and the images dispatched."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
@@ -152,7 +154,6 @@ class Evaluator:
                           np.round(np.asarray(d.pixel_means_bgr))]
         self._rng_uid = 0
         self._copy_stream = None
-        self.h2d_bytes = 0
 
     @staticmethod
     def _extents(batch):
@@ -217,6 +218,7 @@ class Evaluator:
         return full, mfull
 
     @staticmethod
+    @span("l2s.select")
     def _select_fn(rois, deltas, scores, valid, scale, ih, iw):
         """Batched argmax protocol over all S sentences (test.py:256-259):
         decode per-class boxes in original-image coords, mask padded rois,
@@ -241,6 +243,7 @@ class Evaluator:
         return sel, cls.to(torch.int32)
 
     @staticmethod
+    @span("l2s.paste")
     def _paste_iou_fn(mask_probs, boxes, gt_masks, sh, sw, ih, iw, *,
                       oh: int, ow: int, packed: bool = False):
         """Device paste-back + IoU, batched over sentences.
@@ -324,11 +327,13 @@ class Evaluator:
         return t, nbytes
 
     def _put(self, x, dtype=None) -> torch.Tensor:
-        """`_to_device`, counted in `h2d_bytes` (calling thread only)."""
+        """`_to_device`, counted in `eval.h2d_bytes` (calling thread
+        only)."""
         t, nbytes = self._to_device(x, dtype)
-        self.h2d_bytes += nbytes
+        count("eval.h2d_bytes", nbytes)
         return t
 
+    @span("l2s.stack")
     def _stack_chunk(self, chunk: List[Dict], uids: List[int]) -> Dict:
         """The host operands of one dispatch of `chunk`'s images, which
         share a sentence bucket S (and, for the bank wire, the bank's row
@@ -380,6 +385,7 @@ class Evaluator:
         return {"arrays": arrays, "scales": [e[0] for e in exts], "s": s,
                 "packed": packed, "crop": crop, "uids": list(uids)}
 
+    @span("l2s.stage")
     def _stage_chunk(self, chunk: List[Dict], valid_flags, uids: List[int],
                      staged: bool = False) -> Dict:
         """The host half of a chunk's dispatch: `_stack_chunk`, then the
@@ -394,16 +400,19 @@ class Evaluator:
         if staged and self.device.type == "cuda":
             with torch.cuda.device(self.device), \
                     torch.cuda.stream(self._copy_stream):
-                ops = {k: self._to_device(v) for k, v in arrays.items()}
+                with span("l2s.upload"):
+                    ops = {k: self._to_device(v) for k, v in arrays.items()}
                 st["event"] = torch.cuda.Event()
                 st["event"].record(self._copy_stream)
         else:
-            ops = {k: self._to_device(v) for k, v in arrays.items()}
+            with span("l2s.upload"):
+                ops = {k: self._to_device(v) for k, v in arrays.items()}
         st["ops"] = {k: t for k, (t, _) in ops.items()}
         st["bytes"] = sum(n for _, n in ops.values())
         return st
 
     @torch.no_grad()
+    @span("l2s.dispatch")
     def _dispatch_staged(self, st: Dict) -> Dict:
         """The device half: after the staged copies (the compute stream
         waits on their event and owns their tensors from here), re-create
@@ -417,7 +426,8 @@ class Evaluator:
             stream.wait_event(st["event"])
             for t in ops.values():
                 t.record_stream(stream)
-        self.h2d_bytes += st["bytes"]
+        count("eval.h2d_bytes", st["bytes"])
+        count("eval.images", len(st["chunk"]))
         images, gm = ops["images"], ops["gm"]
         if st["crop"] is not None:
             images, gm = self._inflate(images, gm, st["crop"])
@@ -454,15 +464,19 @@ class Evaluator:
         """Read a chunk's results back and accumulate its valid sentences;
         returns its image count."""
         n, s = len(rec["chunk"]), rec["s"]
-        sel = rec["sel"].cpu().numpy().reshape(n, s, 4)
-        inter = rec["inter"].cpu().numpy().reshape(n, s)
-        union = rec["union"].cpu().numpy().reshape(n, s)
-        for d, b in enumerate(rec["chunk"]):
-            a = _image_acc(acc, rec["uids"][d])
-            for i in np.flatnonzero(rec["valid_flags"][d]):
-                gt_box = np.asarray(b["gt_boxes"][i, :4]) / rec["scales"][d]
-                a.add_detection(sel[d, i], gt_box)
-                a.add_segmentation_iu(int(inter[d, i]), int(union[d, i]))
+        with span("l2s.sync.readback"):
+            sel = rec["sel"].cpu().numpy().reshape(n, s, 4)
+            inter = rec["inter"].cpu().numpy().reshape(n, s)
+            union = rec["union"].cpu().numpy().reshape(n, s)
+        with span("l2s.accumulate"):
+            for d, b in enumerate(rec["chunk"]):
+                a = _image_acc(acc, rec["uids"][d])
+                for i in np.flatnonzero(rec["valid_flags"][d]):
+                    gt_box = np.asarray(b["gt_boxes"][i, :4]) / \
+                        rec["scales"][d]
+                    a.add_detection(sel[d, i], gt_box)
+                    a.add_segmentation_iu(int(inter[d, i]),
+                                          int(union[d, i]))
         return n
 
     @torch.no_grad()
@@ -484,26 +498,30 @@ class Evaluator:
         if uid is None:
             uid = self._next_uid()
         if m.use_mask_head and self.device_paste and self._fits(ih, iw):
+            # `_stage_chunk` and `_dispatch_staged` open their own spans
             return self._dispatch_chunk(
                 [batch], [_valid_of(batch, sent_valid)], [uid])
         rec = {"batch": batch, "scale": scale, "sent_valid": sent_valid,
                "sh": sh, "sw": sw, "ih": ih, "iw": iw, "uid": uid}
         if m.use_mask_head:
             rec["batch"] = _host_expand_bank(batch)
-        out = self.model.test_forward({
-            "images": self._put(batch["images"]),
-            "im_hw": self._put(batch["im_hw"], torch.float32),
-            "labels": self._put(batch["labels"])},
-            self._image_generator(uid))
-        scale_t, ih_t, iw_t = self._put(np.float32([scale, ih, iw]))
-        sel, cls = self._select_fn(
-            out["rois"], out["bbox_pred"], out["cls_prob"], out["roi_valid"],
-            scale_t, ih_t, iw_t)
-        rec["sel"] = sel
-        if m.use_mask_head:
-            rec["probs"] = self.model.predict_masks(
-                out["gated_conv"], (sel * scale_t)[:, None, :],
-                cls[:, None])[:, 0]
+        with span("l2s.dispatch"):
+            count("eval.images")
+            with span("l2s.upload"):
+                inputs = {"images": self._put(batch["images"]),
+                          "im_hw": self._put(batch["im_hw"], torch.float32),
+                          "labels": self._put(batch["labels"])}
+            out = self.model.test_forward(inputs, self._image_generator(uid))
+            with span("l2s.upload"):
+                scale_t, ih_t, iw_t = self._put(np.float32([scale, ih, iw]))
+            sel, cls = self._select_fn(
+                out["rois"], out["bbox_pred"], out["cls_prob"],
+                out["roi_valid"], scale_t, ih_t, iw_t)
+            rec["sel"] = sel
+            if m.use_mask_head:
+                rec["probs"] = self.model.predict_masks(
+                    out["gated_conv"], (sel * scale_t)[:, None, :],
+                    cls[:, None])[:, 0]
         return rec
 
     def drain(self, rec: Dict, acc: SegEvalAccumulator) -> None:
@@ -513,8 +531,18 @@ class Evaluator:
         if "chunk" in rec:
             self._drain_chunk(rec, acc)
             return
-        acc = _image_acc(acc, rec.get("uid"))
-        sel = rec["sel"].cpu().numpy()
+        with span("l2s.sync.readback"):
+            sel = rec["sel"].cpu().numpy()
+            probs = (rec["probs"].float().cpu().numpy() if "probs" in rec
+                     else None)
+        with span("l2s.accumulate"):
+            self._accumulate_image(rec, sel, probs,
+                                   _image_acc(acc, rec.get("uid")))
+
+    def _accumulate_image(self, rec: Dict, sel: np.ndarray,
+                          probs: Optional[np.ndarray], acc) -> None:
+        """One host-path image's detections and, with `probs`, its masks
+        pasted back here, into `acc`."""
         sent_valid = rec["sent_valid"]
         live = [i for i in range(sel.shape[0])
                 if sent_valid is None or sent_valid[i]]
@@ -522,8 +550,7 @@ class Evaluator:
         for i in live:
             gt_box = np.asarray(batch["gt_boxes"][i, :4]) / scale
             acc.add_detection(sel[i], gt_box)
-        if "probs" in rec:
-            probs = rec["probs"].float().cpu().numpy()
+        if probs is not None:
             sh, sw, ih, iw = rec["sh"], rec["sw"], rec["ih"], rec["iw"]
             for i in live:
                 gm = np.asarray(batch["gt_masks"][i])[:sh, :sw]
@@ -541,6 +568,7 @@ class Evaluator:
                     gt = nearest_resize(gm, ih, iw)
                 acc.add_segmentation(pred.astype(np.uint8), gt)
 
+    @span("l2s.request")
     def eval_image(self, batch: Dict[str, np.ndarray],
                    acc: SegEvalAccumulator,
                    sent_valid: Optional[np.ndarray] = None) -> None:
@@ -550,6 +578,7 @@ class Evaluator:
         slots."""
         self.drain(self.dispatch_image(batch, sent_valid), acc)
 
+    @span("l2s.eval_split")
     def eval_split(self, batches: Iterable[Dict[str, np.ndarray]],
                    verbose: bool = False, pipeline_depth: int = 4,
                    images_per_dispatch: int = 1, stage_uploads: bool = True,
@@ -648,6 +677,10 @@ class Evaluator:
                 print(f"[eval] {done} images: det_acc={s['det_acc']:.4f} "
                       f"IoU={s['overall_iou']:.4f}", flush=True)
 
+        def staged_result():
+            with span("l2s.wait.staged"):
+                return staged.popleft().result()
+
         def flush(key):
             group = groups.pop(key, [])
             while group:
@@ -662,8 +695,7 @@ class Evaluator:
                 # one chunk's stacking and upload stays in flight behind
                 # the dispatches
                 while len(staged) > 1:
-                    pending.append(self._dispatch_staged(
-                        staged.popleft().result()))
+                    pending.append(self._dispatch_staged(staged_result()))
 
         was_training = self.model.training
         self.model.eval()
@@ -689,8 +721,7 @@ class Evaluator:
             for key in list(groups):
                 flush(key)
             while staged:
-                pending.append(self._dispatch_staged(
-                    staged.popleft().result()))
+                pending.append(self._dispatch_staged(staged_result()))
             while pending:
                 drain_one()
         finally:

@@ -30,6 +30,7 @@ import torch
 from ..config import Config
 from ..device import resolve_device
 from ..models.network import Lang2Seg, build_model
+from ..utils.trace import span
 from .optimizer import build_optimizer, clip_by_global_norm_, set_lr
 
 # host-side entries of a loader batch that the step does not take
@@ -82,10 +83,12 @@ def stack_batches(batches: Sequence[Dict]) -> Dict[str, np.ndarray]:
 def _forward_backward(state: TrainState, batch: Dict[str, torch.Tensor],
                       generator, targets=None, sampling_generator=None
                       ) -> Dict[str, torch.Tensor]:
-    state.optimizer.zero_grad(set_to_none=True)
-    losses = state.model.train_forward(batch, targets, generator,
-                                       sampling_generator)
-    losses["total_loss"].backward()
+    with span("l2s.forward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        losses = state.model.train_forward(batch, targets, generator,
+                                           sampling_generator)
+    with span("l2s.backward"):
+        losses["total_loss"].backward()
     return {k: v.detach() for k, v in losses.items()}
 
 
@@ -117,10 +120,11 @@ def _step_body(state: TrainState, batch: Dict[str, torch.Tensor],
     graph captures."""
     losses = _forward_backward(state, batch, generator, targets,
                                sampling_generator)
-    grads = _grads(state)
-    if reduce is not None:
-        losses = reduce(grads, losses)
-    _clip_and_step(state, grads)
+    with span("l2s.optimizer"):
+        grads = _grads(state)
+        if reduce is not None:
+            losses = reduce(grads, losses)
+        _clip_and_step(state, grads)
     return losses
 
 
@@ -187,6 +191,7 @@ class MultiStep:
         return train_step(self.state, batch, self.generator, targets,
                           self.sampling_generator, self.reduce)
 
+    @span("l2s.graph_capture")
     def _capture(self, batch: Dict[str, torch.Tensor]) -> None:
         gens = [g for g in (self.generator, self.sampling_generator)
                 if g is not None]
@@ -211,6 +216,7 @@ class MultiStep:
         self.capture_s = time.perf_counter() - t0
         self.graph = graph
 
+    @span("l2s.graph_replay")
     def _replay(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         if set(batch) != set(self._static):
             raise ValueError(f"graphed step: batch entries {sorted(batch)} "

@@ -54,6 +54,7 @@ from ..data.prefetch import Prefetcher
 from ..parallel import train as ptrain
 from ..parallel.mesh import make_mesh
 from ..utils.timer import Timer
+from ..utils.trace import span
 from .checkpoint import CheckpointManager, tolerant_restore
 from .optimizer import set_lr
 from .train_state import (create_train_state, make_multi_train_step,
@@ -260,6 +261,7 @@ class Trainer:
 
     # ---- main loop ----
 
+    @span("l2s.loader")
     def _next_batch(self):
         if self.mesh is None:
             batch = _strip(self.loader.get_batch("train"))
@@ -271,14 +273,16 @@ class Trainer:
     def _dispatch(self, batches) -> Dict[str, torch.Tensor]:
         """One group's steps: a single step's scalar losses, or K steps'
         (K,) losses from one multi-step call."""
+        with span("l2s.upload"):
+            batch = to_device(stack_batches(batches) if len(batches) > 1
+                              else batches[0], self.device)
         if len(batches) > 1:
-            return self.multi_step(to_device(stack_batches(batches),
-                                             self.device))
-        batch = to_device(batches[0], self.device)
+            return self.multi_step(batch)
         if self.mesh is None:
             return train_step(self.state, batch, self.generator)
         return self._sharded_step(batch)
 
+    @span("l2s.train")
     def train(self, max_iters: Optional[int] = None,
               load_pretrained: Optional[Dict[str, torch.Tensor]] = None
               ) -> Dict[str, float]:
@@ -310,47 +314,50 @@ class Trainer:
                                 depth=max(self.prefetch_depth, k_cfg + 1))
         try:
             while self.state.step < max_iters:
-                it = self.state.step
-                k = k_cfg if it + k_cfg <= next_boundary(it) else 1
-                self.timer.tic("step")
-                items = [prefetcher.get() for _ in range(k)]
-                losses = self._dispatch([b for b, _ in items])
-                self._loader_state = items[-1][1]
-                host = None
-                group_dt = None
-                for j in range(k):
-                    it += 1
-                    if it % t.display == 0 or it == max_iters or (
-                            self.writer is not None
-                            and it % t.summary_interval == 0):
-                        if host is None:
-                            # the group's one read back to the host
-                            host = {n: v.cpu().numpy().reshape(-1)
-                                    for n, v in losses.items()}
-                        vals = {n: float(v[j if k > 1 else 0])
-                                for n, v in host.items()}
-                    if it % t.display == 0 or it == max_iters:
-                        last = vals
-                        if group_dt is None:
-                            group_dt = self.timer.toc("step") / k
-                        msg = ", ".join(f"{n}={v:.4f}"
-                                        for n, v in sorted(last.items()))
-                        self._print(f"iter {it}/{max_iters}: {msg}, "
-                                    f"speed: {group_dt:.3f}s/iter")
-                    if self.writer is not None and \
-                            it % t.summary_interval == 0:
-                        self.writer.scalars(it, vals)
-                        if self.val_loader is not None:
-                            self._val_summary(it)
-                    # the LR-decay snapshot, then the cadence (groups end
-                    # at both, so they fall on a group's last step)
-                    if next_decay and it == next_decay[0]:
-                        next_decay.pop(0)
-                        if self.ckpt is not None:
+                with span("l2s.step"):
+                    it = self.state.step
+                    k = k_cfg if it + k_cfg <= next_boundary(it) else 1
+                    self.timer.tic("step")
+                    with span("l2s.wait.batch"):
+                        items = [prefetcher.get() for _ in range(k)]
+                    losses = self._dispatch([b for b, _ in items])
+                    self._loader_state = items[-1][1]
+                    host = None
+                    group_dt = None
+                    for j in range(k):
+                        it += 1
+                        if it % t.display == 0 or it == max_iters or (
+                                self.writer is not None
+                                and it % t.summary_interval == 0):
+                            if host is None:
+                                # the group's one read back to the host
+                                with span("l2s.sync.losses"):
+                                    host = {n: v.cpu().numpy().reshape(-1)
+                                            for n, v in losses.items()}
+                            vals = {n: float(v[j if k > 1 else 0])
+                                    for n, v in host.items()}
+                        if it % t.display == 0 or it == max_iters:
+                            last = vals
+                            if group_dt is None:
+                                group_dt = self.timer.toc("step") / k
+                            msg = ", ".join(f"{n}={v:.4f}"
+                                            for n, v in sorted(last.items()))
+                            self._print(f"iter {it}/{max_iters}: {msg}, "
+                                        f"speed: {group_dt:.3f}s/iter")
+                        if self.writer is not None and \
+                                it % t.summary_interval == 0:
+                            self.writer.scalars(it, vals)
+                            if self.val_loader is not None:
+                                self._val_summary(it)
+                        # the LR-decay snapshot, then the cadence (groups end
+                        # at both, so they fall on a group's last step)
+                        if next_decay and it == next_decay[0]:
+                            next_decay.pop(0)
+                            if self.ckpt is not None:
+                                self.snapshot(it)
+                        elif self.ckpt is not None and \
+                                it % t.snapshot_iters == 0:
                             self.snapshot(it)
-                    elif self.ckpt is not None and \
-                            it % t.snapshot_iters == 0:
-                        self.snapshot(it)
         finally:
             prefetcher.close()
             self.loader.load_state_dict(self._loader_state)

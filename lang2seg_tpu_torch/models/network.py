@@ -46,6 +46,7 @@ from ..ops.proposals import proposal_layer, proposal_top_layer
 from ..ops.roi_align import roi_crop_pool, roi_max_pool
 from ..ops.targets import (anchor_targets, example_uniforms,
                            proposal_targets, step_key)
+from ..utils.trace import span
 from .caption_zoo import setup_captioner
 from .dynamic_filter import DynamicFilterGen
 from .heads import BoxHead, MaskHead, RPNHead
@@ -188,6 +189,7 @@ class Lang2Seg(nn.Module):
 
     # ---------- building blocks ----------
 
+    @span("l2s.condition")
     def _condition(self, net_conv: torch.Tensor, labels: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    exprs_per_map: int = 1):
@@ -198,6 +200,7 @@ class Lang2Seg(nn.Module):
         _, hidden, _ = self.rnn_encoder(labels, generator)
         return self.filter_gen(net_conv, hidden, exprs_per_map)
 
+    @span("l2s.roi_tail")
     def _roi_features(self, gated: torch.Tensor, rois: torch.Tensor,
                       generator: Optional[torch.Generator] = None
                       ) -> torch.Tensor:
@@ -311,82 +314,91 @@ class Lang2Seg(nn.Module):
             gt_valid = torch.ones(gt_boxes.shape[:2], dtype=torch.bool,
                                   device=gt_boxes.device)
 
-        net_conv_img = self.backbone.head(images)             # (I, h, w, C)
+        with span("l2s.backbone"):
+            net_conv_img = self.backbone.head(images)         # (I, h, w, C)
         net_conv = net_conv_img.index_select(0, img_idx).contiguous()
         if m.use_language:
             gated, response = self._condition(net_conv, batch["labels"],
                                               generator)
         else:
             gated, response = net_conv, None
-        rpn_cls, rpn_box = self.rpn_head(gated)               # (E,h,w,A,2|4)
-        _, h, w, a, _ = rpn_cls.shape
-        anchors = shifted_anchors(h, w, m.feat_stride, m.anchor_scales,
-                                  m.anchor_ratios, device=gated.device)
-        n = anchors.shape[0]
+        at, pt = targets if targets is not None else (None, None)
+        with span("l2s.rpn"):
+            rpn_cls, rpn_box = self.rpn_head(gated)           # (E,h,w,A,2|4)
+            _, h, w, a, _ = rpn_cls.shape
+            anchors = shifted_anchors(h, w, m.feat_stride, m.anchor_scales,
+                                      m.anchor_ratios, device=gated.device)
+            n = anchors.shape[0]
+            if pt is None:
+                with torch.no_grad():
+                    score_pos = torch.softmax(rpn_cls.reshape(e, n, 2),
+                                              dim=-1)[..., 1]
         im_hw = batch["im_hw"].float().index_select(0, img_idx)   # (E, 2)
 
-        at, pt = targets if targets is not None else (None, None)
         key = uid = None
         if "expr_uid" in batch and (at is None or pt is None):
             key = step_key(sampling_generator if sampling_generator
                            is not None else generator)
             uid = batch["expr_uid"]
-        if at is None:
-            at = anchor_targets(
-                anchors, gt_boxes, gt_valid, im_hw[:, 0], im_hw[:, 1],
-                draws=None if key is None else [
-                    example_uniforms(key, uid, s, n) for s in (0, 1)],
-                generator=generator, rpn_batchsize=t.rpn_batchsize,
-                fg_fraction=t.rpn_fg_fraction,
-                pos_overlap=t.rpn_positive_overlap,
-                neg_overlap=t.rpn_negative_overlap,
-                clobber_positives=t.rpn_clobber_positives)
-        if pt is None:
-            with torch.no_grad():
-                score_pos = torch.softmax(rpn_cls.reshape(e, n, 2),
-                                          dim=-1)[..., 1]
-                props = proposal_layer(
-                    score_pos, rpn_box.reshape(e, n, 4), anchors,
-                    im_hw[:, 0], im_hw[:, 1], t.rpn_pre_nms_top_n,
-                    t.rpn_post_nms_top_n, t.rpn_nms_thresh)
-            cand = props.rois.shape[1] + gt_boxes.shape[1]
-            pt = proposal_targets(
-                props.rois, props.valid, gt_boxes, gt_valid,
-                gt_masks.to(torch.uint8), draws=None if key is None else [
-                    example_uniforms(key, uid, 2, cand),
-                    example_uniforms(key, uid, 3, cand),
-                    example_uniforms(key, uid, 4, t.roi_batch_size)],
-                generator=generator,
-                num_rois=t.roi_batch_size, fg_fraction=t.fg_fraction,
-                fg_thresh=t.fg_thresh, bg_thresh_hi=t.bg_thresh_hi,
-                bg_thresh_lo=t.bg_thresh_lo, mask_size=m.mask_size,
-                normalize_means=t.bbox_normalize_means,
-                normalize_stds=t.bbox_normalize_stds, use_gt=t.use_gt)
+        with span("l2s.targets"):
+            if at is None:
+                at = anchor_targets(
+                    anchors, gt_boxes, gt_valid, im_hw[:, 0], im_hw[:, 1],
+                    draws=None if key is None else [
+                        example_uniforms(key, uid, s, n) for s in (0, 1)],
+                    generator=generator, rpn_batchsize=t.rpn_batchsize,
+                    fg_fraction=t.rpn_fg_fraction,
+                    pos_overlap=t.rpn_positive_overlap,
+                    neg_overlap=t.rpn_negative_overlap,
+                    clobber_positives=t.rpn_clobber_positives)
+            if pt is None:
+                with span("l2s.proposals"), torch.no_grad():
+                    props = proposal_layer(
+                        score_pos, rpn_box.reshape(e, n, 4), anchors,
+                        im_hw[:, 0], im_hw[:, 1], t.rpn_pre_nms_top_n,
+                        t.rpn_post_nms_top_n, t.rpn_nms_thresh)
+                cand = props.rois.shape[1] + gt_boxes.shape[1]
+                pt = proposal_targets(
+                    props.rois, props.valid, gt_boxes, gt_valid,
+                    gt_masks.to(torch.uint8), draws=None if key is None else [
+                        example_uniforms(key, uid, 2, cand),
+                        example_uniforms(key, uid, 3, cand),
+                        example_uniforms(key, uid, 4, t.roi_batch_size)],
+                    generator=generator,
+                    num_rois=t.roi_batch_size, fg_fraction=t.fg_fraction,
+                    fg_thresh=t.fg_thresh, bg_thresh_hi=t.bg_thresh_hi,
+                    bg_thresh_lo=t.bg_thresh_lo, mask_size=m.mask_size,
+                    normalize_means=t.bbox_normalize_means,
+                    normalize_stds=t.bbox_normalize_stds, use_gt=t.use_gt)
 
         # ---- RPN losses (network.py:372-387) ----
-        rpn_ce = weighted_softmax_ce(
-            rpn_cls.reshape(e, n, 2), torch.clamp(at.labels, min=0),
-            (at.labels >= 0).float())
-        rpn_l1 = smooth_l1(rpn_box.reshape(e, n, 4), at.bbox_targets,
-                           at.bbox_inside_w[..., None],
-                           at.bbox_outside_w[..., None], sigma=3.0)
-        rpn_loss_box = torch.sum(rpn_l1) / e
+        with span("l2s.losses"):
+            rpn_ce = weighted_softmax_ce(
+                rpn_cls.reshape(e, n, 2), torch.clamp(at.labels, min=0),
+                (at.labels >= 0).float())
+            rpn_l1 = smooth_l1(rpn_box.reshape(e, n, 4), at.bbox_targets,
+                               at.bbox_inside_w[..., None],
+                               at.bbox_outside_w[..., None], sigma=3.0)
+            rpn_loss_box = torch.sum(rpn_l1) / e
 
         # ---- ROI heads ----
         spatial_fc7 = self._roi_features(gated, pt.rois, generator)
         r = spatial_fc7.shape[1]
-        cls_score, bbox_pred = self.box_head(
-            spatial_fc7.reshape(e * r, *spatial_fc7.shape[2:]))
-        cls_score = cls_score.reshape(e, r, -1)
-        bbox_pred = bbox_pred.reshape(e, r, m.num_classes, 4)
-        ce = weighted_softmax_ce(cls_score, pt.labels, pt.roi_valid.float())
-        # compact per-class bbox loss: the labelled class's deltas only
-        lab = pt.labels.long()
-        sel_pred = torch.gather(
-            bbox_pred, 2, lab[..., None, None].expand(e, r, 1, 4))[:, :, 0]
-        bw = pt.bbox_weight[..., None]
-        loss_box = torch.sum(smooth_l1(sel_pred, pt.bbox_targets, bw, bw,
-                                       sigma=1.0)) / (e * r)
+        with span("l2s.heads"):
+            cls_score, bbox_pred = self.box_head(
+                spatial_fc7.reshape(e * r, *spatial_fc7.shape[2:]))
+            cls_score = cls_score.reshape(e, r, -1)
+            bbox_pred = bbox_pred.reshape(e, r, m.num_classes, 4)
+        with span("l2s.losses"):
+            ce = weighted_softmax_ce(cls_score, pt.labels,
+                                     pt.roi_valid.float())
+            # compact per-class bbox loss: the labelled class's deltas only
+            lab = pt.labels.long()
+            sel_pred = torch.gather(
+                bbox_pred, 2, lab[..., None, None].expand(e, r, 1, 4))[:, :, 0]
+            bw = pt.bbox_weight[..., None]
+            loss_box = torch.sum(smooth_l1(sel_pred, pt.bbox_targets, bw, bw,
+                                           sigma=1.0)) / (e * r)
         losses = {"rpn_cross_entropy": rpn_ce, "rpn_loss_box": rpn_loss_box,
                   "cross_entropy": ce, "loss_box": loss_box}
 
@@ -396,26 +408,33 @@ class Lang2Seg(nn.Module):
             s = m.mask_size
             fg_fc7 = spatial_fc7[:, :f]
             fg_lab = torch.clamp(lab[:, :f], 0, m.num_classes - 1)
-            sel = self.mask_head(fg_fc7.reshape(e * f, *fg_fc7.shape[2:]),
-                                 labels=fg_lab.reshape(e * f))
-            bce = bce_with_logits(sel.reshape(e, f, s, s), pt.mask_targets)
-            mw = pt.mask_weight[:, :, None, None]
-            bce = torch.where(mw > 0, bce, 0.0)
-            denom = torch.clamp(torch.sum(pt.mask_weight), min=1.0) * s * s
-            losses["loss_mask"] = torch.sum(bce * mw) / denom
+            with span("l2s.mask"):
+                sel = self.mask_head(fg_fc7.reshape(e * f, *fg_fc7.shape[2:]),
+                                     labels=fg_lab.reshape(e * f))
+            with span("l2s.losses"):
+                bce = bce_with_logits(sel.reshape(e, f, s, s),
+                                      pt.mask_targets)
+                mw = pt.mask_weight[:, :, None, None]
+                bce = torch.where(mw > 0, bce, 0.0)
+                denom = torch.clamp(torch.sum(pt.mask_weight),
+                                    min=1.0) * s * s
+                losses["loss_mask"] = torch.sum(bce * mw) / denom
 
         # ---- response loss (network_7f_response.py:411-428) ----
         if m.use_response_loss and m.use_language:
             stride = m.feat_stride
-            tgt = response_target(gt_masks[:, 0], stride, h, w)
-            ys = torch.arange(h, device=gated.device)[None, :, None] * stride
-            xs = torch.arange(w, device=gated.device)[None, None, :] * stride
-            vmask = ((ys < im_hw[:, 0, None, None])
-                     & (xs < im_hw[:, 1, None, None])).float()
-            bce = bce_with_logits(response[..., 0], tgt)
-            losses["loss_response"] = (torch.sum(bce * vmask)
-                                       / torch.clamp(torch.sum(vmask),
-                                                     min=1.0))
+            with span("l2s.losses"):
+                tgt = response_target(gt_masks[:, 0], stride, h, w)
+                ys = torch.arange(h, device=gated.device)[None, :, None] \
+                    * stride
+                xs = torch.arange(w, device=gated.device)[None, None, :] \
+                    * stride
+                vmask = ((ys < im_hw[:, 0, None, None])
+                         & (xs < im_hw[:, 1, None, None])).float()
+                bce = bce_with_logits(response[..., 0], tgt)
+                losses["loss_response"] = (torch.sum(bce * vmask)
+                                           / torch.clamp(torch.sum(vmask),
+                                                         min=1.0))
 
         # ---- attribute loss (multi-label BCE on GT-box features) ----
         if m.use_attribute_head and "att_labels" in batch:
@@ -465,6 +484,7 @@ class Lang2Seg(nn.Module):
                          _adaptive_pool(fc5b, 14)], -1)
         return fc.float(), att.reshape(att.shape[0], 196, -1).float()
 
+    @span("l2s.caption")
     def _caption_loss(self, net_conv, gated, batch, gt_masks, generator):
         """Cycle consistency: the att2in2 captioner must reconstruct the
         expression from region features. `response_gate == 'sigmoid'`
@@ -520,7 +540,8 @@ class Lang2Seg(nn.Module):
             raise ValueError(f"unknown test mode {ts.mode!r}")
         labels = batch["labels"]
         e = labels.shape[0]
-        net_conv_img = self.backbone.head(self._images(batch["images"]))
+        with span("l2s.backbone"):
+            net_conv_img = self.backbone.head(self._images(batch["images"]))
         num_images = net_conv_img.shape[0]
         if e % num_images:
             raise ValueError(f"test_forward: {e} expressions for "
@@ -528,14 +549,45 @@ class Lang2Seg(nn.Module):
         per_image = e // num_images
         gated, response = self._condition(net_conv_img.contiguous(), labels,
                                           exprs_per_map=per_image)
-        rpn_cls, rpn_box = self.rpn_head(gated)
-        _, h, w, a, _ = rpn_cls.shape
-        anchors = shifted_anchors(h, w, m.feat_stride, m.anchor_scales,
-                                  m.anchor_ratios, device=gated.device)
-        n = anchors.shape[0]
+        with span("l2s.rpn"):
+            rpn_cls, rpn_box = self.rpn_head(gated)
+            _, h, w, a, _ = rpn_cls.shape
+            anchors = shifted_anchors(h, w, m.feat_stride, m.anchor_scales,
+                                      m.anchor_ratios, device=gated.device)
+            n = anchors.shape[0]
+            score_pos = torch.softmax(rpn_cls.reshape(e, n, 2),
+                                      dim=-1)[..., 1]
         hw = batch["im_hw"].float()[:, None, :].expand(
             num_images, per_image, 2).reshape(e, 2)         # per expression
-        score_pos = torch.softmax(rpn_cls.reshape(e, n, 2), dim=-1)[..., 1]
+        with span("l2s.proposals"):
+            props = self._proposals(score_pos, rpn_box.reshape(e, n, 4),
+                                    anchors, hw, per_image, generator)
+        spatial_fc7 = self._roi_features(gated, props.rois)
+        r = spatial_fc7.shape[1]
+        with span("l2s.heads"):
+            cls_score, bbox_pred = self.box_head(
+                spatial_fc7.reshape(e * r, *spatial_fc7.shape[2:]))
+            cls_score = cls_score.reshape(e, r, -1)
+            cls_prob = torch.softmax(cls_score, dim=-1)
+            bbox_pred = bbox_pred.reshape(e, r, m.num_classes, 4)
+            # de-normalize deltas (network.py:607-613)
+            stds = device_constant(cfg.train.bbox_normalize_stds,
+                                   gated.device)
+            means = device_constant(cfg.train.bbox_normalize_means,
+                                    gated.device)
+            bbox_pred = bbox_pred * stds + means
+        return {"rois": props.rois, "roi_valid": props.valid,
+                "cls_score": cls_score, "cls_prob": cls_prob,
+                "bbox_pred": bbox_pred.reshape(e, r, -1),
+                "gated_conv": gated, "response": response}
+
+    def _proposals(self, score_pos, deltas, anchors, hw, per_image,
+                   generator):
+        """`test_forward`'s proposals for (E, N) scores and (E, N, 4)
+        deltas: NMS (test mode 'nms') or the top anchors ('top')."""
+        cfg, ts = self.cfg, self.cfg.test
+        e, n = score_pos.shape
+        num_images = e // per_image
         if ts.mode == "top":
             order = None
             if n < ts.rpn_top_n:
@@ -551,29 +603,11 @@ class Lang2Seg(nn.Module):
                     torch.randint(0, n, (per_image, ts.rpn_top_n),
                                   generator=g, device=g.device)
                     for g in gens])
-            props = proposal_top_layer(score_pos, rpn_box.reshape(e, n, 4),
-                                       anchors, hw[:, 0], hw[:, 1],
-                                       ts.rpn_top_n, order=order)
-        else:
-            props = proposal_layer(score_pos, rpn_box.reshape(e, n, 4),
-                                   anchors, hw[:, 0], hw[:, 1],
-                                   ts.rpn_pre_nms_top_n,
-                                   ts.rpn_post_nms_top_n, ts.rpn_nms_thresh)
-        spatial_fc7 = self._roi_features(gated, props.rois)
-        r = spatial_fc7.shape[1]
-        cls_score, bbox_pred = self.box_head(
-            spatial_fc7.reshape(e * r, *spatial_fc7.shape[2:]))
-        cls_score = cls_score.reshape(e, r, -1)
-        cls_prob = torch.softmax(cls_score, dim=-1)
-        bbox_pred = bbox_pred.reshape(e, r, m.num_classes, 4)
-        # de-normalize deltas (network.py:607-613)
-        stds = device_constant(cfg.train.bbox_normalize_stds, gated.device)
-        means = device_constant(cfg.train.bbox_normalize_means, gated.device)
-        bbox_pred = bbox_pred * stds + means
-        return {"rois": props.rois, "roi_valid": props.valid,
-                "cls_score": cls_score, "cls_prob": cls_prob,
-                "bbox_pred": bbox_pred.reshape(e, r, -1),
-                "gated_conv": gated, "response": response}
+            return proposal_top_layer(score_pos, deltas, anchors, hw[:, 0],
+                                      hw[:, 1], ts.rpn_top_n, order=order)
+        return proposal_layer(score_pos, deltas, anchors, hw[:, 0], hw[:, 1],
+                              ts.rpn_pre_nms_top_n, ts.rpn_post_nms_top_n,
+                              ts.rpn_nms_thresh)
 
     @torch.no_grad()
     def predict_attribute_scores(self, images: torch.Tensor,
@@ -592,6 +626,7 @@ class Lang2Seg(nn.Module):
         return torch.sigmoid(self.att_head(fc7.mean(dim=(2, 3)).float()))
 
     @torch.no_grad()
+    @span("l2s.mask")
     def predict_masks(self, gated_conv: torch.Tensor, boxes: torch.Tensor,
                       labels: torch.Tensor) -> torch.Tensor:
         """Mask probs for given boxes and classes (reference

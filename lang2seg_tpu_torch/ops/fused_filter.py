@@ -31,6 +31,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..utils.trace import span
 from . import _build
 
 launches = 0
@@ -240,6 +241,7 @@ def _check_inputs(net_conv, filt, rfilt, num_filters, gate, what,
     return s0
 
 
+@span("l2s.gate")
 def _forward(net_conv, filt, rfilt, num_filters, gate, normalize,
              exprs_per_map=1):
     """The forward on the map's device: the plain version for a CPU
@@ -294,6 +296,7 @@ def _launch_forward(lib, blocks, net_conv, filt, rfilt, num_filters, gate,
     return gated, resp
 
 
+@span("l2s.gate")
 def fused_dynamic_filter_bwd(net_conv: torch.Tensor, filt: torch.Tensor,
                              rfilt: torch.Tensor, fused: torch.Tensor,
                              d_gated: torch.Tensor, d_resp: torch.Tensor,

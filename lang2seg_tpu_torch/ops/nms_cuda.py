@@ -16,6 +16,7 @@ import functools
 
 import torch
 
+from ..utils.trace import span
 from . import _build
 from .nms import nms_padded
 
@@ -77,6 +78,7 @@ def _launch(boxes, valid, iou_thresh, max_out, cluster):
     return keep_idx, keep_mask
 
 
+@span("l2s.nms")
 def nms_batched(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
                 max_out: int):
     """boxes (E, N, 4) f32 score-sorted, valid (E, N) bool ->

@@ -40,6 +40,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..utils.trace import span
 from . import _build
 
 launches = 0
@@ -151,6 +152,7 @@ def launch_forward(feat: torch.Tensor, ys: torch.Tensor,
     return out
 
 
+@span("l2s.roi_crop_fwd")
 def roi_crop_forward(feat: torch.Tensor, ys: torch.Tensor,
                      xs: torch.Tensor) -> torch.Tensor:
     """`launch_forward`, counted in `launches` and `shapes`."""
@@ -192,6 +194,7 @@ def launch_backward(grad: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     return dfeat
 
 
+@span("l2s.roi_crop_bwd")
 def roi_crop_backward(grad: torch.Tensor, ys: torch.Tensor,
                       xs: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """`launch_backward`, counted in `bwd_launches` and `bwd_shapes`."""

@@ -49,6 +49,7 @@ from ..engine.evaluator import Evaluator
 from ..models.network import build_model
 from ..ops import fused_filter, nms_cuda
 from ..utils.metrics import SegEvalAccumulator
+from ..utils.trace import counters
 
 BUCKETS = (4, 8, 16)
 REAL_COUNTS = (3, 6, 9, 13, 8, 5, 11, 4)
@@ -164,7 +165,7 @@ def checked_pass(ev: Evaluator, batches, k: int, staged: bool) -> Dict:
     acc = SegEvalAccumulator()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bytes0 = ev.h2d_bytes
+    bytes0 = counters().get("eval.h2d_bytes", 0)
     ev._dispatch_staged, ev._drain_chunk = recorded, drained
     nms_cuda.launches = fused_filter.launches = 0
     t0 = time.perf_counter()
@@ -180,7 +181,8 @@ def checked_pass(ev: Evaluator, batches, k: int, staged: bool) -> Dict:
             "launches": (nms_cuda.launches, fused_filter.launches),
             "dispatches": [(n, s, nms, gate, a.elapsed_time(b))
                            for n, s, nms, gate, a, b in spans],
-            "host_syncs": syncs, "h2d_bytes": ev.h2d_bytes - bytes0,
+            "host_syncs": syncs,
+            "h2d_bytes": counters().get("eval.h2d_bytes", 0) - bytes0,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
