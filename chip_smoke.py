@@ -289,7 +289,22 @@ Phases, each fatal on failure (nothing is caught):
      `F.grid_sample` call (library_ms); then one full-width test-mode
      'top' request of 16 expressions (R = 5000) through Inference.predict,
      its ms and peak memory; last, every other shape at which phases 5-31
-     launched the crop kernels is checked and timed the same way.
+     launched the crop kernels is checked and timed the same way;
+  32. the frozen-BatchNorm kernels (`csrc/bn_act.cu`: BatchNorm, residual
+     or the downsample branch's BatchNorm, and ReLU in one pass, a thread
+     a 16-byte channel vector with its (inv, offset) in registers walking
+     pixels, streaming loads and stores; the backward from the saved
+     output) against the plain composition at `profile_bn_act.SHAPES`
+     (layer4 at the serving 4,800 and training 4,096 crops, the
+     backbone's maps), forward and backward, bit for bit, each timed
+     beside its bound and the plain version; the host's cost of a call
+     beside the composition's (`profile_bn_act.host_us`); then one
+     full-width serving request (16 expressions) through
+     Inference.predict and one full-width `response` forward and
+     backward (2 images x 16 expressions) with the kernels and again with
+     the ResNet's BatchNorms as the plain composition
+     (`profile_bn_act.unfused`): the outputs, the losses and every
+     gradient bit for bit.
 Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
 shape, its launches from the runs of that shape's path: serving in phases
 5, 14 and 24 and the bucket-16 images of phases 12, 16 and 20, training in
@@ -304,7 +319,10 @@ phases 24-26 launched the forward or the backward, with the launches at
 exactly that shape; the ROI crop entries, one for each shape at which
 phases 5-31 launched its forward or backward: the wrappers' counts, set
 to 0 before phase 5 and read after phase 31, the replays' kernel runs
-traced by name in phases 28-29 and phase 30's ranks' counts)
+traced by name in phases 28-29 and phase 30's ranks' counts; the
+frozen-BatchNorm entries of phase 32, one a shape and pass, with the
+launches phases 5-31 made at exactly that shape, counted as the crop's
+are; phase 32's own launches are not among them)
 and, last, the `{"ok": true, ...}` line. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device or
 outside a checkout of the repository.
@@ -356,12 +374,13 @@ from lang2seg_tpu_torch.engine.train_captioner import (  # noqa: E402
     captioner_train_step, extract_caption_features, init_captioner_state)
 from lang2seg_tpu_torch.engine.optimizer import SGD, set_lr  # noqa: E402
 from lang2seg_tpu_torch.engine.train_state import (  # noqa: E402
-    create_train_state, make_multi_train_step, stack_batches, to_device,
-    train_step)
+    _forward_backward, create_train_state, make_multi_train_step,
+    stack_batches, to_device, train_step)
 from lang2seg_tpu_torch.engine.trainer import Trainer  # noqa: E402
 from lang2seg_tpu_torch.models.network import build_model  # noqa: E402
 from lang2seg_tpu_torch.ops import (  # noqa: E402
-    _build, fused_filter, nms_cuda, proposals, roi_crop_cuda, roi_pool_cuda)
+    _build, bn_act_cuda, fused_filter, nms_cuda, proposals, roi_crop_cuda,
+    roi_pool_cuda)
 from lang2seg_tpu_torch.ops.fused_filter import (  # noqa: E402
     fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain,
     per_expression)
@@ -382,6 +401,7 @@ from lang2seg_tpu_torch.tools.profile_roi_pool import (  # noqa: E402
     check_shape as check_pool_shape, checks_pass as pool_checks_pass,
     compare_shape as compare_pool_shape, phase_clocks as pool_phase_clocks)
 from lang2seg_tpu_torch.tools import learn_synthetic  # noqa: E402
+from lang2seg_tpu_torch.tools import profile_bn_act  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_crop  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_eval  # noqa: E402
 from lang2seg_tpu_torch.tools.tiny_step import (  # noqa: E402
@@ -802,6 +822,53 @@ def add_traced_crops(before, traced, path):
         check(len(seen) == 1, f"[{path}] crop {side} launches at "
               f"{dict(seen)}")
         CROP_EXTRA[side][next(iter(seen))] += traced[key]
+
+
+# -------------------------------------- frozen-BatchNorm launch counts
+
+# the main path's frozen-BatchNorm launches by shape (`bn_act_cuda.
+# shape_key`) that no wrapper counted: the kernels' runs in graph replays,
+# traced by name (phases 28-29), and the gloo ranks' launches (phase 30).
+# The wrappers' own counts are set to 0 with the crop's, before phase 5,
+# and read after phase 31 (`bn_act_launches`), before phase 32's own
+# checks and timings launch the kernels
+BN_ACT_EXTRA = {"fwd": collections.Counter(), "bwd": collections.Counter()}
+
+
+def reset_bn_act_counts():
+    """Sets the frozen-BatchNorm kernels' counts, in total and by shape,
+    to 0."""
+    bn_act_cuda.launches = bn_act_cuda.bwd_launches = 0
+    bn_act_cuda.shapes.clear()
+    bn_act_cuda.bwd_shapes.clear()
+    for c in BN_ACT_EXTRA.values():
+        c.clear()
+
+
+def bn_act_shape_snapshot():
+    """The wrappers' frozen-BatchNorm launches by shape so far, (forward,
+    backward)."""
+    return (collections.Counter(bn_act_cuda.shapes),
+            collections.Counter(bn_act_cuda.bwd_shapes))
+
+
+def add_traced_bn_act(before, traced, path):
+    """Attributes the frozen-BatchNorm kernels' runs traced in a run's
+    replays to the shapes at which its wrappers launched them since
+    `before` (a `bn_act_shape_snapshot`), in the wrappers' proportions:
+    the run's eager steps, captures and replays each run one step's
+    kernels, so each shape's share must come out whole."""
+    for side, key, now, was in zip(("fwd", "bwd"), ("bn_act", "bn_act_bwd"),
+                                   bn_act_shape_snapshot(), before):
+        seen, runs = now - was, traced.get(key, 0)
+        total = sum(seen.values())
+        check(bool(runs) == bool(total), f"[{path}] {runs} traced bn_act "
+              f"{side} runs for {total} wrapper launches")
+        for shape, n in seen.items():
+            check(n * runs % total == 0, f"[{path}] {runs} traced bn_act "
+                  f"{side} runs do not split over the wrappers' launches "
+                  f"{dict(seen)}")
+            BN_ACT_EXTRA[side][shape] += n * runs // total
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2972,12 +3039,15 @@ def graph_vs_eager(path, cfg, k=4, dispatches=3, decay_at=6, num_expr=16,
     nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
     reset_pool_counts()
     crops0, crop_shapes0 = crop_counts(), crop_shape_snapshot()
+    bn_act0 = bn_act_shape_snapshot()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     first_ms = timed_window(lambda: got.append(multi(stacked[0])))
     graph_ms = timed_window(lambda: got.append(multi(stacked[1]))) / k
     _, graph_busy, graph_idle, traced = profiled_window(
         lambda: [got.append(multi(x)) for x in stacked[2:]])
+    bn_act_traced = {key: traced.pop(key) for key in ("bn_act",
+                                                      "bn_act_bwd")}
     graph_busy /= k * (dispatches - 2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     keys = ("nms", "fused_filter", "fused_filter_bwd", "roi_pool",
@@ -2996,6 +3066,7 @@ def graph_vs_eager(path, cfg, k=4, dispatches=3, decay_at=6, num_expr=16,
           f"{traced} times")
     runs = dict(traced)
     add_traced_crops(crop_shapes0, traced, path)
+    add_traced_bn_act(bn_act0, bn_act_traced, path)
     if pool:
         for key, counter in (("roi_pool", "roi_pool_shapes"),
                              ("roi_pool_bwd", "roi_pool_bwd_shapes")):
@@ -3026,6 +3097,7 @@ def graph_vs_eager(path, cfg, k=4, dispatches=3, decay_at=6, num_expr=16,
              "eager_idle": eager_idle, "graphed_idle": graph_idle,
              "peak_gib": peak, "wrapper_calls": calls,
              "traced_launches": traced, "traced_replays": replays,
+             "bn_act_traced": bn_act_traced,
              "losses": [{key: float(v) for key, v in w.items()}
                         for w in want]}
     log(f"[{path}] eager {eager_ms:.2f} ms a step (device busy "
@@ -3115,6 +3187,7 @@ def data_parallel_world1():
             nms_cuda.launches = fused_filter.launches = 0
             fused_filter.bwd_launches = 0
             crops0, crop_shapes0 = crop_counts(), crop_shape_snapshot()
+            bn_act0 = bn_act_shape_snapshot()
             step_g = make_sharded_train_step(graphed, mesh, *gens["graphed"])
             multi = make_sharded_multi_step(graphed, mesh, *gens["graphed"])
             check(multi.graphed, "the NCCL multi-step is not graphed")
@@ -3135,6 +3208,7 @@ def data_parallel_world1():
                                  b - a for a, b in zip(crops0,
                                                        crop_counts()))))
             add_traced_crops(crop_shapes0, traced, "dp_world1")
+            add_traced_bn_act(bn_act0, traced, "dp_world1")
             params, momentum = same_train_states(eager, graphed)
             losses = all(torch.equal(a[key], b[key])
                          for a, b in zip(le, lg) for key in a)
@@ -3203,6 +3277,7 @@ def dp_rank_worker(rank, root):
         nms_cuda.launches = fused_filter.launches = 0
         fused_filter.bwd_launches = 0
         reset_crop_counts()
+        reset_bn_act_counts()
         losses = step(block)
         torch.cuda.synchronize()
         launches = launch_counts() + crop_counts()
@@ -3212,6 +3287,7 @@ def dp_rank_worker(rank, root):
         out = {"losses": {k: v.cpu() for k, v in losses.items()},
                "launches": launches, "summary": summary,
                "crop_shapes": crop_shape_snapshot(),
+               "bn_act_shapes": bn_act_shape_snapshot(),
                "gen": gen.get_state(), "sampling": sgen.get_state()}
         if rank == 0:
             opt = state.optimizer
@@ -3284,6 +3360,8 @@ def data_parallel_two_ranks():
     for o in outs:
         for side, shapes in zip(("fwd", "bwd"), o["crop_shapes"]):
             CROP_EXTRA[side].update(shapes)
+        for side, shapes in zip(("fwd", "bwd"), o["bn_act_shapes"]):
+            BN_ACT_EXTRA[side].update(shapes)
     del oracle
     model = build_model(cfg, device="cuda", state_dict=outs[0]["params"])
     acc = SegEvalAccumulator()
@@ -3485,6 +3563,149 @@ def crop_launches(checked, regs, dev):
     return entries
 
 
+# --------------------------------------------------------------- phase 32
+
+BN_ACT_REPLACES = ("none: the JAX package leaves BatchNorm, residual and "
+                   "ReLU to XLA's fusion")
+
+
+def same_outputs(a, b) -> bool:
+    """Two results (tensors, or dicts / lists of them) with the same
+    bits."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_outputs(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(same_outputs, a, b))
+    if not torch.is_tensor(a):
+        return a == b
+    if a.is_floating_point():
+        return profile_bn_act.same_bits(a, b)
+    return torch.equal(a, b)
+
+
+def bn_act_request_and_step():
+    """Phase 32's end to end checks: one full-width serving request of 16
+    expressions through Inference.predict, and one full-width `response`
+    forward and backward (2 images x 16 expressions, the generators from
+    one seed), each with the kernels and with the ResNet's BatchNorms as
+    the plain composition: outputs, losses and every parameter's gradient
+    bit for bit. Returns the kernels' launches in each."""
+    cfg = flagship_config()
+    model = build_model(cfg, device="cuda", seed=0)
+    inf = Inference(model, cfg)
+    b = synthetic_eval_request(cfg, 16, 7, 1.6)
+
+    def predict():
+        return inf.predict(b["images"], b["im_hw"], b["labels"])
+
+    def counts():
+        return bn_act_cuda.launches, bn_act_cuda.bwd_launches
+
+    def launched(fn):
+        c0 = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(b - a for a, b in zip(c0, counts()))
+    fused, (served, _) = launched(predict)
+    with profile_bn_act.unfused():
+        plain, unfused_launched = launched(predict)
+    check(served > 0 and unfused_launched == (0, 0),
+          "the fused request launched no kernel, or the unfused one did")
+    check(same_outputs(fused, plain),
+          "a serving request's outputs differ from the composition's")
+    del model, inf, fused, plain
+    batch = to_device(to_wire(cfg, synthetic_batch(cfg, 2, 16, seed=0)),
+                      "cuda")
+    states = [create_train_state(cfg, "cuda", seed=0)]
+    states.append(create_train_state(
+        cfg, "cuda", state_dict=states[0].model.state_dict()))
+
+    def forward_backward(state):
+        gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+        losses = _forward_backward(state, batch, gen)
+        return losses, [p.grad for p in state.model.parameters()]
+    fused, step = launched(lambda: forward_backward(states[0]))
+    with profile_bn_act.unfused():
+        plain, unfused_launched = launched(
+            lambda: forward_backward(states[1]))
+    check(min(step) > 0 and unfused_launched == (0, 0),
+          "the fused step launched no kernel, or the unfused one did")
+    check(same_outputs(fused[0], plain[0]),
+          "a train step's losses differ from the composition's")
+    check(same_outputs(fused[1], plain[1]),
+          "a train step's gradients differ from the composition's")
+    log(f"[bn-act] a serving request (16 expressions) and a `response` "
+        f"forward and backward equal the composition bit for bit; "
+        f"launches: request {served}, step {step[0]} forward, {step[1]} "
+        f"backward")
+    return {"request_launches": served, "step_launches": list(step)}
+
+
+def bn_act_launches():
+    """After phase 31, before phase 32: the main path's frozen-BatchNorm
+    launches by `bn_act_cuda.shape_key` from phase 5 on (the wrappers'
+    counts, the traced replays and the gloo ranks'), forward and
+    backward."""
+    launched = {"fwd": collections.Counter(bn_act_cuda.shapes),
+                "bwd": collections.Counter(bn_act_cuda.bwd_shapes)}
+    for side in launched:
+        launched[side].update(BN_ACT_EXTRA[side])
+        log(f"[bn-act] main-path {side} launches by (N, C, H, W, mode, "
+            f"dtype): {dict(launched[side])}")
+    check(set(launched["bwd"]) <= set(launched["fwd"]),
+          "a bn_act backward launch with no forward at its shape")
+    record["bn_act_launched"] = {side: {"x".join(map(str, k)): n
+                                        for k, n in c.items()}
+                                 for side, c in launched.items()}
+    return launched
+
+
+def check_bn_act(dev, launched):
+    """Phase 32: the frozen-BatchNorm kernels against the plain
+    composition at `profile_bn_act.SHAPES`, timed; then
+    `bn_act_request_and_step`. Returns the `kernels` entries, with the
+    launches at each shape in `launched` (`bn_act_launches`): every shape
+    checked here must have been launched there, the training shapes'
+    backward too."""
+    regs = kernel_registers(_build.library_path("bn_act").with_name(
+        "build.log"))
+    log(f"[bn-act] registers, stack, spill stores, spill loads: {regs}")
+    entries, shapes = [], []
+    for shape in profile_bn_act.SHAPES:
+        res = profile_bn_act.check_shape(*shape, dev)
+        check(res["forward_equal"] and res["backward_equal"],
+              f"bn_act at {res['name']} differs from the composition")
+        key = (*res["shape"], profile_bn_act.MODES[res["variant"]],
+               res["dtype"])
+        passes = [("", "ms", "plain_ms", "bound_ms", "share", "fwd")]
+        if "bwd_ms" in res:
+            passes.append(("bwd_", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
+                           "bwd_share", "bwd"))
+        for tag, ms, plain, bound, share, side in passes:
+            check(launched[side][key] > 0, f"the main path launched no "
+                  f"bn_act {side} at {res['name']} {key}")
+            log(f"[bn-act] {res['name']} {res['variant']} {tag or 'fwd_'}"
+                f"{res['shape']}: {res[ms]:.4f} ms, bound {res[bound]:.4f} "
+                f"ms ({100 * res[share]:.1f}%), plain {res[plain]:.4f} ms")
+            entries.append({
+                "name": f"bn_act_{tag}{res['name']}", "route": "cuda",
+                "source": "lang2seg_tpu_torch/csrc/bn_act.cu",
+                "replaces": BN_ACT_REPLACES,
+                "launches": launched[side][key], "max_abs_err": 0.0,
+                "ms": res[ms], "plain_ms": res[plain],
+                "bound_ms": res[bound], "bound_by": "bytes",
+                "library_ms": None,
+                "kernel": f"bn_act_{tag or 'fwd_'}kernel"})
+        shapes.append(res)
+    host = profile_bn_act.host_us(dev)
+    log(f"[bn-act] host us a call (bottleneck's last BN, small map): "
+        f"kernel {host['bn_act']:.1f}, composition {host['plain']:.1f}")
+    record["bn_act"] = {"shapes": shapes, "registers": regs,
+                        "host_us": host, **bn_act_request_and_step()}
+    return entries
+
+
 def main():
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
         dp_rank_worker(int(sys.argv[2]), sys.argv[3])
@@ -3500,8 +3721,10 @@ def main():
     regs = gate_registers()
     kernels = check_nms(dev) + check_gate(dev, regs) + [
         check_gate_bwd(dev, regs)]
-    # the crop kernels' counts run from here to phase 31 (`crop_launches`)
+    # the crop and frozen-BatchNorm kernels' counts run from here to phase
+    # 31 (`crop_launches`, `bn_act_launches`)
     reset_crop_counts()
+    reset_bn_act_counts()
     runs = {"serve": serve_full_width()}
     small_reference()
     # the phase-7 trainer is dropped here, so that phase 9's peak memory
@@ -3547,6 +3770,7 @@ def main():
     pool_kernels += pool_launches(runs, pool_kernels, dev, pool_regs)
     crop_checked, crop_regs = check_crop(dev)
     crop_kernels = crop_launches(crop_checked, crop_regs, dev)
+    bn_act_kernels = check_bn_act(dev, bn_act_launches())
     for kr in kernels:
         kr["launches"] = sum(runs[path].get(counter, 0)
                              for path, counter in kr["launched_by"])
@@ -3555,7 +3779,7 @@ def main():
     reported = {pc for kr in kernels for pc in kr["launched_by"]}
     check(all(("eval_modes", key) in reported for key in runs["eval_modes"]),
           "a phase-27 launch shape has no kernels entry")
-    kernels += pool_kernels + crop_kernels
+    kernels += pool_kernels + crop_kernels + bn_act_kernels
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tile_plan", "cluster_size", "kernel", "registers")

@@ -19,15 +19,16 @@ stay fixed. The JAX package's optimizer trains them (its frozen-name
 test matches `bn*`, which `stem_bn`, `dw_bn` and `pw_bn` are not); the
 port does not copy that (ROADMAP Queue 3). Every conv trains, as in the
 JAX package. Convolutions run on NCHW `channels_last` tensors in the
-compute dtype, their f32 parameters cast per call (`resnet.Conv2d`).
+compute dtype, their f32 parameters cast per call (`resnet.Conv2d`);
+each BatchNorm and its ReLU are one `bn_act` call, as in the ResNet.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bn_act_cuda import bn_act
 from .resnet import Conv2d, FrozenBatchNorm
 
 # (depthwise stride, out channels) of each block after the stem
@@ -51,8 +52,8 @@ class DWSep(nn.Module):
         self.pw_bn = FrozenBatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.dw_bn(self.dw(x)))
-        return F.relu(self.pw_bn(self.pw(x)))
+        x = bn_act(self.dw(x), self.dw_bn)
+        return bn_act(self.pw(x), self.pw_bn)
 
 
 class MobileNetV1(nn.Module):
@@ -76,7 +77,7 @@ class MobileNetV1(nn.Module):
         """(B, H, W, 3) f32 mean-subtracted BGR -> (B, H/16, W/16, 512)."""
         x = images.permute(0, 3, 1, 2).to(self.dtype,
                                           memory_format=torch.channels_last)
-        x = F.relu(self.stem_bn(self.stem(x)))
+        x = bn_act(self.stem(x), self.stem_bn)
         for i in range(len(BLOCKS_HEAD)):
             x = getattr(self, f"block{i}")(x)
         return x.permute(0, 2, 3, 1)

@@ -16,6 +16,12 @@ NCHW tensors in `torch.channels_last` memory format (the same bytes as
 NHWC), and convolutions run in the input's dtype with their f32
 parameters cast per call, as flax's `nn.Conv(dtype=...)` does; gradients
 flow through the casts to the f32 parameters.
+
+Every frozen BatchNorm is applied by `ops/bn_act_cuda.py::bn_act`
+together with what follows it: the ReLU, and in a block's last one the
+residual or the downsample branch's own BatchNorm, one kernel launch on
+the card (its plain version, the same ops as `FrozenBatchNorm` then
+`+ residual` then `F.relu`, on the CPU).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.bn_act_cuda import bn_act
 
 STAGE_BLOCKS = {
     "resnet26": (1, 1, 1, 1),   # test-only tiny depth
@@ -80,11 +88,14 @@ class Bottleneck(nn.Module):
             FrozenBatchNorm(planes * 4)) if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        return F.relu(out + residual)
+        out = bn_act(self.conv1(x), self.bn1)
+        out = bn_act(self.conv2(out), self.bn2)
+        out = self.conv3(out)
+        if self.downsample is None:
+            return bn_act(out, self.bn3, residual=x)
+        # the downsample conv runs last: its map lives only beside conv3's
+        conv, bn = self.downsample
+        return bn_act(out, self.bn3, down=(conv(x), bn))
 
 
 def _stage(inplanes: int, planes: int, blocks: int, stride: int):
@@ -123,7 +134,7 @@ class ResNetC4(nn.Module):
         """(B, H, W, 3) f32 mean-subtracted BGR -> (B, H/16, W/16, 1024)."""
         x = images.permute(0, 3, 1, 2).to(self.dtype,
                                           memory_format=torch.channels_last)
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = bn_act(self.conv1(x), self.bn1)
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         x = self.layer3(self.layer2(self.layer1(x)))
         return x.permute(0, 2, 3, 1)

@@ -28,10 +28,12 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v"]
 # per-library flags: NMS must not contract its IoU into FMAs, nor the ROI
-# pool its bin edges, nor the ROI crop its hat weights and sums (bit
-# identity with the f32 reference); no source may use fast math
+# pool its bin edges, nor the ROI crop its hat weights and sums, nor the
+# BatchNorm pass its affine (bit identity with the f32 reference, and
+# with torch's own ops); no source may use fast math
 SOURCE_FLAGS = {"nms": ["-fmad=false"], "fused_filter": [],
-                "roi_pool": ["-fmad=false"], "roi_crop": ["-fmad=false"]}
+                "roi_pool": ["-fmad=false"], "roi_crop": ["-fmad=false"],
+                "bn_act": ["-fmad=false"]}
 # variants built from another library's source, with flags added; only
 # measuring tools load them
 VARIANTS = {"nms_clocks": ("nms", ["-DNMS_PHASE_CLOCKS"]),

@@ -217,7 +217,9 @@ KERNEL_NAMES = {"nms": ("nms_frontier_kernel",),
                 "roi_pool": ("roi_pool_fwd_",),
                 "roi_pool_bwd": ("roi_pool_bwd_",),
                 "roi_crop": ("roi_crop_fwd_",),
-                "roi_crop_bwd": ("roi_crop_bwd_",)}
+                "roi_crop_bwd": ("roi_crop_bwd_",),
+                "bn_act": ("bn_act_fwd_kernel",),
+                "bn_act_bwd": ("bn_act_bwd_kernel",)}
 
 
 def kernel_launches(prof) -> Dict[str, int]:

@@ -49,7 +49,8 @@ from .profile_nms import device_ms, lane_stats, phase_cycles
 
 # the port's own kernels, by the names nvcc gives them
 HAND_KERNELS = ("nms_", "fused_filter_mma_kernel", "fused_filter_bwd_",
-                "roi_crop_fwd_kernel", "roi_crop_bwd_kernel")
+                "roi_crop_fwd_kernel", "roi_crop_bwd_kernel",
+                "bn_act_fwd_kernel", "bn_act_bwd_kernel")
 
 
 def staged_step(state, batch, generator):

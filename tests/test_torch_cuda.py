@@ -23,6 +23,7 @@ from lang2seg_tpu_torch.ops.roi_align import (roi_max_pool,
                                               roi_max_pool_argmax_plain,
                                               roi_max_pool_bwd_plain,
                                               roi_max_pool_plain)
+from lang2seg_tpu_torch.tools.profile_bn_act import same_bits
 from lang2seg_tpu_torch.tools.profile_gate import bf16_ulp_distance
 from lang2seg_tpu_torch.tools.profile_nms import edge_cases
 from lang2seg_tpu_torch.tools.profile_roi_pool import roi_pool_inputs
@@ -1294,3 +1295,134 @@ def test_graphed_step_replays_the_crop_kernels(dev, deterministic):
     for (n, a), b in zip(eager.model.state_dict().items(),
                          graphed.model.state_dict().values()):
         assert torch.equal(a, b), n
+
+
+# ---------------------------------------------------------------------------
+# frozen BatchNorm + residual + ReLU (csrc/bn_act.cu)
+# ---------------------------------------------------------------------------
+
+def _bn_act_case(n, c, h, w, dtype, dev, seed):
+    """x, the residual / x_d (channels_last, with -0 and +0 entries), and
+    two FrozenBatchNorms of non-unit statistics whose channel 0 gives -0
+    before the ReLU (weight > 0, bias -0, mean 0) and channel 1 a negative
+    scale."""
+    from lang2seg_tpu_torch.tools.profile_bn_act import random_bn
+    g = torch.Generator().manual_seed(seed)
+    bns = []
+    for _ in range(2):
+        bn = random_bn(c, g, "cpu")
+        bn.weight[0], bn.bias[0], bn.running_mean[0] = 1.0, -0.0, 0.0
+        bn.weight[1] = -abs(float(bn.weight[1]))
+        bns.append(bn.to(dev))
+    acts = []
+    for _ in range(2):
+        t = torch.randn((n, c, h, w), generator=g) * 3
+        t[:, 0, ::2] = -0.0
+        t[:, :, 1::3, 1::2] = 0.0
+        acts.append(t.to(dev, dtype, memory_format=torch.channels_last))
+    return acts, bns
+
+
+BN_ACT_BF16 = [(4800, 512, 7, 7, "relu"), (4800, 2048, 7, 7, "residual"),
+               (4800, 2048, 7, 7, "down"), (2, 256, 40, 64, "relu"),
+               (2, 1024, 40, 64, "residual"), (2, 1024, 40, 64, "down"),
+               (1, 64, 320, 512, "relu")]
+BN_ACT_BOTH = [(3, 24, 5, 7, v) for v in ("relu", "residual", "down")] + [
+    (2, 2048, 7, 7, "down"), (1, 64, 13, 17, "relu")]
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param((*c, torch.bfloat16), id="-".join(map(str, c)) + "-bf16")
+    for c in BN_ACT_BF16 + BN_ACT_BOTH] + [
+    pytest.param((*c, torch.float32), id="-".join(map(str, c)) + "-f32")
+    for c in BN_ACT_BOTH])
+def test_bn_act_kernels_match_plain(dev, case):
+    """The forward and backward kernels against the plain composition
+    under autograd, bit for bit (signed zeros included): layer4 at serving
+    (4,800 crops of 7 x 7, C = 512 and 2048), layer3 and stem maps, C = 24
+    (3 bf16 vectors a pixel) on 105 pixels, C = 2048 in f32 (512 vectors
+    a pixel)."""
+    from lang2seg_tpu_torch.ops import bn_act_cuda
+    n, c, h, w, variant, dtype = case
+    (x0, o0), (bn, bn_d) = _bn_act_case(n, c, h, w, dtype, dev, c + n)
+    up = (torch.randn((n, c, h, w), generator=torch.Generator()
+                      .manual_seed(9)) * 2).to(dev, dtype)
+    results = []
+    for op in (bn_act_cuda.bn_act, bn_act_cuda.bn_act_plain):
+        x, other = (t.clone().requires_grad_(True) for t in (x0, o0))
+        kw = {"relu": {}, "residual": {"residual": other},
+              "down": {"down": (other, bn_d)}}[variant]
+        before = (bn_act_cuda.launches, bn_act_cuda.bwd_launches)
+        out = op(x, bn, **kw)
+        out.backward(up)
+        torch.cuda.synchronize()
+        if op is bn_act_cuda.bn_act:
+            assert (bn_act_cuda.launches - before[0],
+                    bn_act_cuda.bwd_launches - before[1]) == (1, 1)
+            assert out.is_contiguous(memory_format=torch.channels_last)
+        results.append([out.detach(), x.grad] + (
+            [] if variant == "relu" else [other.grad]))
+    assert bool((results[1][0] == 0).any())
+    for a, b in zip(*results):
+        assert same_bits(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_act_gradients_only_where_needed(dev, dtype):
+    """A residual that needs no gradient gets none (the kernel writes
+    only x's); under no_grad the forward launches alone, with no graph."""
+    from lang2seg_tpu_torch.ops import bn_act_cuda
+    (x0, o0), (bn, _) = _bn_act_case(2, 64, 9, 11, dtype, dev, 3)
+    x = x0.clone().requires_grad_(True)
+    out = bn_act_cuda.bn_act(x, bn, residual=o0)
+    out.sum().backward()
+    xp = x0.clone().requires_grad_(True)
+    bn_act_cuda.bn_act_plain(xp, bn, residual=o0).sum().backward()
+    assert same_bits(x.grad, xp.grad)
+    before = (bn_act_cuda.launches, bn_act_cuda.bwd_launches)
+    with torch.no_grad():
+        out = bn_act_cuda.bn_act(x, bn, residual=o0)
+    assert out.grad_fn is None
+    assert (bn_act_cuda.launches - before[0],
+            bn_act_cuda.bwd_launches - before[1]) == (1, 0)
+
+
+def test_bn_act_refuses_what_the_kernel_does_not_take(dev):
+    """NCHW-contiguous maps, C not a whole number of 16-byte vectors and a
+    mismatched residual raise; nothing falls back."""
+    from lang2seg_tpu_torch.ops import bn_act_cuda
+    (x, o), (bn, _) = _bn_act_case(2, 64, 5, 6, torch.bfloat16, dev, 4)
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_act_cuda.bn_act(x.contiguous(), bn)
+    (x12, _), (bn12, _) = _bn_act_case(2, 12, 5, 6, torch.bfloat16, dev, 5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bn_act_cuda.bn_act(x12, bn12)
+    with pytest.raises(ValueError, match="must match"):
+        bn_act_cuda.bn_act(x, bn, residual=o.float())
+
+
+def test_bn_act_counts_by_shape_and_rechecks_new_buffers(dev):
+    """The wrapper counts each launch at its (N, C, H, W, mode, dtype);
+    it keeps a BatchNorm's checked buffer pointers only while the same
+    buffer tensors, C and device come back: a buffer replaced by another
+    tensor is read through its new pointer, a replacement of the wrong
+    dtype and a map of another C are refused."""
+    from lang2seg_tpu_torch.ops import bn_act_cuda
+    (x, o), (bn, _) = _bn_act_case(2, 64, 5, 6, torch.bfloat16, dev, 6)
+    key = bn_act_cuda.shape_key(x, 1)
+    assert key == (2, 64, 5, 6, 1, "bfloat16")
+    before = bn_act_cuda.shapes[key]
+    with torch.no_grad():
+        first = bn_act_cuda.bn_act(x, bn, residual=o)
+        assert bn_act_cuda.shapes[key] == before + 1
+        bn.running_var = bn.running_var * 4 + 1
+        got = bn_act_cuda.bn_act(x, bn, residual=o)
+        assert same_bits(got, bn_act_cuda.bn_act_plain(x, bn, residual=o))
+        assert not same_bits(got, first)
+        bn.running_var = bn.running_var.double()
+        with pytest.raises(ValueError, match="buffers"):
+            bn_act_cuda.bn_act(x, bn)
+        bn.running_var = bn.running_var.float()
+        (x128, _), _ = _bn_act_case(2, 128, 5, 6, torch.bfloat16, dev, 7)
+        with pytest.raises(ValueError, match="buffers"):
+            bn_act_cuda.bn_act(x128, bn)
