@@ -1,6 +1,8 @@
 """How `correct` is decided: the numbers that hold what the timed path
-produced against the plain reference (`benchmark/reference/model.py`, in
-f32 with TF32 off), each beside its limit from `benchmark/limits/`.
+produced against the plain reference (the module of
+`benchmark/reference/` that the configuration names, in f32 with TF32
+off), each beside its limit from `benchmark/limits/`. Every function
+takes that module (`ref`) or a network built from it (`reference_net`).
 
 Where the program makes a discrete choice (which proposals NMS keeps,
 which box a sentence selects), the reference follows the program's choice
@@ -50,8 +52,6 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from .reference import model as ref
-
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.double(), b.double()
@@ -59,16 +59,15 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
                  / torch.linalg.vector_norm(b).clamp(min=1e-30))
 
 
-def reference_net(cfg_tree: Dict, sd: Dict[str, torch.Tensor], device,
-                  precision: str = "float32") -> ref.Reference:
+def reference_net(ref, cfg_tree: Dict, sd: Dict[str, torch.Tensor], device,
+                  precision: str = "float32"):
     net = ref.Reference(cfg_tree, precision).to(device)
     net.load_reference_state(sd)
     return net.eval()
 
 
-def proposals_diff(cfg_tree: Dict, score_pos, deltas, anchors, im_h, im_w,
-                   rois, valid, pre_n: int, post_n: int, thresh: float
-                   ) -> int:
+def proposals_diff(ref, score_pos, deltas, anchors, im_h, im_w, rois, valid,
+                   pre_n: int, post_n: int, thresh: float) -> int:
     """Proposals (coordinates or validity) of the program that differ
     from the reference's proposal layer on the same RPN outputs."""
     mine = ref.proposal_layer(score_pos.float(), deltas.float(), anchors,
@@ -98,7 +97,7 @@ def _sentence_extents(reqs: Sequence[Dict], per: int, device):
 
 
 @torch.no_grad()
-def serve_numbers(net: ref.Reference, cfg_tree: Dict, reqs: Sequence[Dict],
+def serve_numbers(ref, net, cfg_tree: Dict, reqs: Sequence[Dict],
                   rec: Dict) -> Dict[str, float]:
     """One dispatch of len(reqs) images of S expressions each. `rec` holds
     what the judged side produced: response, score_pos, deltas, rois,
@@ -129,7 +128,7 @@ def serve_numbers(net: ref.Reference, cfg_tree: Dict, reqs: Sequence[Dict],
                                   m["anchor_ratios"], dev)
     hw = im_hw.float()[:, None, :].expand(len(reqs), per, 2).reshape(e, 2)
     out["prop_diff"] = float(proposals_diff(
-        c, rec["score_pos"], rec["deltas"], anchors, hw[:, 0], hw[:, 1],
+        ref, rec["score_pos"], rec["deltas"], anchors, hw[:, 0], hw[:, 1],
         rec["rois"], rec["roi_valid"], t["rpn_pre_nms_top_n"],
         t["rpn_post_nms_top_n"], t["rpn_nms_thresh"]))
     cls_score, bbox_pred = net.box_outputs(gated, rec["rois"].float())
@@ -186,8 +185,8 @@ def _live(reqs: Sequence[Dict]):
 
 
 @torch.no_grad()
-def control_serve_record(net: ref.Reference, cfg_tree: Dict,
-                         reqs: Sequence[Dict], device) -> Dict:
+def control_serve_record(ref, net, cfg_tree: Dict, reqs: Sequence[Dict],
+                         device) -> Dict:
     """The control's record of one dispatch: the reference in a lower
     precision in the program's place, through the same selection, mask
     head and paste-back."""
@@ -224,7 +223,7 @@ def control_serve_record(net: ref.Reference, cfg_tree: Dict,
 # training
 # ---------------------------------------------------------------------------
 
-def reference_steps(net: ref.Reference, cfg_tree: Dict,
+def reference_steps(ref, net, cfg_tree: Dict,
                     batches: Sequence[Dict[str, torch.Tensor]], gen_seed: int,
                     proposals: Optional[Sequence] = None,
                     record_rpn: bool = False) -> Dict:

@@ -130,7 +130,7 @@ class Driver:
 
     def flops_in_window(self) -> int:
         """Model FLOPs of the dispatches, padded slots included."""
-        return sum(cached("serve", self.ctx.cfg_tree, n, s)
+        return sum(cached(self.ctx.ref, "serve", self.ctx.cfg_tree, n, s)
                    for n, s in self.dispatches)
 
     def release(self) -> None:
@@ -154,13 +154,14 @@ class Driver:
     def check(self, judged=None) -> Dict[str, float]:
         ctx = self.ctx
         judged = self.judged() if judged is None else judged
-        net = chk.reference_net(ctx.cfg_tree, ctx.weights(), ctx.device)
+        net = chk.reference_net(ctx.ref, ctx.cfg_tree, ctx.weights(),
+                                ctx.device)
         worst: Dict[str, float] = {}
         for item in judged:
             if item is None:
                 return {}
             reqs, rec = item
-            for k, v in chk.serve_numbers(net, ctx.cfg_tree, reqs,
+            for k, v in chk.serve_numbers(ctx.ref, net, ctx.cfg_tree, reqs,
                                           rec).items():
                 worst[k] = max(worst.get(k, 0.0), v)
         return worst
@@ -170,11 +171,11 @@ class Driver:
         reference in fp8 in the program's place, on chunks of the mix
         as the program groups them (images of one bucket)."""
         ctx = self.ctx
-        net = chk.reference_net(ctx.cfg_tree, ctx.weights(), ctx.device,
-                                "fp8")
+        net = chk.reference_net(ctx.ref, ctx.cfg_tree, ctx.weights(),
+                                ctx.device, "fp8")
         groups: Dict[int, List] = {}
         for b in self.mix:
             groups.setdefault(b["labels"].shape[0], []).append(b)
         chunks = [g[:self.t["images_per_dispatch"]] for g in groups.values()]
-        return [(c, chk.control_serve_record(net, ctx.cfg_tree, c,
+        return [(c, chk.control_serve_record(ctx.ref, net, ctx.cfg_tree, c,
                                              ctx.device)) for c in chunks]

@@ -157,8 +157,8 @@ class Driver:
 
     def flops_in_window(self) -> int:
         """Model FLOPs of the requests completed in the window."""
-        return self.done * cached("serve", self.ctx.cfg_tree, 1,
-                                  self.t["expressions"])
+        return self.done * cached(self.ctx.ref, "serve", self.ctx.cfg_tree,
+                                  1, self.t["expressions"])
 
     def release(self) -> None:
         self.capture.undo()
@@ -182,13 +182,14 @@ class Driver:
     def check(self, judged=None) -> Dict[str, float]:
         ctx = self.ctx
         judged = self.judged() if judged is None else judged
-        net = chk.reference_net(ctx.cfg_tree, ctx.weights(), ctx.device)
+        net = chk.reference_net(ctx.ref, ctx.cfg_tree, ctx.weights(),
+                                ctx.device)
         worst: Dict[str, float] = {}
         for item in judged:
             if item is None:
                 return {}
             reqs, rec = item
-            for k, v in chk.serve_numbers(net, ctx.cfg_tree, reqs,
+            for k, v in chk.serve_numbers(ctx.ref, net, ctx.cfg_tree, reqs,
                                           rec).items():
                 worst[k] = max(worst.get(k, 0.0), v)
         return worst
@@ -197,10 +198,10 @@ class Driver:
         """The control's records of the sampled requests: the reference
         in fp8 in the program's place."""
         ctx = self.ctx
-        net = chk.reference_net(ctx.cfg_tree, ctx.weights(), ctx.device,
-                                "fp8")
+        net = chk.reference_net(ctx.ref, ctx.cfg_tree, ctx.weights(),
+                                ctx.device, "fp8")
         return [([self.ring[i % len(self.ring)]],
-                 chk.control_serve_record(net, ctx.cfg_tree,
+                 chk.control_serve_record(ctx.ref, net, ctx.cfg_tree,
                                           [self.ring[i % len(self.ring)]],
                                           ctx.device))
                 for i in self.sample]

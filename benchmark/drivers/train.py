@@ -109,7 +109,7 @@ class Driver:
 
     def flops_in_window(self) -> int:
         """Model FLOPs of the steps completed in the window."""
-        return self.steps * cached("train", self.ctx.cfg_tree,
+        return self.steps * cached(self.ctx.ref, "train", self.ctx.cfg_tree,
                                    self.t["images"], self.t["expressions"])
 
     def release(self) -> None:
@@ -124,7 +124,7 @@ class Driver:
     def _prop_diff(self, rpn: List) -> int:
         t = self.ctx.cfg_tree["train"]
         return sum(chk.proposals_diff(
-            self.ctx.cfg_tree, r["score_pos"], r["deltas"], r["anchors"],
+            self.ctx.ref, r["score_pos"], r["deltas"], r["anchors"],
             r["im_h"], r["im_w"], r["rois"], r["valid"],
             t["rpn_pre_nms_top_n"], t["rpn_post_nms_top_n"],
             t["rpn_nms_thresh"]) for r in rpn)
@@ -145,9 +145,10 @@ class Driver:
                 r["rois"].shape[0] != e for r in mine["rpn"]):
             return {}
         mine = dict(mine, prop_diff=self._prop_diff(mine["rpn"]))
-        net = chk.reference_net(ctx.cfg_tree, ctx.weights(), ctx.device)
+        net = chk.reference_net(ctx.ref, ctx.cfg_tree, ctx.weights(),
+                                ctx.device)
         theirs = chk.reference_steps(
-            net, ctx.cfg_tree, self._batches(n), self.gen_seed,
+            ctx.ref, net, ctx.cfg_tree, self._batches(n), self.gen_seed,
             [(r["rois"], r["valid"]) for r in mine["rpn"]])
         return chk.train_numbers(mine, theirs)
 
@@ -155,9 +156,9 @@ class Driver:
         """The control's three steps: the reference in fp8 in the
         program's place, with its own proposals."""
         ctx = self.ctx
-        net = chk.reference_net(ctx.cfg_tree, ctx.weights(), ctx.device,
-                                "fp8")
-        out = chk.reference_steps(net, ctx.cfg_tree,
+        net = chk.reference_net(ctx.ref, ctx.cfg_tree, ctx.weights(),
+                                ctx.device, "fp8")
+        out = chk.reference_steps(ctx.ref, net, ctx.cfg_tree,
                                   self._batches(self.t["checked_steps"]),
                                   self.gen_seed, None, record_rpn=True)
         return {"losses": out["losses"], "grads": out["grads"],

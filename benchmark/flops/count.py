@@ -1,9 +1,10 @@
 """Model FLOPs of a cell's unit of work, counted from the cell's shapes
-with the plain reference on the meta device (no data, no time), by
-`torch.utils.flop_counter.FlopCounterMode`: every convolution and matrix
-product, forward and, for a training step, backward (no recompute). The
-ROI crop is counted as the gather it is (no product), so the count is
-the model's, not the count of whatever the program launches.
+with the configuration's plain reference module (`ref`) on the meta
+device (no data, no time), by `torch.utils.flop_counter.FlopCounterMode`:
+every convolution and matrix product, forward and, for a training step,
+backward (no recompute). The ROI crop is counted as the gather it is (no
+product), so the count is the model's, not the count of whatever the
+program launches.
 
 * `serve`: one `test_forward` of N images x S expressions, the box
   selection, the mask head on each expression's box and the paste-back;
@@ -18,18 +19,17 @@ from typing import Dict
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from ..reference import model as ref
 
-
-def _meta_model(cfg: Dict, train: bool) -> ref.Reference:
+def _meta_model(ref, cfg: Dict, train: bool):
     with torch.device("meta"):
         net = ref.Reference(copy.deepcopy(cfg))
     net.set_frozen()
     return net.train(train)
 
 
-def serve_flops(cfg: Dict, num_images: int, exprs_per_image: int) -> int:
-    net = _meta_model(cfg, False)
+def serve_flops(ref, cfg: Dict, num_images: int, exprs_per_image: int
+                ) -> int:
+    net = _meta_model(ref, cfg, False)
     d = cfg["data"]
     e = num_images * exprs_per_image
     dev = "meta"
@@ -52,8 +52,8 @@ def serve_flops(cfg: Dict, num_images: int, exprs_per_image: int) -> int:
     return int(fc.get_total_flops())
 
 
-def train_flops(cfg: Dict, num_images: int, num_expr: int) -> int:
-    net = _meta_model(cfg, True)
+def train_flops(ref, cfg: Dict, num_images: int, num_expr: int) -> int:
+    net = _meta_model(ref, cfg, True)
     d, m = cfg["data"], cfg["model"]
     dev = "meta"
     t = m["cap_seq_length"] + 2

@@ -5,8 +5,9 @@ A cell of `BENCHMARK.json` names a configuration and a traffic mix; the
 harness reads `benchmark/configs/<config>.json`, `benchmark/traffic/<mix>
 .json` (whose `entry` names the driver in `benchmark/drivers/`),
 `benchmark/limits/<cell>.json` (the limit of each number the check
-compares) and, for each per-layer metric, `benchmark/metrics/<metric>.py`.
-A cell added as files needs no edit here.
+compares), for each per-layer metric, `benchmark/metrics/<metric>.py`,
+and the plain reference module that the configuration names
+(`reference_of`). A cell added as files needs no edit here.
 """
 
 from __future__ import annotations
@@ -86,6 +87,34 @@ def driver(entry: str):
     return importlib.import_module(f"benchmark.drivers.{entry}")
 
 
+_REFERENCES: Dict[Path, object] = {}
+
+
+def reference_of(cfg_file: Dict, root: Path = ROOT):
+    """The plain reference module that a configuration file names under
+    `"reference"`: `benchmark/reference/<name>.py`, `model` where the key
+    is absent (what it exports: `benchmark/reference/__init__.py`). The
+    one place in the harness that finds it; a file of another checkout
+    (the tests' copies) is loaded once, inside this package's
+    `reference`, so that it can import the plain parts of `model.py`."""
+    name = cfg_file.get("reference", "model")
+    path = root / "benchmark" / "reference" / f"{name}.py"
+    if not name.isidentifier() or not path.is_file():
+        raise FileNotFoundError(
+            f"configuration {cfg_file.get('name')!r} names the reference "
+            f"{name!r}, but there is no file {path}")
+    path = path.resolve()
+    if path.parent == Path(__file__).resolve().parent / "reference":
+        return importlib.import_module(f"{__package__}.reference.{name}")
+    if path not in _REFERENCES:
+        spec = importlib.util.spec_from_file_location(
+            f"{__package__}.reference.{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _REFERENCES[path] = mod
+    return _REFERENCES[path]
+
+
 def forbidden_modules() -> List[str]:
     """Loaded modules whose top-level name is JAX's or the JAX package's
     (whole names: the port's name begins with the JAX package's)."""
@@ -136,7 +165,7 @@ def _rule(key: str, cfg: Dict):
     std for convolutions and dense layers, normal for the RPN, class and
     mask heads (0.01), box deltas (0.001) and embeddings, uniform for the
     LSTM, zero biases, frozen BatchNorm of unit scale and zero shift, its
-    variance set by `bn_variances`)."""
+    statistics set by the reference module's `frozen_statistics`)."""
     leaf = key.rsplit(".", 1)[-1]
     m = cfg["model"]
     if ".bn" in key or ".downsample.1." in key or key.startswith("resnet.bn"):
@@ -158,60 +187,12 @@ def _rule(key: str, cfg: Dict):
     return ("lecun", None)
 
 
-BRANCH_SCALE = 0.25   # the weight of each bottleneck's last BatchNorm
-
-
-def set_bn_statistics(sd: Dict, cfg: Dict, seed: int, device) -> None:
-    """Frozen BatchNorm statistics that give every backbone convolution's
-    output unit scale, as a trained network's statistics do: one f32
-    pass of the backbone (head and layer4) over an image of N(0, 30^2)
-    pixels drawn from `seed`, each BN's `running_var` set, just before it
-    applies, to its input's mean square rounded to a power of 4 (so its
-    scale is a power of 2, exact in any float type) and its mean to 0;
-    each bottleneck's last BN weighs its branch by `BRANCH_SCALE`, so the
-    residual stream grows slowly, as in a trained ResNet. Writes into
-    `sd`."""
-    import torch
-    from .reference.model import FrozenBatchNorm, ResNetC4
-    d = cfg["data"]
-    with torch.device("meta"):
-        net = ResNetC4(cfg["model"]["backbone"])
-    net = net.to_empty(device=device)
-    own = {f"resnet.{k}": v for k, v in net.state_dict().items()}
-    net.load_state_dict({k[len("resnet."):]: sd[k] for k in own})
-    hooks = []
-    for name, mod in net.named_modules():
-        if not isinstance(mod, FrozenBatchNorm):
-            continue
-        key = f"resnet.{name}"
-        if name.endswith("bn3"):
-            for v in (mod.weight, sd[f"{key}.weight"]):
-                v.fill_(BRANCH_SCALE)
-
-        def fit(mod, inputs, key=key):
-            m2 = float(inputs[0].double().pow(2).mean())
-            var = 4.0 ** round(math.log(max(m2, 1e-12), 4))
-            for v in (mod.running_var, sd[f"{key}.running_var"]):
-                v.fill_(var)
-            for v in (mod.running_mean, sd[f"{key}.running_mean"]):
-                v.zero_()
-
-        hooks.append(mod.register_forward_pre_hook(fit))
-    g = torch.Generator(device=device).manual_seed(int(seed) % (1 << 63))
-    image = torch.randn((1, d["canvas_h"], d["canvas_w"], 3), generator=g,
-                        device=device) * 30.0
-    with torch.no_grad():
-        net.tail(net.head(image))
-    for h in hooks:
-        h.remove()
-
-
-def make_weights(shapes: Dict[str, tuple], cfg: Dict, seed: int, device
-                 ) -> Dict[str, "torch.Tensor"]:
+def make_weights(shapes: Dict[str, tuple], cfg: Dict, seed: int, device,
+                 statistics) -> Dict[str, "torch.Tensor"]:
     """Every entry drawn from one uniform tensor of a CUDA (or CPU)
     generator seeded from `seed`, transformed in place, in f32 on
-    `device`; then the frozen BatchNorms' statistics
-    (`set_bn_statistics`)."""
+    `device`; then `statistics(out, cfg, seed, device)`, the reference
+    module's `frozen_statistics`, sets what the network freezes."""
     import torch
     total = sum(math.prod(s) for s in shapes.values())
     g = torch.Generator(device=device).manual_seed(int(seed) % (1 << 63))
@@ -236,17 +217,17 @@ def make_weights(shapes: Dict[str, tuple], cfg: Dict, seed: int, device
             x.mul_(2.0 * (1.0 - 2.0 * lo)).add_(2.0 * lo - 1.0).erfinv_() \
                 .mul_(math.sqrt(2.0) * std)
         out[key] = x
-    set_bn_statistics(out, cfg, seed, device)
+    statistics(out, cfg, seed, device)
     return out
 
 
-def state_shapes(cfg_tree: Dict) -> Dict[str, tuple]:
-    """Key -> shape of the network's state dict, from the reference."""
+def state_shapes(ref, cfg_tree: Dict) -> Dict[str, tuple]:
+    """Key -> shape of the network's state dict, from the reference
+    module's `Reference`."""
     import torch
-    from .reference.model import Reference
     with torch.device("meta"):
-        ref = Reference(cfg_tree)
-    return {k: tuple(t.shape) for k, t in ref.reference_state_keys().items()}
+        net = ref.Reference(cfg_tree)
+    return {k: tuple(t.shape) for k, t in net.reference_state_keys().items()}
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ device.
 
 from __future__ import annotations
 
+import math
 from types import SimpleNamespace
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
@@ -1148,3 +1149,53 @@ class PlainSGD:
     def step(self) -> None:
         self.clip_grads()
         self.update()
+
+
+# ---------------------------------------------------------------------------
+# the frozen statistics of the weights the benchmark draws
+# ---------------------------------------------------------------------------
+
+BRANCH_SCALE = 0.25   # the weight of each bottleneck's last BatchNorm
+
+
+def frozen_statistics(sd: Dict, cfg: Dict, seed: int, device) -> None:
+    """Frozen BatchNorm statistics that give every backbone convolution's
+    output unit scale, as a trained network's statistics do: one f32
+    pass of the backbone (head and layer4) over an image of N(0, 30^2)
+    pixels drawn from `seed`, each BN's `running_var` set, just before it
+    applies, to its input's mean square rounded to a power of 4 (so its
+    scale is a power of 2, exact in any float type) and its mean to 0;
+    each bottleneck's last BN weighs its branch by `BRANCH_SCALE`, so the
+    residual stream grows slowly, as in a trained ResNet. Writes into
+    `sd`."""
+    d = cfg["data"]
+    with torch.device("meta"):
+        net = ResNetC4(cfg["model"]["backbone"])
+    net = net.to_empty(device=device)
+    own = {f"resnet.{k}": v for k, v in net.state_dict().items()}
+    net.load_state_dict({k[len("resnet."):]: sd[k] for k in own})
+    hooks = []
+    for name, mod in net.named_modules():
+        if not isinstance(mod, FrozenBatchNorm):
+            continue
+        key = f"resnet.{name}"
+        if name.endswith("bn3"):
+            for v in (mod.weight, sd[f"{key}.weight"]):
+                v.fill_(BRANCH_SCALE)
+
+        def fit(mod, inputs, key=key):
+            m2 = float(inputs[0].double().pow(2).mean())
+            var = 4.0 ** round(math.log(max(m2, 1e-12), 4))
+            for v in (mod.running_var, sd[f"{key}.running_var"]):
+                v.fill_(var)
+            for v in (mod.running_mean, sd[f"{key}.running_mean"]):
+                v.zero_()
+
+        hooks.append(mod.register_forward_pre_hook(fit))
+    g = torch.Generator(device=device).manual_seed(int(seed) % (1 << 63))
+    image = torch.randn((1, d["canvas_h"], d["canvas_w"], 3), generator=g,
+                        device=device) * 30.0
+    with torch.no_grad():
+        net.tail(net.head(image))
+    for h in hooks:
+        h.remove()

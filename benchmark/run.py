@@ -43,14 +43,17 @@ def _cache_dirs() -> None:
 
 
 class Context:
-    """What a driver is given: the configuration tree, the traffic, the
-    seed, the device, and the weights on demand (drawn anew from the seed
-    each time, so the reference gets the program's weights without
+    """What a driver is given: the configuration tree, the plain
+    reference module that the configuration names (`ref`), the traffic,
+    the seed, the device, and the weights on demand (drawn anew from the
+    seed each time, so the reference gets the program's weights without
     keeping a copy through the window)."""
 
     def __init__(self, cfg_file: Dict, traffic: Dict, seed: int,
-                 seconds: float, device: str):
+                 seconds: float, device: str, root: Path = ROOT):
+        from . import harness
         self.cfg_tree = cfg_file["config"]
+        self.ref = harness.reference_of(cfg_file, root)
         self.traffic = traffic
         self.seed = int(seed)
         self.seconds = float(seconds)
@@ -60,9 +63,9 @@ class Context:
     def weights(self):
         from . import harness
         from .traffic_gen import sub_seed
-        return harness.make_weights(harness.state_shapes(self.cfg_tree),
-                                    self.cfg_tree, sub_seed(self.seed, 7),
-                                    self.device)
+        return harness.make_weights(
+            harness.state_shapes(self.ref, self.cfg_tree), self.cfg_tree,
+            sub_seed(self.seed, 7), self.device, self.ref.frozen_statistics)
 
     def sync(self) -> None:
         if self.cuda:
@@ -94,7 +97,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     cfg_file = cfg_file or harness.config_file(man, cell["config"], root)
     traffic = traffic or harness.traffic_file(cell["traffic"], root)
     limits = harness.limits_file(cell_name, root)
-    ctx = Context(cfg_file, traffic, seed, seconds, device)
+    ctx = Context(cfg_file, traffic, seed, seconds, device, root)
     drv = harness.driver(traffic["entry"]).Driver(ctx)
 
     timer = None

@@ -12,7 +12,9 @@ from torch.utils.flop_counter import FlopCounterMode
 from benchmark import harness, traffic_gen
 from benchmark.bounds import crop, nms
 from benchmark.bounds.peaks import F32_FLOPS, HBM_BYTES_PER_S
-from benchmark.reference import model as ref
+
+ref = harness.reference_of(harness.config_file(harness.manifest(),
+                                               "response"))
 
 
 def test_eval_mix_is_59_valid_of_80_slots():
@@ -97,7 +99,7 @@ def test_cell_flops_are_the_model_at_its_shapes():
     from benchmark.tests.tiny import tiny_config
     man = harness.manifest()
     cfg = tiny_config(harness.config_file(man, "response"))["config"]
-    total = serve_flops(cfg, 1, 2)
+    total = serve_flops(ref, cfg, 1, 2)
     net = ref.Reference(cfg)
     with FlopCounterMode(display=False) as fc:
         net.resnet.tail(torch.zeros((2 * 32, 7, 7, 1024)))

@@ -1,6 +1,8 @@
 """Small sizes of the cells for the CPU tests: the configuration files
-cut to a 128 x 192 canvas, a one-block-a-stage ResNet in f32 and small
-proposal and ROI counts; the traffic files cut to a few expressions."""
+cut to a 128 x 192 canvas, f32, a ResNet backbone to one block a stage
+(any other backbone as the configuration names it) and small proposal
+and ROI counts; the traffic files cut to a few expressions (a serving
+cell to at most 4)."""
 
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ def tiny_config(cfg_file: Dict) -> Dict:
     c = copy.deepcopy(cfg_file)
     t = c["config"]
     t["data"].update(canvas_h=128, canvas_w=192)
-    t["model"].update(backbone="resnet26", vocab_size=100, cap_vocab_size=100,
+    if t["model"]["backbone"].startswith("resnet"):
+        t["model"]["backbone"] = "resnet26"
+    t["model"].update(vocab_size=100, cap_vocab_size=100,
                       compute_dtype="float32")
     t["train"].update(grad_clip_norm=10.0, learning_rate=1e-5,
                       rpn_pre_nms_top_n=512, rpn_post_nms_top_n=128,
@@ -28,7 +32,8 @@ def tiny_traffic(traffic: Dict) -> Dict:
     if t["entry"] == "train":
         t.update(expressions=4, ring=4)
     elif t["entry"] == "serve":
-        t.update(expressions=4, ring=4, check_requests=2, sure_per_s=0.5)
+        t.update(expressions=min(t["expressions"], 4), ring=4,
+                 check_requests=2, sure_per_s=0.5)
     else:
         t.update(real_counts=[3, 4, 2], buckets=[2, 4], check_dispatches=1,
                  sure_per_s=0.25, paste_buffers=[128, 192], im_scale=1.0)
