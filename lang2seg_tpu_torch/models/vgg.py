@@ -4,7 +4,8 @@ Counterpart of `lang2seg_tpu/models/vgg.py` and of the reference's
 `nets/vgg16.py:43-89`: the head is torchvision's vgg16 `features` without
 its last max-pool (conv5_3 + ReLU, 512 channels, stride 16); the tail
 flattens a 7x7 crop and runs fc6 (4096) + ReLU + dropout, fc7 (4096) +
-ReLU + dropout, returned as (R, 1, 1, 4096) so that the box head's
+ReLU + dropout (`fc_stack`, a function of the module, inside the span
+`l2s.vgg_fc`), returned as (R, 1, 1, 4096) so that the box head's
 spatial mean is the identity. Parameter names are the reference's:
 `features.{0,2,5,7,10,12,14,17,19,21,24,26,28}` for conv1_1 .. conv5_3 and
 `classifier.{0,3}` for fc6 and fc7 (torchvision's `classifier.6` is not
@@ -26,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.trace import count, span
 from .lang_encoder import word_dropout
 from .resnet import Conv2d
 
@@ -75,13 +77,25 @@ class VGG16(nn.Module):
         fc7's (required)."""
         r = pool5.shape[0]
         flat = pool5.permute(0, 3, 1, 2).reshape(r, -1).float()
-        drop = self.training and self.drop_rate > 0.0
-        if drop and generator is None:
+        drop_rate = self.drop_rate if self.training else 0.0
+        if drop_rate > 0.0 and generator is None:
             raise ValueError("VGG16.tail: dropout in train mode needs a "
                              "torch.Generator")
-        x = flat
-        for fc in (self.classifier[0], self.classifier[3]):
-            x = F.relu(fc(x))
-            if drop:
-                x = word_dropout(x, self.drop_rate, generator)
-        return x.reshape(r, 1, 1, 4096)
+        return fc_stack(flat, self.classifier, drop_rate,
+                        generator).reshape(r, 1, 1, 4096)
+
+
+@span("l2s.vgg_fc")
+def fc_stack(flat: torch.Tensor, classifier: nn.Sequential, drop_rate: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """fc6 (`classifier[0]`) + ReLU + dropout, then fc7 (`classifier[3]`)
+    + ReLU + dropout on (R, 25088) f32 rows -> (R, 4096). With `drop_rate`
+    above 0, `generator` draws fc6's mask, then fc7's. Counts the rows in
+    `vgg.fc_rows`."""
+    count("vgg.fc_rows", flat.shape[0])
+    x = flat
+    for fc in (classifier[0], classifier[3]):
+        x = F.relu(fc(x))
+        if drop_rate > 0.0:
+            x = word_dropout(x, drop_rate, generator)
+    return x

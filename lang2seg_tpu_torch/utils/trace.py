@@ -18,6 +18,7 @@ host thread.
 
   eval.h2d_bytes  bytes the evaluator has copied to the device
   eval.images     images the evaluator has dispatched
+  vgg.fc_rows     rows (ROIs) VGG16's fc6 / fc7 stack has taken
 """
 
 from __future__ import annotations

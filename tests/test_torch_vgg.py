@@ -6,7 +6,8 @@ flatten, `test_forward` in test modes 'nms' and 'top', `train_forward`'s
 losses and gradients with injected targets, the SGD groups (conv1_* and
 conv2_* frozen, double bias, weight decay 5e-4), a reference-format
 `vgg16_faster_rcnn` file, the detection-only eval of a split, the
-Trainer and the command lines on the CPU.
+Trainer and the command lines on the CPU, and the fc stack's span and
+row counter.
 
 fc6 alone is 411 MB in f32 at any canvas, so the file shares one
 module-scoped model. Dropout is off where the packages are compared
@@ -25,6 +26,7 @@ import jax
 import jax.numpy as jnp
 
 import lang2seg_tpu.models.vgg as jvgg
+from benchmark import trace as btrace
 from lang2seg_tpu.cli.variants import apply_variant
 from lang2seg_tpu.data.fixtures import make_mini_refer
 from lang2seg_tpu.data.loader import GtBatchLoader as JGtBatchLoader
@@ -51,6 +53,7 @@ from lang2seg_tpu_torch.engine.train_state import to_device
 from lang2seg_tpu_torch.engine.trainer import Trainer
 from lang2seg_tpu_torch.models.network import build_model
 from lang2seg_tpu_torch.models.vgg import VGG16
+from lang2seg_tpu_torch.utils import trace
 from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator
 from lang2seg_tpu_torch.weights import from_jax_params, state_dict_shapes
 from tests.test_network import tiny_config
@@ -324,6 +327,32 @@ def test_vgg_tail_dropout_draws(rng):
     with torch.no_grad():
         assert torch.equal(tail.tail(crops), tail.tail(crops))
 
+
+def test_vgg_fc_stack_span_and_rows_counter(vgg_setup, rng, monkeypatch):
+    """The fc6 / fc7 stack (`models/vgg.py::fc_stack`) under a CPU
+    profiler: one `l2s.vgg_fc` range a tail call, and `vgg.fc_rows` counts
+    its rows; with no profiler the span opens no range at all (every
+    range opener raises), and the rows are still counted."""
+    model = vgg_setup[1]
+    crops = torch.from_numpy(rng.randn(5, 7, 7, 512).astype(np.float32))
+    before = trace.counters().get("vgg.fc_rows", 0)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof, \
+            torch.no_grad():
+        model.vgg.tail(crops)
+    names = [e.name for e in btrace._events(prof)[0]]
+    assert names.count("l2s.vgg_fc") == 1
+    assert trace.counters()["vgg.fc_rows"] - before == 5
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a range was opened with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(trace, "_open", refuse)
+    with torch.no_grad():
+        model.vgg.tail(crops)
+    assert trace.counters()["vgg.fc_rows"] - before == 10
 
 def test_vgg_reference_checkpoint_and_detection_only_serving(vgg_setup,
                                                               tmp_path):
