@@ -304,7 +304,12 @@ Phases, each fatal on failure (nothing is caught):
      backward (2 images x 16 expressions) with the kernels and again with
      the ResNet's BatchNorms as the plain composition
      (`profile_bn_act.unfused`): the outputs, the losses and every
-     gradient bit for bit.
+     gradient bit for bit;
+  33. the ResNet-101 head replayed as a CUDA graph against its eager pass
+     (`tools/profile_head.py`) at the serving shape (1 image of 640 x
+     1024) and the eval shape (4 images): bit for bit, host and device ms
+     a call, the runtime calls a call (at most 6 graphed), the first
+     call's seconds and the graph pool's bytes.
 Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
 shape, its launches from the runs of that shape's path: serving in phases
 5, 14 and 24 and the bucket-16 images of phases 12, 16 and 20, training in
@@ -404,6 +409,7 @@ from lang2seg_tpu_torch.tools import learn_synthetic  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_bn_act  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_crop  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_eval  # noqa: E402
+from lang2seg_tpu_torch.tools import profile_head  # noqa: E402
 from lang2seg_tpu_torch.tools.tiny_step import (  # noqa: E402
     card_vs_cpu, launch_counts, pool_launch_counts)
 from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator  # noqa: E402
@@ -3706,6 +3712,34 @@ def check_bn_act(dev, launched):
     return entries
 
 
+# ---------------------------------------------------------------- phase 33
+
+def graphed_head(dev):
+    """Phase 33: the flagship model's ResNet head as a CUDA graph against
+    its eager pass at the serving and eval shapes
+    (`profile_head.compare`): the same bits, at most 6 runtime calls a
+    graphed call."""
+    model = build_model(flagship_config(), device="cuda", seed=0)
+    rows = []
+    for name, n in profile_head.SHAPES:
+        res = profile_head.compare(model.backbone, n, dev)
+        log(f"[graphed-head] {name} ({n} x 640 x 1024): bits equal="
+            f"{res['bits_equal']}; host ms a call eager "
+            f"{res['eager_host_ms']:.3f} / graphed "
+            f"{res['graphed_host_ms']:.3f}, device ms "
+            f"{res['eager_device_ms']:.3f} / {res['graphed_device_ms']:.3f}"
+            f", runtime calls {res['eager_runtime_calls']} / "
+            f"{res['graphed_runtime_calls']}; first call "
+            f"{res['first_call_s']:.3f} s, pool {res['pool_bytes']} bytes")
+        check(res["bits_equal"], f"the graphed head at {name} differs from "
+              f"the eager pass")
+        check(res["graphed_runtime_calls"] <= 6, f"a graphed head call at "
+              f"{name} made {res['graphed_runtime_calls']} runtime calls")
+        rows.append({"shape": name, **res})
+    record["graphed_head"] = rows
+    del model
+
+
 def main():
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
         dp_rank_worker(int(sys.argv[2]), sys.argv[3])
@@ -3771,6 +3805,7 @@ def main():
     crop_checked, crop_regs = check_crop(dev)
     crop_kernels = crop_launches(crop_checked, crop_regs, dev)
     bn_act_kernels = check_bn_act(dev, bn_act_launches())
+    graphed_head(dev)
     for kr in kernels:
         kr["launches"] = sum(runs[path].get(counter, 0)
                              for path, counter in kr["launched_by"])

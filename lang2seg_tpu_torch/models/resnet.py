@@ -22,15 +22,33 @@ together with what follows it: the ReLU, and in a block's last one the
 residual or the downsample branch's own BatchNorm, one kernel launch on
 the card (its plain version, the same ops as `FrozenBatchNorm` then
 `+ residual` then `F.relu`, on the CPU).
+
+On the card with no gradient recorded (serving, eval, validation), `head`
+replays its pass as a CUDA graph, one for each input shape (`_Graphs`):
+the host enqueues a copy in, one graph launch and a copy out in place of
+the ~290 calls of the eager pass (the weights' casts, the convolutions,
+the `bn_act` launches). A replay runs the same kernels on the same
+addresses, so it gives the eager pass's bits and reads the parameters and
+buffers as they are then: an in-place update (SGD, `load_state_dict`'s
+copy) is seen; a parameter or buffer re-bound to other storage (`.to()`,
+`load_state_dict(assign=True)`) drops the graphs, and the next call
+captures again. Calls that record a gradient (training) and calls on the
+CPU run eager.
 """
 
 from __future__ import annotations
+
+import collections
+import weakref
+from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import bn_act_cuda
 from ..ops.bn_act_cuda import bn_act
+from ..utils.trace import count
 
 STAGE_BLOCKS = {
     "resnet26": (1, 1, 1, 1),   # test-only tiny depth
@@ -104,6 +122,55 @@ def _stage(inplanes: int, planes: int, blocks: int, stride: int):
     return nn.Sequential(*layers)
 
 
+# the most input keys (shape, dtype, device) a ResNetC4 keeps a captured
+# head for; past it, calls run eager
+GRAPH_KEYS = 4
+
+
+class _HeadGraph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    static_in: torch.Tensor
+    static_out: torch.Tensor
+    # the bn_act launches of one pass by shape, which each replay counts
+    # again: it runs the kernels without their wrapper
+    bn_act_shapes: collections.Counter
+
+
+class _Graphs:
+    """A ResNetC4's captured heads by input key, in one memory pool (they
+    replay on one stream, one at a time), and what they read: the
+    BatchNorm pass, the compute dtype and the address of every parameter
+    and buffer of conv1 .. layer3."""
+
+    def __init__(self, net: "ResNetC4"):
+        mods = [net.conv1, net.bn1, net.layer1, net.layer2, net.layer3]
+        slots = [(d, k) for mod in mods for m in mod.modules()
+                 for d in (m._parameters, m._buffers)
+                 for k, t in d.items() if t is not None]
+        self.dicts, self.names = zip(*slots)
+        self.by_key: Dict[tuple, _HeadGraph] = {}
+        self.reads = None
+        self.pool = None
+
+    def reads_now(self, net: "ResNetC4") -> tuple:
+        """What a replay must find unchanged (~50 us on the host for
+        ResNet-101's 470 tensors)."""
+        return (bn_act, net.dtype, tuple(map(
+            torch.Tensor.data_ptr, map(dict.__getitem__, self.dicts,
+                                       self.names))))
+
+    def drop(self) -> None:
+        for key in self.by_key:
+            torch.cuda.synchronize(key[2])   # no replay still running
+        self.by_key.clear()
+        self.pool = None
+
+
+# a ResNetC4 -> its `_Graphs` (kept off the module: a deep copy or a
+# pickle of the model carries no graph)
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
 class ResNetC4(nn.Module):
     """`head(images)` = conv1..layer3 (stride 16, 1024 channels);
     `tail(crops)` = layer4 at stride 1 (reference resnet_v1.py:255-267)."""
@@ -131,13 +198,73 @@ class ResNetC4(nn.Module):
                 p.requires_grad_(False)
 
     def head(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) f32 mean-subtracted BGR -> (B, H/16, W/16, 1024)."""
+        """(B, H, W, 3) f32 mean-subtracted BGR -> (B, H/16, W/16, 1024);
+        a CUDA graph's replay for a CUDA input with no gradient recorded
+        (module docstring), a fresh tensor either way."""
+        if images.is_cuda and not torch.is_grad_enabled():
+            return self._graphed_head(images)
+        return self._head(images)
+
+    def _head(self, images: torch.Tensor) -> torch.Tensor:
+        """The eager pass of `head`."""
         x = images.permute(0, 3, 1, 2).to(self.dtype,
                                           memory_format=torch.channels_last)
         x = bn_act(self.conv1(x), self.bn1)
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         x = self.layer3(self.layer2(self.layer1(x)))
         return x.permute(0, 2, 3, 1)
+
+    def _graphed_head(self, images: torch.Tensor) -> torch.Tensor:
+        """Copies `images` into the input of the graph captured at their
+        (shape, dtype, device), capturing it first if need be, replays it
+        and returns a copy of its output: an earlier call's result is never
+        overwritten. Counts `backbone.graph_replays`, or
+        `backbone.graph_eager` past `GRAPH_KEYS` keys."""
+        g = _GRAPHS.get(self)
+        if g is None:
+            g = _GRAPHS[self] = _Graphs(self)
+        reads = g.reads_now(self)
+        if reads != g.reads:
+            g.drop()
+            g.reads = reads
+        key = (images.shape, images.dtype, images.device)
+        hit = g.by_key.get(key)
+        if hit is None:
+            if len(g.by_key) >= GRAPH_KEYS:
+                count("backbone.graph_eager")
+                return self._head(images)
+            hit = g.by_key[key] = self._capture(images, g)
+        hit.static_in.copy_(images)
+        hit.graph.replay()
+        count("backbone.graph_replays")
+        bn_act_cuda.count_replayed(hit.bn_act_shapes)
+        return hit.static_out.clone()
+
+    def _capture(self, images: torch.Tensor, g: _Graphs) -> _HeadGraph:
+        """The head at `images`' key as a CUDA graph in `g`'s pool: an
+        eager pass on a side stream first (cuDNN chooses its algorithms,
+        the kernels' launch state is cached), then the capture, with
+        thread-local errors (the evaluator's staging thread copies and pins
+        memory meanwhile). The capture counts one pass, as the train
+        step's capture does (`engine/train_state.py::MultiStep`)."""
+        with torch.cuda.device(images.device):
+            static_in = torch.empty_like(
+                images, memory_format=torch.contiguous_format).copy_(images)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._head(static_in)
+            torch.cuda.current_stream().wait_stream(side)
+            if g.pool is None:
+                g.pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            shapes0 = collections.Counter(bn_act_cuda.shapes)
+            with torch.cuda.graph(graph, pool=g.pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                static_out = self._head(static_in)
+        count("backbone.graph_captures")
+        return _HeadGraph(graph, static_in, static_out,
+                          bn_act_cuda.shapes - shapes0)
 
     def tail(self, pool5: torch.Tensor) -> torch.Tensor:
         """(R, S, S, 1024) -> spatial_fc7 (R, S, S, 2048)."""

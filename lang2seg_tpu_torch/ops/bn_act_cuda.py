@@ -18,8 +18,11 @@ and ReLU to XLA's fusion. `launches` / `bwd_launches` count the two C
 entries' launches through `bn_act_forward` / `bn_act_backward` (also the
 process counters `bn_act.launches` / `bn_act.bwd_launches`, under the
 spans `l2s.bn_act` / `l2s.bn_act_bwd`); `shapes` and `bwd_shapes` count
-the same launches by `shape_key`. `launch_forward` / `launch_backward`
-launch without counting, for tools that compare or time the kernels.
+the same launches by `shape_key`. The ResNet head's graph replays
+(`models/resnet.py`) run forward kernels without the wrapper and count
+them in all three through `count_replayed`. `launch_forward` /
+`launch_backward` launch without counting, for tools that compare or time
+the kernels.
 """
 
 from __future__ import annotations
@@ -197,6 +200,17 @@ def bn_act_forward(x, bn, other=None, bn_d=None):
     shapes[shape_key(x, _mode(other, bn_d))] += 1
     count("bn_act.launches")
     return out
+
+
+def count_replayed(by_shape: collections.Counter) -> None:
+    """Counts the forward kernels a CUDA graph's replay ran, given by
+    `shape_key` (the wrapper's counts of the pass it captured), where the
+    wrapper counts its launches."""
+    global launches
+    n = sum(by_shape.values())
+    launches += n
+    shapes.update(by_shape)
+    count("bn_act.launches", n)
 
 
 @span("l2s.bn_act_bwd")

@@ -16,9 +16,21 @@ host thread.
 `count(name, n)` adds to a process-wide integer counter, always on;
 `counters()` is a snapshot of them all:
 
-  eval.h2d_bytes  bytes the evaluator has copied to the device
-  eval.images     images the evaluator has dispatched
-  vgg.fc_rows     rows (ROIs) VGG16's fc6 / fc7 stack has taken
+  eval.h2d_bytes          bytes the evaluator has copied to the device
+  eval.images             images the evaluator has dispatched
+  vgg.fc_rows             rows (ROIs) VGG16's fc6 / fc7 stack has taken
+  bn_act.launches         frozen-BatchNorm forward kernels run: the
+                          wrapper's launches and the ResNet head's graph
+                          replays' (`ops/bn_act_cuda.py`)
+  bn_act.bwd_launches     its backward kernels run
+  backbone.graph_captures ResNet heads captured as a CUDA graph
+                          (`models/resnet.py`)
+  backbone.graph_replays  head calls that replayed one (no gradient, on
+                          the card)
+  backbone.graph_eager    such calls that ran eager instead: past the cap
+                          on captured shapes
+
+The head graph's hit share is replays / (replays + eager).
 """
 
 from __future__ import annotations
