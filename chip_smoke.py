@@ -38,9 +38,9 @@ Phases, each fatal on failure (nothing is caught):
   5. the serving path at full width (ResNet-101-C4 `response` variant,
      random weights from a seed, 640x1024 canvas): 3 requests of 4, 8
      and 16 expressions through Inference.predict and
-     Evaluator.eval_image, with the kernel launch counts set to 0 before
-     and read after; every request must launch each kernel exactly once
-     per forward;
+     Evaluator.eval_image, with the kernel launches counted over them
+     (`utils/trace.py`); every request must launch each kernel exactly
+     once per forward;
   6. a small input (resnet26, 128x192, f32) served on the card and on
      the CPU (plain versions) from the same weights must agree;
   7. the training path at full width: `Trainer` over 2 images x 16
@@ -48,8 +48,8 @@ Phases, each fatal on failure (nothing is caught):
      a seed, at the config's LR: 1 warm-up step (the gate backward's
      d_gated must be a contiguous 16-byte aligned bf16 map), 1 step under
      PyTorch's synchronisation debug mode (which must report no host sync
-     inside `train_step`) and 3 timed steps, with the launch counts set
-     to 0 before and read after. Every step must launch the NMS, the gate
+     inside `train_step`) and 3 timed steps, with the launches counted
+     over them. Every step must launch the NMS, the gate
      and the gate's backward exactly once and give finite losses; frozen
      parameters stay bit-identical and every SGD group moves;
   8. one tiny f32 training step (resnet26, 128x192) on the card and on the
@@ -222,8 +222,8 @@ Phases, each fatal on failure (nothing is caught):
      image a dispatch with the crop off, and each valid sentence as it
      does (the same selected box within 0.01 pixels, I / U within 4
      pixels), the crop on the crop off's state and sentences bit for
-     bit, each dispatch launches NMS and the gate once (the counts set
-     to 0 before a pass and read after) with no host sync under the sync
+     bit, each dispatch launches NMS and the gate once (counted over a
+     pass) with no host sync under the sync
      debug mode; then one chunk of 4 bucket-32 images (128 expressions)
      the same way; (b) every shape at which these passes launched NMS or
      the gate and that no earlier phase reports (NMS at 4, 64 and 128
@@ -247,10 +247,10 @@ Phases, each fatal on failure (nothing is caught):
      inside the run, against as many eager `train_step`s from the same
      weights, batches and generator seed: every parameter, momentum
      buffer, the generator's state and every step's losses bit for bit;
-     the wrappers' counts set to 0 before the graphed run and read after
-     it (the warm step and the capture: twice a kernel), the replays'
-     kernel runs counted by name in the trace of the last dispatch (K a
-     kernel); eager and graphed ms
+     the first dispatch's launches (the warm step and K - 1 replays: K a
+     kernel, the capture none), and over the last dispatch each kernel's
+     count equal to its runs traced by name (K a kernel); eager and
+     graphed ms
      a step (windows ending in a sync), the capture's s, the idle share of
      eager steps and of a graphed dispatch under torch.profiler, the
      graphed run's peak memory;
@@ -259,9 +259,10 @@ Phases, each fatal on failure (nothing is caught):
      expr_uid and the same generators, bit for bit; then a sharded step
      and 2 dispatches of `make_sharded_multi_step` (K = 4, the NCCL
      all-reduce captured in the graph) against 9 eager sharded steps, bit
-     for bit; the wrappers called three times a kernel (the sharded step,
-     the warm step, the capture), the second dispatch's kernel runs
-     counted by name in its trace (4 a kernel);
+     for bit; the sharded step and the first dispatch launch each kernel
+     5 times (the sharded step, the warm step, 3 replays; the capture
+     none), and over the second dispatch each kernel's count equals its
+     runs traced by name (4 a kernel);
   30. two ranks on the one card over gloo (NCCL refuses two ranks on one
      card; gloo with CUDA tensors is this check's configuration): two
      processes of this script (`--dp-rank R DIR`) take one sharded step
@@ -313,21 +314,22 @@ Phases, each fatal on failure (nothing is caught):
 Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
 shape, its launches from the runs of that shape's path: serving in phases
 5, 14 and 24 and the bucket-16 images of phases 12, 16 and 20, training in
-phases 7, 9, 12, 14, 17g, 19, 21b, 24, 28 and 29 (the kernel runs traced
-in the profiled dispatches' replays) and 30 (both ranks), the eval buckets 8 and 32 in
-phases 12, 16 and 20, the pretraining shape (2, 12000) -> 2000 in phase
-17's steps, phase 27's dispatches at each entry's shape (every shape
-they launched a kernel at has an entry; NMS at 4, 64 and 128 lanes and
-the gate at E = 4 and on 4 or 2 maps only there); the gate's backward's from training; the C = 512 gate's from
-phases 14, 24 and 28 (MobileNetV1); the ROI pool entries, one for each shape at which
-phases 24-26 launched the forward or the backward, with the launches at
-exactly that shape; the ROI crop entries, one for each shape at which
-phases 5-31 launched its forward or backward: the wrappers' counts, set
-to 0 before phase 5 and read after phase 31, the replays' kernel runs
-traced by name in phases 28-29 and phase 30's ranks' counts; the
-frozen-BatchNorm entries of phase 32, one a shape and pass, with the
-launches phases 5-31 made at exactly that shape, counted as the crop's
-are; phase 32's own launches are not among them)
+phases 7, 9, 12, 14, 17g, 19, 21b, 24, 28 and 29 (the warm steps and
+every replay) and 30 (both ranks), the eval buckets 8 and 32 in phases
+12, 16 and 20, the pretraining shape (2, 12000) -> 2000 in phase 17's
+steps, phase 27's dispatches at each entry's shape (every shape they
+launched a kernel at has an entry; NMS at 4, 64 and 128 lanes and the
+gate at E = 4 and on 4 or 2 maps only there); the gate's backward's from
+training; the C = 512 gate's from phases 14, 24 and 28 (MobileNetV1);
+the ROI pool entries, one for each shape at which phases 24-26 and 28
+launched the forward or the backward, with the launches at exactly that
+shape; the ROI crop entries, one for each shape at which phases 5-31
+launched its forward or backward, the counters' change from phase 5 to
+phase 31 with phase 30's ranks' counts added; the frozen-BatchNorm
+entries of phase 32, one a shape and pass, with the launches phases 5-31
+made at exactly that shape, counted as the crop's are; phase 32's own
+launches are not among them. A CUDA graph's replays count their pass,
+its capture nothing: `utils/trace.py`)
 and, last, the `{"ok": true, ...}` line. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device or
 outside a checkout of the repository.
@@ -384,8 +386,7 @@ from lang2seg_tpu_torch.engine.train_state import (  # noqa: E402
 from lang2seg_tpu_torch.engine.trainer import Trainer  # noqa: E402
 from lang2seg_tpu_torch.models.network import build_model  # noqa: E402
 from lang2seg_tpu_torch.ops import (  # noqa: E402
-    _build, bn_act_cuda, fused_filter, nms_cuda, proposals, roi_crop_cuda,
-    roi_pool_cuda)
+    _build, fused_filter, nms_cuda, proposals, roi_crop_cuda, roi_pool_cuda)
 from lang2seg_tpu_torch.ops.fused_filter import (  # noqa: E402
     fused_dynamic_filter_bwd_plain, fused_dynamic_filter_plain,
     per_expression)
@@ -410,8 +411,8 @@ from lang2seg_tpu_torch.tools import profile_bn_act  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_crop  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_eval  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_head  # noqa: E402
-from lang2seg_tpu_torch.tools.tiny_step import (  # noqa: E402
-    card_vs_cpu, launch_counts, pool_launch_counts)
+from lang2seg_tpu_torch.tools.tiny_step import card_vs_cpu  # noqa: E402
+from lang2seg_tpu_torch.utils import trace  # noqa: E402
 from lang2seg_tpu_torch.utils.metrics import SegEvalAccumulator  # noqa: E402
 from lang2seg_tpu_torch.utils.timer import Timer  # noqa: E402
 from lang2seg_tpu_torch.utils.visualization import decode_png  # noqa: E402
@@ -767,114 +768,55 @@ def check_gate_bwd(dev, regs):
     return res
 
 
-# ------------------------------------------------- ROI pool launch counts
+# ---------------------------------------------------------- launch counts
 
-def reset_pool_counts():
-    """Sets the ROI pool kernels' counts, in total and by shape, to 0."""
-    roi_pool_cuda.launches = roi_pool_cuda.bwd_launches = 0
-    roi_pool_cuda.shapes.clear()
-    roi_pool_cuda.bwd_shapes.clear()
-
-
-def pool_shape_counts():
-    """The ROI pool kernels' launches by shape since the last
-    `reset_pool_counts`, for a run's entry of `runs`."""
-    return {"roi_pool_shapes": collections.Counter(roi_pool_cuda.shapes),
-            "roi_pool_bwd_shapes": collections.Counter(
-                roi_pool_cuda.bwd_shapes)}
+# the hand kernels' launch counters (`utils/trace.py`) by the names this
+# script, and `profile_eval.kernel_launches` in a trace, give the kernels
+COUNTERS = {"nms": "nms.launches", "fused_filter": "gate.launches",
+            "fused_filter_bwd": "gate.bwd_launches",
+            "roi_pool": "roi_pool.launches",
+            "roi_pool_bwd": "roi_pool.bwd_launches",
+            "roi_crop": "roi_crop.launches",
+            "roi_crop_bwd": "roi_crop.bwd_launches",
+            "bn_act": "bn_act.launches", "bn_act_bwd": "bn_act.bwd_launches"}
 
 
-# ------------------------------------------------- ROI crop launch counts
+class Launches:
+    """The kernels' launches since it was made, read from the counters:
+    `of(*kernels)` in total, `by_shape(kernel)` by shape (the crop, pool
+    and frozen-BatchNorm kernels). A graph's replay counts its pass, its
+    capture nothing."""
 
-def crop_counts():
-    """The ROI crop kernels' launches, forward and backward."""
-    return roi_crop_cuda.launches, roi_crop_cuda.bwd_launches
+    def __init__(self):
+        self.totals = trace.counters()
+        self.keyed = {k: trace.by_key(name) for k, name in COUNTERS.items()}
 
+    def of(self, *kernels):
+        now = trace.counters()
+        return tuple(now.get(COUNTERS[k], 0) - self.totals.get(COUNTERS[k], 0)
+                     for k in kernels)
 
-# the main path's crop launches by shape (`roi_crop_cuda.shape_key`) that
-# no wrapper counted: the crop kernels' runs in graph replays, traced by
-# name (phases 28-29), and the gloo ranks' launches (phase 30). The
-# wrappers' own counts are set to 0 once, before phase 5, and read after
-# phase 31 (`crop_launches`); every check and timing of the crop in this
-# script launches through the uncounted `launch_forward` /
-# `launch_backward`
-CROP_EXTRA = {"fwd": collections.Counter(), "bwd": collections.Counter()}
+    def by_shape(self, kernel):
+        return collections.Counter(trace.by_key(COUNTERS[kernel])) - \
+            collections.Counter(self.keyed[kernel])
 
+    def pool_shapes(self):
+        """The ROI pool kernels' launches by shape, for a run's entry of
+        `runs`."""
+        return {"roi_pool_shapes": self.by_shape("roi_pool"),
+                "roi_pool_bwd_shapes": self.by_shape("roi_pool_bwd")}
 
-def reset_crop_counts():
-    """Sets the ROI crop kernels' counts, in total and by shape, to 0."""
-    roi_crop_cuda.launches = roi_crop_cuda.bwd_launches = 0
-    roi_crop_cuda.shapes.clear()
-    roi_crop_cuda.bwd_shapes.clear()
-    for c in CROP_EXTRA.values():
-        c.clear()
-
-
-def crop_shape_snapshot():
-    """The wrappers' crop launches by shape so far, (forward, backward)."""
-    return (collections.Counter(roi_crop_cuda.shapes),
-            collections.Counter(roi_crop_cuda.bwd_shapes))
-
-
-def add_traced_crops(before, traced, path):
-    """Attributes the crop kernels' runs traced in a run's replays to the
-    one shape at which its wrappers launched them since `before` (a
-    `crop_shape_snapshot`)."""
-    for side, key, now in zip(("fwd", "bwd"), ("roi_crop", "roi_crop_bwd"),
-                              crop_shape_snapshot()):
-        seen = now - before[("fwd", "bwd").index(side)]
-        if not traced.get(key):
-            continue
-        check(len(seen) == 1, f"[{path}] crop {side} launches at "
-              f"{dict(seen)}")
-        CROP_EXTRA[side][next(iter(seen))] += traced[key]
-
-
-# -------------------------------------- frozen-BatchNorm launch counts
-
-# the main path's frozen-BatchNorm launches by shape (`bn_act_cuda.
-# shape_key`) that no wrapper counted: the kernels' runs in graph replays,
-# traced by name (phases 28-29), and the gloo ranks' launches (phase 30).
-# The wrappers' own counts are set to 0 with the crop's, before phase 5,
-# and read after phase 31 (`bn_act_launches`), before phase 32's own
-# checks and timings launch the kernels
-BN_ACT_EXTRA = {"fwd": collections.Counter(), "bwd": collections.Counter()}
-
-
-def reset_bn_act_counts():
-    """Sets the frozen-BatchNorm kernels' counts, in total and by shape,
-    to 0."""
-    bn_act_cuda.launches = bn_act_cuda.bwd_launches = 0
-    bn_act_cuda.shapes.clear()
-    bn_act_cuda.bwd_shapes.clear()
-    for c in BN_ACT_EXTRA.values():
-        c.clear()
-
-
-def bn_act_shape_snapshot():
-    """The wrappers' frozen-BatchNorm launches by shape so far, (forward,
-    backward)."""
-    return (collections.Counter(bn_act_cuda.shapes),
-            collections.Counter(bn_act_cuda.bwd_shapes))
-
-
-def add_traced_bn_act(before, traced, path):
-    """Attributes the frozen-BatchNorm kernels' runs traced in a run's
-    replays to the shapes at which its wrappers launched them since
-    `before` (a `bn_act_shape_snapshot`), in the wrappers' proportions:
-    the run's eager steps, captures and replays each run one step's
-    kernels, so each shape's share must come out whole."""
-    for side, key, now, was in zip(("fwd", "bwd"), ("bn_act", "bn_act_bwd"),
-                                   bn_act_shape_snapshot(), before):
-        seen, runs = now - was, traced.get(key, 0)
-        total = sum(seen.values())
-        check(bool(runs) == bool(total), f"[{path}] {runs} traced bn_act "
-              f"{side} runs for {total} wrapper launches")
-        for shape, n in seen.items():
-            check(n * runs % total == 0, f"[{path}] {runs} traced bn_act "
-                  f"{side} runs do not split over the wrappers' launches "
-                  f"{dict(seen)}")
-            BN_ACT_EXTRA[side][shape] += n * runs // total
+    def record(self):
+        """The launches as a record of `trace.add` (another process's,
+        added to this one's counters)."""
+        out = collections.Counter()
+        for kernel, name in COUNTERS.items():
+            keyed = self.by_shape(kernel)
+            out.update({(name, key): n for key, n in keyed.items()})
+            rest = self.of(kernel)[0] - sum(keyed.values())
+            if rest:
+                out[name, None] += rest
+        return out
 
 
 # ---------------------------------------------------------------- phase 5
@@ -912,9 +854,7 @@ def serve_requests(path, cfg, sizes=((4, 1), (8, 2), (16, 3)), model=None):
     torch.cuda.synchronize()
     acc, timings = SegEvalAccumulator(), []
     torch.cuda.reset_peak_memory_stats()
-    nms_cuda.launches = fused_filter.launches = 0
-    reset_pool_counts()
-    crop0 = roi_crop_cuda.launches
+    since = Launches()
     pool = m.pooling_mode == "pool"
     # predict: the box head's ROI pool or crop; eval_image: that and, with
     # a mask head, the pool or crop of each expression's box
@@ -923,8 +863,7 @@ def serve_requests(path, cfg, sizes=((4, 1), (8, 2), (16, 3)), model=None):
                                for x in want[2:])
 
     def counts():
-        return (nms_cuda.launches, fused_filter.launches,
-                roi_pool_cuda.launches, roi_crop_cuda.launches)
+        return since.of("nms", "fused_filter", "roi_pool", "roi_crop")
     for num_expr, seed in sizes:
         b = synthetic_eval_request(cfg, num_expr, seed, 1.6)
         c0 = counts()
@@ -965,7 +904,7 @@ def serve_requests(path, cfg, sizes=((4, 1), (8, 2), (16, 3)), model=None):
         log(f"[{path}] request E={num_expr}: predict {t_pred:.1f} ms, "
             f"eval_image {t_eval:.1f} ms")
     launches = dict(zip(("nms", "fused_filter", "roi_pool", "roi_crop"),
-                        counts()[:3] + (roi_crop_cuda.launches - crop0,)))
+                        counts()))
     summary = acc.summary()
     check(all(0.0 <= float(v) <= 1.0 for v in summary.values()))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -975,7 +914,7 @@ def serve_requests(path, cfg, sizes=((4, 1), (8, 2), (16, 3)), model=None):
                     "metrics": {k: float(v) for k, v in summary.items()},
                     "sentences": (acc.num_sent, acc.seg_total),
                     "peak_gib": peak}
-    return dict(launches, **pool_shape_counts()), out
+    return dict(launches, **since.pool_shapes()), out
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1052,9 +991,9 @@ def train_full_width(path, cfg, batches=None):
     """`Trainer` at full width, 2 images x 16 expressions (uint8 canvases,
     bit-packed masks), random weights from a seed, at the config's LR: a
     warm-up step (its gate-backward inputs recorded), one step under the
-    sync debug mode, three timed steps, the launch counts set to 0 before
-    and read after. `batches` (4 in the wire formats, default synthetic
-    ones) are taken in turn. Returns (launches, trainer)."""
+    sync debug mode, three timed steps, the launches counted over them.
+    `batches` (4 in the wire formats, default synthetic ones) are taken
+    in turn. Returns (launches, trainer)."""
     num_images, num_expr = 2, 16
     if batches is None:
         batches = [to_wire(cfg, synthetic_batch(cfg, num_images, num_expr,
@@ -1075,15 +1014,13 @@ def train_full_width(path, cfg, batches=None):
     # each (twice with the attribute head's crops at the GT boxes)
     k = 1 + int(cfg.model.use_attribute_head)
     want_step = (1, 1, 1) + ((k, k, 0, 0) if pool else (0, 0, k, k))
+    kernels = ("nms", "fused_filter", "fused_filter_bwd", "roi_pool",
+               "roi_pool_bwd", "roi_crop", "roi_crop_bwd")
+    since = Launches()
 
     def counts():
-        return launch_counts() + pool_launch_counts() + crop_counts()
+        return since.of(*kernels)
 
-    nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
-    reset_pool_counts()
-    # the crop counts run on from phase 5 to phase 31: this run's are the
-    # differences from here
-    start = (0,) * 5 + crop_counts()
     bwd_inputs, undo = record_gate_bwd_inputs()
     t0 = time.perf_counter()
     try:
@@ -1092,7 +1029,7 @@ def train_full_width(path, cfg, batches=None):
         undo()
     torch.cuda.synchronize()
     log(f"[{path}] warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    per_step = [tuple(b - a for a, b in zip(start, counts()))]
+    per_step = [counts()]
     (d_gated, d_resp), = bwd_inputs
     bwd_in = {"d_gated_dtype": str(d_gated.dtype),
               "d_gated_contiguous": d_gated.is_contiguous(),
@@ -1130,10 +1067,7 @@ def train_full_width(path, cfg, batches=None):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         per_step.append(tuple(b - a for a, b in zip(c0, counts())))
-    launches = dict(zip(("nms", "fused_filter", "fused_filter_bwd",
-                         "roi_pool", "roi_pool_bwd", "roi_crop",
-                         "roi_crop_bwd"),
-                        (b - a for a, b in zip(start, counts()))))
+    launches = dict(zip(kernels, counts()))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[{path}] step ms {[round(t, 2) for t in times]} (mean "
         f"{sum(times) / len(times):.2f}); peak device memory {peak:.2f} GiB; "
@@ -1192,7 +1126,7 @@ def train_full_width(path, cfg, batches=None):
             f"{head}")
         check(len(head) == 2 and all(head.values()), "att_head did not move")
     record[path] = entry
-    return dict(launches, **pool_shape_counts()), trainer
+    return dict(launches, **since.pool_shapes()), trainer
 
 
 # ------------------------------------------------------------ phases 8, 10
@@ -1481,10 +1415,11 @@ def file_backed_path(phase7_ms):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
         run_a, run_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
         trainer = Trainer(cfg, loader(cfg.seed), run_a, device="cuda", seed=0)
-        nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
+        trained = ("nms", "fused_filter", "fused_filter_bwd")
+        since = Launches()
         trainer.train(3)
         torch.cuda.synchronize()
-        check(launch_counts() == (3, 3, 3), "a file-backed step did not "
+        check(since.of(*trained) == (3, 3, 3), "a file-backed step did not "
               "launch each kernel once")
         saved = {"model": {k: v.clone() for k, v in
                            trainer.state.model.state_dict().items()},
@@ -1498,9 +1433,8 @@ def file_backed_path(phase7_ms):
         trainer.train(6)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launched = launch_counts()
-        runs["train_file"] = dict(zip(("nms", "fused_filter",
-                                       "fused_filter_bwd"), launched))
+        launched = since.of(*trained)
+        runs["train_file"] = dict(zip(trained, launched))
         step_ms = trainer.timer.average_time("step") * 1e3
         ckpts = sorted(int(d.split("_")[1])
                        for d in os.listdir(os.path.join(run_a, "ckpt")))
@@ -1544,16 +1478,15 @@ def file_backed_path(phase7_ms):
     per_image, dispatch = [], ev.dispatch_image
 
     def counted(batch, sent_valid=None):
-        c0 = (nms_cuda.launches, fused_filter.launches)
+        c0 = Launches()
         rec = dispatch(batch, sent_valid)
         per_image.append((batch["labels"].shape[0],
-                          nms_cuda.launches - c0[0],
-                          fused_filter.launches - c0[1]))
+                          *c0.of("nms", "fused_filter")))
         return rec
 
     ev.dispatch_image = counted
     acc = SegEvalAccumulator()
-    nms_cuda.launches = fused_filter.launches = 0
+    since = Launches()
     t0 = time.perf_counter()
     for split in ("val", "testA"):
         ev.eval_split(probe.iter_test_batches(split, buckets=EVAL_BUCKETS),
@@ -1568,8 +1501,8 @@ def file_backed_path(phase7_ms):
         f"{ {k: round(float(v), 4) for k, v in summary.items()} }")
     check(all(n == 1 and f == 1 for _, n, f in per_image),
           "an eval image did not launch NMS and the gate once")
-    check((nms_cuda.launches, fused_filter.launches)
-          == (len(per_image), len(per_image)))
+    check(since.of("nms", "fused_filter") == (len(per_image),
+                                              len(per_image)))
     check(sorted({s for s, _, _ in per_image}) == list(EVAL_BUCKETS))
     check(acc.num_sent == 51 and acc.seg_total == 51)
     check(all(0.0 <= float(v) <= 1.0 for v in summary.values()))
@@ -1820,11 +1753,10 @@ def host_modes():
     per_image, dispatch = [], Evaluator.dispatch_image
 
     def counted(self, batch, sent_valid=None):
-        c0 = (nms_cuda.launches, fused_filter.launches)
+        c0 = Launches()
         rec = dispatch(self, batch, sent_valid)
         per_image.append((batch["labels"].shape[0],
-                          nms_cuda.launches - c0[0],
-                          fused_filter.launches - c0[1]))
+                          *c0.of("nms", "fused_filter")))
         return rec
 
     real_open = cli_eval.open_loader
@@ -1876,15 +1808,14 @@ def host_modes():
     model = build_model(cfg, device="cuda", state_dict=trained)
     ev = Evaluator(model, cfg)
     batch = loader.get_test_batch("val", buckets=EVAL_BUCKETS)
-    c0 = (nms_cuda.launches, fused_filter.launches)
+    c0 = Launches()
     t0 = time.perf_counter()
     rec = ev.dispatch_image(batch, batch["sent_valid"])
     acc = SegEvalAccumulator()
     ev.drain(rec, acc)
     t_big = (time.perf_counter() - t0) * 1e3
     per_image.append((batch["labels"].shape[0],
-                      nms_cuda.launches - c0[0],
-                      fused_filter.launches - c0[1]))
+                      *c0.of("nms", "fused_filter")))
     check(per_image[-1][1:] == (1, 1))
     check("probs" in rec and "inter" not in rec,
           "the large image was not pasted back on the host")
@@ -1910,7 +1841,7 @@ def host_modes():
     ev_top.eval_image(b, SegEvalAccumulator())             # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    c0 = (nms_cuda.launches, fused_filter.launches)
+    c0 = Launches()
     t0 = time.perf_counter()
     out = inf_top.predict(b["images"], b["im_hw"], b["labels"])
     torch.cuda.synchronize()
@@ -1923,7 +1854,7 @@ def host_modes():
     ev_top.eval_image(b, acc)
     torch.cuda.synchronize()
     t_eval = (time.perf_counter() - t0) * 1e3
-    top_launches = (nms_cuda.launches - c0[0], fused_filter.launches - c0[1])
+    top_launches = c0.of("nms", "fused_filter")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(top_launches == (0, 2), "test mode 'top' launched NMS")
     log(f"[host-modes] test mode 'top' (rpn_top_n {top.test.rpn_top_n}, E = 2):"
@@ -2063,7 +1994,8 @@ def pretrain_stage(dev):
 
         host_ms, step_ms, steps, per_step, n_gt = [], [], [], [], []
         lanes, undo = record_nms_lanes()
-        nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
+        trained = ("nms", "fused_filter", "fused_filter_bwd")
+        since = Launches()
         try:
             for i in range(5):
                 t0 = time.perf_counter()
@@ -2075,7 +2007,7 @@ def pretrain_stage(dev):
                 if i == 2:
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
-                c0 = launch_counts()
+                c0 = Launches()
                 t0 = time.perf_counter()
                 dev_batch = to_device(batch, dev)
                 if i == 1:
@@ -2095,14 +2027,12 @@ def pretrain_stage(dev):
                 torch.cuda.synchronize()
                 if i >= 2:
                     step_ms.append((time.perf_counter() - t0) * 1e3)
-                per_step.append(tuple(b - a for a, b in
-                                      zip(c0, launch_counts())))
+                per_step.append(c0.of(*trained))
                 steps.append({k: float(v) for k, v in losses.items()})
         finally:
             undo()
-        launched = launch_counts()
-        runs["pretrain"] = dict(zip(("nms", "fused_filter",
-                                     "fused_filter_bwd"), launched))
+        launched = since.of(*trained)
+        runs["pretrain"] = dict(zip(trained, launched))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[pretrain] loader host ms a batch "
             f"{[round(x, 1) for x in host_ms]}; GT boxes a batch {n_gt}; "
@@ -2181,14 +2111,13 @@ def pretrain_stage(dev):
                               for k in missing),
               f"non-language keys missing: {missing}")
         check(not skipped["mismatched"] and not skipped["unexpected"])
-        nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
+        since = Launches()
         t0 = time.perf_counter()
         rlosses = trainer.train(1)
         torch.cuda.synchronize()
         t_resp = (time.perf_counter() - t0) * 1e3
-        rl = launch_counts()
-        runs["recipe_link"] = dict(zip(("nms", "fused_filter",
-                                        "fused_filter_bwd"), rl))
+        rl = since.of(*trained)
+        runs["recipe_link"] = dict(zip(trained, rl))
         log(f"[pretrain] response step on the pretrain weights and the "
             f"prepro'd batch: {t_resp:.1f} ms (first step, loader "
             f"included), launches {rl}, losses "
@@ -2291,21 +2220,20 @@ def comprehension():
     per_image, scores, real = [], [], ev.score_boxes
 
     def counted(images, labels, boxes):
-        c0 = (nms_cuda.launches, fused_filter.launches)
+        c0 = Launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = real(images, labels, boxes)
         torch.cuda.synchronize()
         per_image.append((labels.shape[0], (time.perf_counter() - t0) * 1e3,
-                          nms_cuda.launches - c0[0],
-                          fused_filter.launches - c0[1]))
+                          *c0.of("nms", "fused_filter")))
         scores.append(out)
         return out
     ev.score_boxes = counted
     ev.eval_split(batches[:1])                  # warm-up, not counted
     per_image.clear()
     scores.clear()
-    nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
+    since = Launches()
     gt_res = ev.eval_split(batches)
     gt_runs = list(per_image)
     n_valid = sum(int(b["sent_valid"].sum()) for b in batches)
@@ -2337,8 +2265,7 @@ def comprehension():
             json.dump({"dets": dets}, f)
         dets_loader = DetsLoader(path)
     dets_res = ev.eval_split_dets(batches, dets_loader, max_cands=32)
-    launched = (nms_cuda.launches, fused_filter.launches,
-                fused_filter.bwd_launches)
+    launched = since.of("nms", "fused_filter", "fused_filter_bwd")
     skipped = sum(int(b["sent_valid"].sum()) for b in batches
                   if int(b["image_id"]) in no_dets)
     by_bucket = {}
@@ -2781,23 +2708,22 @@ def mobilenet_pool():
     rcfg.model.pooling_mode = "pool"
     batch = to_wire(rcfg, synthetic_batch(rcfg, 2, 16, seed=0))
     trainer = Trainer(rcfg, FixedBatchLoader([batch]), device="cuda", seed=0)
-    reset_pool_counts()
-    c0 = launch_counts() + pool_launch_counts()
+    kernels = ("nms", "fused_filter", "fused_filter_bwd", "roi_pool",
+               "roi_pool_bwd")
+    since = Launches()
     t0 = time.perf_counter()
     losses = trainer.train(1)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    step = tuple(b - a for a, b in zip(c0, launch_counts()
-                                       + pool_launch_counts()))
+    step = since.of(*kernels)
     log(f"[resnet-pool] one ResNet-101 pool step {ms:.1f} ms (a first "
         f"step), launches {step}, losses "
         f"{ {k: round(v, 4) for k, v in sorted(losses.items())} }")
     check(step == (1, 1, 1, 1, 1) and all(np.isfinite(v)
                                           for v in losses.values()),
           "the ResNet-101 pool step")
-    runs["train_resnet_pool"] = dict(zip(
-        ("nms", "fused_filter", "fused_filter_bwd", "roi_pool",
-         "roi_pool_bwd"), step), **pool_shape_counts())
+    runs["train_resnet_pool"] = dict(zip(kernels, step),
+                                     **since.pool_shapes())
     runs["serve_resnet_pool"] = serve_requests(
         "serve_resnet_pool", rcfg, sizes=((16, 3),),
         model=trainer.state.model)[0]
@@ -2840,19 +2766,15 @@ def demo_and_dumps(dev):
                  "model.pooling_mode", "pool"]
     for tag, sets in (("crop", []), ("pool", pool_sets)):
         out = os.path.join(out_dir, f"demo_{tag}.png")
-        reset_pool_counts()
-        c0 = (nms_cuda.launches, fused_filter.launches,
-              roi_pool_cuda.launches)
+        since = Launches()
         t0 = time.perf_counter()
         res = cli_demo.main(["--variant", "response", "--out", out,
                              "--expression", "the man on the left"]
                             + (["--set", *sets] if sets else []))
         torch.cuda.synchronize()
         ms_main = (time.perf_counter() - t0) * 1e3
-        launched = tuple(b - a for a, b in zip(c0, (
-            nms_cuda.launches, fused_filter.launches,
-            roi_pool_cuda.launches)))
-        shapes = pool_shape_counts()
+        launched = since.of("nms", "fused_filter", "roi_pool")
+        shapes = since.pool_shapes()
         check(launched[:2] == (1, 1) and launched[2] == (2 if sets else 0),
               f"the {tag} demo launched {launched}")
         check_png(out, res["image"])
@@ -3001,18 +2923,16 @@ def graph_vs_eager(path, cfg, k=4, dispatches=3, decay_at=6, num_expr=16,
     weights, batches (4 synthetic ones of 2 images x `num_expr`
     expressions in turn) and generator seed, with an LR decay after step
     `decay_at`: every parameter, momentum buffer, the generator's state
-    and every step's losses bit for bit. The wrappers' counts are set to
-    0 before the graphed run and read after it: the warm step and the
-    capture call each wrapper once a step. The replays run the kernels
-    without the wrappers: their runs are counted by name in the trace of
-    the profiled dispatches, K a dispatch for each kernel of the step.
+    and every step's losses bit for bit. The launch counters count the
+    kernels the card ran: the first dispatch's warm step and K - 1
+    replays a pass each (the capture none); over the profiled dispatches,
+    each kernel's count equals its runs traced by name, K a dispatch.
     Times: eager ms a step over steps K + 1 .. 2K and graphed over
     dispatch 2 (each a window ending in a sync), the capture's s; the idle
     share of the remaining eager steps and of the remaining dispatches
     under torch.profiler; the graphed run's peak memory. With
     `check_sgd`, first `check_sgd_on_card` on the model's groups. Returns
-    the kernels' runs traced in the profiled dispatches (the ROI pool's by
-    the one shape the wrappers saw)."""
+    the graphed run's launches (the ROI pool's by shape)."""
     cfg = copy.deepcopy(cfg)
     cfg.train.stepsize = (decay_at,)
     n = k * dispatches
@@ -3042,44 +2962,38 @@ def graph_vs_eager(path, cfg, k=4, dispatches=3, decay_at=6, num_expr=16,
     eager_busy /= n - 2 * k
     multi = make_multi_train_step(graphed, gg)
     got = []
-    nms_cuda.launches = fused_filter.launches = fused_filter.bwd_launches = 0
-    reset_pool_counts()
-    crops0, crop_shapes0 = crop_counts(), crop_shape_snapshot()
-    bn_act0 = bn_act_shape_snapshot()
+    keys = tuple(COUNTERS)
+    since = Launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     first_ms = timed_window(lambda: got.append(multi(stacked[0])))
+    first = dict(zip(keys, since.of(*keys)))
     graph_ms = timed_window(lambda: got.append(multi(stacked[1]))) / k
+    profiled = Launches()
     _, graph_busy, graph_idle, traced = profiled_window(
         lambda: [got.append(multi(x)) for x in stacked[2:]])
-    bn_act_traced = {key: traced.pop(key) for key in ("bn_act",
-                                                      "bn_act_bwd")}
+    counted = dict(zip(keys, profiled.of(*keys)))
     graph_busy /= k * (dispatches - 2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    keys = ("nms", "fused_filter", "fused_filter_bwd", "roi_pool",
-            "roi_pool_bwd", "roi_crop", "roi_crop_bwd")
-    calls = dict(zip(keys, launch_counts() + pool_launch_counts() + tuple(
-        b - a for a, b in zip(crops0, crop_counts()))))
-    shapes = pool_shape_counts()
     pool = cfg.model.pooling_mode == "pool"
-    want_step = (1, 1, 1) + ((1, 1, 0, 0) if pool else (0, 0, 1, 1))
+    want_step = dict(zip(keys[:7], (1, 1, 1) + (
+        (1, 1, 0, 0) if pool else (0, 0, 1, 1))))
     replays = k * (dispatches - 2)
-    check(calls == {key: 2 * c for key, c in zip(keys, want_step)},
-          f"[{path}] the warm step and the capture called the wrappers "
-          f"{calls} times")
-    check(traced == {key: replays * c for key, c in zip(keys, want_step)},
+    check(all(first[key] == k * c for key, c in want_step.items()),
+          f"[{path}] the first dispatch (a warm step, {k - 1} replays) "
+          f"launched {first}")
+    check(all(traced[key] == replays * c for key, c in want_step.items()),
           f"[{path}] the trace of {replays} replays ran the kernels "
           f"{traced} times")
-    runs = dict(traced)
-    add_traced_crops(crop_shapes0, traced, path)
-    add_traced_bn_act(bn_act0, bn_act_traced, path)
+    check(counted == {key: traced[key] for key in keys},
+          f"[{path}] the counters counted {counted} over the profiled "
+          f"dispatches, their trace ran {traced}")
+    shapes = since.pool_shapes()
     if pool:
-        for key, counter in (("roi_pool", "roi_pool_shapes"),
-                             ("roi_pool_bwd", "roi_pool_bwd_shapes")):
+        for counter in shapes:
             check(len(shapes[counter]) == 1,
                   f"[{path}] ROI pool launches at {dict(shapes[counter])}")
-            runs[counter] = collections.Counter(
-                {shape: traced[key] for shape in shapes[counter]})
+    runs = dict(zip(keys, since.of(*keys)), **shapes)
     params, momentum = same_train_states(eager, graphed)
     gen = torch.equal(ge.get_state(), gg.get_state())
     loss_bits = all(torch.equal(got[j // k][key][j % k], want[j][key])
@@ -3101,9 +3015,9 @@ def graph_vs_eager(path, cfg, k=4, dispatches=3, decay_at=6, num_expr=16,
              "first_dispatch_ms": first_ms, "capture_s": multi.capture_s,
              "eager_busy_ms": eager_busy, "graphed_busy_ms": graph_busy,
              "eager_idle": eager_idle, "graphed_idle": graph_idle,
-             "peak_gib": peak, "wrapper_calls": calls,
-             "traced_launches": traced, "traced_replays": replays,
-             "bn_act_traced": bn_act_traced,
+             "peak_gib": peak, "first_dispatch_launches": first,
+             "traced_launches": traced, "counted_launches": counted,
+             "traced_replays": replays,
              "losses": [{key: float(v) for key, v in w.items()}
                         for w in want]}
     log(f"[{path}] eager {eager_ms:.2f} ms a step (device busy "
@@ -3158,10 +3072,10 @@ def data_parallel_world1():
     single-device `train_step` on the same batch with expr_uid and the same
     generators, bit for bit; then `make_sharded_multi_step` (K = 4, the
     all-reduce captured in the graph), two dispatches, against 8 eager
-    sharded steps, bit for bit. The wrappers count the sharded step's,
-    the warm step's and the capture's calls; the second dispatch runs
-    under torch.profiler and its replays' kernel runs are counted by name.
-    Returns those traced runs."""
+    sharded steps, bit for bit. The counters count the sharded step, the
+    warm step and the replays (the capture nothing); the second dispatch
+    runs under torch.profiler, and each kernel's count over it equals its
+    runs traced by name. Returns the graphed run's launches."""
     cfg = flagship_config()
     batches = [to_device(b, "cuda") for b in uid_batches(cfg, 9)]
     with tempfile.TemporaryDirectory() as tmp:
@@ -3190,10 +3104,9 @@ def data_parallel_world1():
                   "the world-1 sharded step differs from the single step")
             del single
             le += [step_e(b) for b in batches[1:]]
-            nms_cuda.launches = fused_filter.launches = 0
-            fused_filter.bwd_launches = 0
-            crops0, crop_shapes0 = crop_counts(), crop_shape_snapshot()
-            bn_act0 = bn_act_shape_snapshot()
+            keys = ("nms", "fused_filter", "fused_filter_bwd", "roi_crop",
+                    "roi_crop_bwd")
+            since = Launches()
             step_g = make_sharded_train_step(graphed, mesh, *gens["graphed"])
             multi = make_sharded_multi_step(graphed, mesh, *gens["graphed"])
             check(multi.graphed, "the NCCL multi-step is not graphed")
@@ -3207,36 +3120,37 @@ def data_parallel_world1():
                 lg.extend({key: v[j] for key, v in out.items()}
                           for j in range(4))
             dispatch(0)
+            first = dict(zip(keys, since.of(*keys)))
+            profiled = Launches()
             *_, traced = profiled_window(lambda: dispatch(1))
-            calls = dict(zip(("nms", "fused_filter", "fused_filter_bwd",
-                              "roi_crop", "roi_crop_bwd"),
-                             launch_counts() + tuple(
-                                 b - a for a, b in zip(crops0,
-                                                       crop_counts()))))
-            add_traced_crops(crop_shapes0, traced, "dp_world1")
-            add_traced_bn_act(bn_act0, traced, "dp_world1")
+            counted = dict(zip(COUNTERS, profiled.of(*COUNTERS)))
             params, momentum = same_train_states(eager, graphed)
             losses = all(torch.equal(a[key], b[key])
                          for a, b in zip(le, lg) for key in a)
             gen = all(torch.equal(a.get_state(), b.get_state()) for a, b in
                       zip(gens["eager"], gens["graphed"]))
-            launches = {key: traced[key] for key in calls}
+            launches = dict(zip(keys, since.of(*keys)))
             log(f"[dp-world1] a sharded step and 2 graphed dispatches of K = "
                 f"4 (the NCCL all-reduce captured) against 9 eager sharded "
                 f"steps: parameters bit-identical={params}, momentum="
                 f"{momentum}, losses={losses}, generators={gen}; capture "
-                f"{multi.capture_s:.2f} s; wrapper calls {calls}, kernel "
-                f"runs traced in dispatch 2 {traced}")
+                f"{multi.capture_s:.2f} s; launches of the sharded step and "
+                f"dispatch 1 {first}, counted in dispatch 2 {counted}, "
+                f"traced there {traced}")
             check(params and momentum and losses and gen,
                   "the graphed NCCL multi-step differs from eager steps")
-            check(calls == {key: 3 for key in calls},
-                  f"the sharded step, the warm step and the capture called "
-                  f"the wrappers {calls} times")
-            check(launches == {key: 4 for key in calls},
+            check(first == {key: 5 for key in keys},
+                  f"the sharded step, the warm step and 3 replays launched "
+                  f"{first}")
+            check(all(traced[key] == 4 for key in keys),
                   f"the trace of dispatch 2 ran the kernels {traced} times")
+            check(counted == {key: traced[key] for key in COUNTERS},
+                  f"the counters counted {counted} over dispatch 2, its "
+                  f"trace ran {traced}")
             record["dp_world1"] = {"capture_s": multi.capture_s,
-                                   "wrapper_calls": calls,
-                                   "traced_launches": launches}
+                                   "first_launches": first,
+                                   "counted_launches": counted,
+                                   "traced_launches": traced}
             del eager, graphed, multi
         finally:
             dist.destroy_process_group()
@@ -3262,7 +3176,8 @@ def dp_rank_worker(rank, root):
     gloo process group through DIR, the phase's weights and batch from
     DIR on the card; one sharded step on block R (gloo all-reduces the
     card's tensors through the host), the ranks' weights held equal after
-    it, then eval_split_mesh over the mini split. Writes DIR/out<R>.pt."""
+    it, then eval_split_mesh over the mini split. Writes DIR/out<R>.pt,
+    with the step's launches and the rank's launch counts as a record."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
@@ -3280,20 +3195,17 @@ def dp_rank_worker(rank, root):
         step = make_sharded_train_step(state, mesh, gen, sgen)
         block = to_device(shard_batch(payload["batch"], DP_WORLD, rank),
                           "cuda")
-        nms_cuda.launches = fused_filter.launches = 0
-        fused_filter.bwd_launches = 0
-        reset_crop_counts()
-        reset_bn_act_counts()
+        since = Launches()
         losses = step(block)
         torch.cuda.synchronize()
-        launches = launch_counts() + crop_counts()
+        launches = since.of("nms", "fused_filter", "fused_filter_bwd",
+                            "roi_crop", "roi_crop_bwd")
         sync_replicas(state.model, mesh)      # every rank holds rank 0's
         ev = Evaluator(state.model, cfg, device="cuda")
         summary = ev.eval_split_mesh(payload["eval"], mesh)
         out = {"losses": {k: v.cpu() for k, v in losses.items()},
                "launches": launches, "summary": summary,
-               "crop_shapes": crop_shape_snapshot(),
-               "bn_act_shapes": bn_act_shape_snapshot(),
+               "counts": since.record(),
                "gen": gen.get_state(), "sampling": sgen.get_state()}
         if rank == 0:
             opt = state.optimizer
@@ -3315,7 +3227,8 @@ def data_parallel_two_ranks():
     one-process shardwise oracle on the card (each block's gradients in
     turn, averaged, one update): parameters, momentum and losses bit for
     bit; then `eval_split_mesh` over the mini split against one process's
-    `eval_split`, exactly. Returns the ranks' launches."""
+    `eval_split`, exactly. The ranks' launch counts join this process's.
+    Returns the ranks' launches."""
     cfg = flagship_config()
     batch = uid_batches(cfg, 1, blocks=DP_WORLD)[0]
     oracle = create_train_state(cfg, "cuda", seed=0)
@@ -3364,10 +3277,7 @@ def data_parallel_two_ranks():
     check(all(o["launches"] == (1, 1, 1, 1, 1) for o in outs),
           "a rank's step did not launch each kernel once")
     for o in outs:
-        for side, shapes in zip(("fwd", "bwd"), o["crop_shapes"]):
-            CROP_EXTRA[side].update(shapes)
-        for side, shapes in zip(("fwd", "bwd"), o["bn_act_shapes"]):
-            BN_ACT_EXTRA[side].update(shapes)
+        trace.add(o["counts"])
     del oracle
     model = build_model(cfg, device="cuda", state_dict=outs[0]["params"])
     acc = SegEvalAccumulator()
@@ -3448,18 +3358,17 @@ def top_request_16():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    c0 = (nms_cuda.launches, roi_crop_cuda.launches)
-    shapes0 = crop_shape_snapshot()[0]
+    since = Launches()
     t0 = time.perf_counter()
     out = inf.predict(b["images"], b["im_hw"], b["labels"])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     r = cfg.test.rpn_top_n
-    launched = (nms_cuda.launches - c0[0], roi_crop_cuda.launches - c0[1])
+    launched = since.of("nms", "roi_crop")
     key = roi_crop_cuda.shape_key(16, r, cfg.model.pooling_size, 40, 64,
                                   cfg.model.c4_feat_dim, model.compute_dtype)
-    seen = crop_shape_snapshot()[0] - shapes0
+    seen = since.by_shape("roi_crop")
     finite = all(bool(torch.isfinite(out[k].float()).all())
                  for k in ("rois", "cls_prob", "bbox_pred"))
     log(f"[roi-crop] test mode 'top' at E = 16 (R = {r}): predict "
@@ -3529,18 +3438,16 @@ def crop_entries(res, key, regs, launched):
         "kernel": "roi_crop_bwd_kernel", "registers": regs["bwd", dtype]}]
 
 
-def crop_launches(checked, regs, dev):
+def crop_launches(checked, regs, dev, main_path):
     """Phase 31, last: the main path's crop launches by shape, from phase 5
-    to the 'top' request (the wrappers' counts, the traced replays and the
-    gloo ranks'), one entry each forward and backward; a shape phase 31
+    to the 'top' request (`main_path`, the `Launches` since phase 5, with
+    the gloo ranks'), one entry each forward and backward; a shape phase 31
     did not check is checked and timed here on maps of its layout
     (gathered where the backward ran, else distinct). Serving (16, 300),
     training (16, 256), the mask crops and 'top' (16, 5000) must have been
     launched. Returns the entries."""
-    launched = {"fwd": collections.Counter(roi_crop_cuda.shapes),
-                "bwd": collections.Counter(roi_crop_cuda.bwd_shapes)}
-    for side in launched:
-        launched[side].update(CROP_EXTRA[side])
+    launched = {"fwd": main_path.by_shape("roi_crop"),
+                "bwd": main_path.by_shape("roi_crop_bwd")}
     log(f"[roi-crop] main-path launches by (E, R, S, H, W, C, dtype): "
         f"forward {dict(launched['fwd'])}, backward "
         f"{dict(launched['bwd'])}")
@@ -3605,14 +3512,11 @@ def bn_act_request_and_step():
     def predict():
         return inf.predict(b["images"], b["im_hw"], b["labels"])
 
-    def counts():
-        return bn_act_cuda.launches, bn_act_cuda.bwd_launches
-
     def launched(fn):
-        c0 = counts()
+        since = Launches()
         out = fn()
         torch.cuda.synchronize()
-        return out, tuple(b - a for a, b in zip(c0, counts()))
+        return out, since.of("bn_act", "bn_act_bwd")
     fused, (served, _) = launched(predict)
     with profile_bn_act.unfused():
         plain, unfused_launched = launched(predict)
@@ -3648,15 +3552,14 @@ def bn_act_request_and_step():
     return {"request_launches": served, "step_launches": list(step)}
 
 
-def bn_act_launches():
+def bn_act_launches(main_path):
     """After phase 31, before phase 32: the main path's frozen-BatchNorm
-    launches by `bn_act_cuda.shape_key` from phase 5 on (the wrappers'
-    counts, the traced replays and the gloo ranks'), forward and
+    launches by `bn_act_cuda.shape_key` from phase 5 on (`main_path`, the
+    `Launches` since phase 5, with the gloo ranks'), forward and
     backward."""
-    launched = {"fwd": collections.Counter(bn_act_cuda.shapes),
-                "bwd": collections.Counter(bn_act_cuda.bwd_shapes)}
+    launched = {"fwd": main_path.by_shape("bn_act"),
+                "bwd": main_path.by_shape("bn_act_bwd")}
     for side in launched:
-        launched[side].update(BN_ACT_EXTRA[side])
         log(f"[bn-act] main-path {side} launches by (N, C, H, W, mode, "
             f"dtype): {dict(launched[side])}")
     check(set(launched["bwd"]) <= set(launched["fwd"]),
@@ -3755,10 +3658,9 @@ def main():
     regs = gate_registers()
     kernels = check_nms(dev) + check_gate(dev, regs) + [
         check_gate_bwd(dev, regs)]
-    # the crop and frozen-BatchNorm kernels' counts run from here to phase
-    # 31 (`crop_launches`, `bn_act_launches`)
-    reset_crop_counts()
-    reset_bn_act_counts()
+    # the crop and frozen-BatchNorm kernels' launches from here to phase 31
+    # (`crop_launches`, `bn_act_launches`)
+    main_path = Launches()
     runs = {"serve": serve_full_width()}
     small_reference()
     # the phase-7 trainer is dropped here, so that phase 9's peak memory
@@ -3803,8 +3705,8 @@ def main():
     runs["dp_gloo"] = data_parallel_two_ranks()
     pool_kernels += pool_launches(runs, pool_kernels, dev, pool_regs)
     crop_checked, crop_regs = check_crop(dev)
-    crop_kernels = crop_launches(crop_checked, crop_regs, dev)
-    bn_act_kernels = check_bn_act(dev, bn_act_launches())
+    crop_kernels = crop_launches(crop_checked, crop_regs, dev, main_path)
+    bn_act_kernels = check_bn_act(dev, bn_act_launches(main_path))
     graphed_head(dev)
     for kr in kernels:
         kr["launches"] = sum(runs[path].get(counter, 0)

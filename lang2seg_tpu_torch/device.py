@@ -1,12 +1,15 @@
-"""Device selection for the port's entry points, and small constants
-kept on a device."""
+"""Device selection for the port's entry points, small constants kept
+on a device, and the capture of a CUDA graph."""
 
 from __future__ import annotations
 
+import collections
 import functools
-from typing import Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+
+from .utils import trace
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -33,3 +36,30 @@ def device_constant(values, device) -> torch.Tensor:
     write to it. A copy from pageable host memory synchronises the host
     with the stream, so a training step copies nothing."""
     return _constant(tuple(float(v) for v in values), str(device))
+
+
+def capture_graph(fn: Callable, pool=None, generators: Sequence = (),
+                  warm: Optional[Callable] = None
+                  ) -> Tuple["torch.cuda.CUDAGraph", object,
+                             collections.Counter]:
+    """Captures `fn()` as a CUDA graph on the current device: on a side
+    stream that waits on the current one (after `warm()` there, if
+    given), in `pool` (a new one if None), with `generators` registered,
+    capture errors thread-local (other threads may copy or pin memory
+    meanwhile); the current stream waits on the side stream after.
+    Returns (graph, fn's output, the capture's record): the capture runs
+    no kernel, so its counts go to the record (`utils/trace.py`), which
+    each replay adds with `trace.add`."""
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    if warm is not None:
+        with torch.cuda.stream(side):
+            warm()
+    with trace.recording() as record, torch.cuda.graph(
+            graph, pool=pool, stream=side, capture_error_mode="thread_local"):
+        out = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph, out, record

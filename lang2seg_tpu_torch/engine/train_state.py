@@ -28,8 +28,9 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..device import resolve_device
+from ..device import capture_graph, resolve_device
 from ..models.network import Lang2Seg, build_model
+from ..utils import trace
 from ..utils.trace import span
 from .optimizer import build_optimizer, clip_by_global_norm_, set_lr
 
@@ -170,9 +171,9 @@ class MultiStep:
     for the rest; later calls replay it for every batch. A batch of other
     shapes or dtypes raises, and so does a capture that fails. On the CPU
     the call takes K eager steps. `capture_s` holds the capture's wall
-    time. A hand kernel's wrapper counts its launch when the capture
-    records it; the replays run the kernels without the wrappers, so they
-    count nowhere (chip_smoke.py counts them in a profiler trace)."""
+    time. The hand kernels' launches count as the kernels run
+    (`utils/trace.py`): the warm step's as an eager step's, the capture's
+    not at all, and each replay adds the capture's record."""
 
     def __init__(self, state: TrainState, generator, sampling_generator=None,
                  reduce: Optional[ReduceFn] = None):
@@ -182,6 +183,7 @@ class MultiStep:
         self.reduce = reduce
         self.graphed = next(state.model.parameters()).device.type == "cuda"
         self.graph = None
+        self.record = None
         self.capture_s = None
         self._static: Dict[str, torch.Tensor] = {}
         self._keys: List[str] = []
@@ -200,18 +202,14 @@ class MultiStep:
         self._static = {k: v.clone() for k, v in batch.items()}
         t0 = time.perf_counter()
         torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        for g in gens:
-            graph.register_generator_state(g)
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.graph(graph, stream=stream,
-                              capture_error_mode="thread_local"):
+
+        def step():
             losses = _step_body(self.state, self._static, self.generator,
                                 None, self.sampling_generator, self.reduce)
             self._keys = sorted(losses)
-            self._loss_vec = torch.stack([losses[k] for k in self._keys])
-        torch.cuda.current_stream().wait_stream(stream)
+            return torch.stack([losses[k] for k in self._keys])
+        graph, self._loss_vec, self.record = capture_graph(
+            step, generators=gens)
         torch.cuda.synchronize()
         self.capture_s = time.perf_counter() - t0
         self.graph = graph
@@ -230,6 +228,7 @@ class MultiStep:
             buf.copy_(v)
         set_lr(self.state.optimizer, self.state.model.cfg, self.state.step)
         self.graph.replay()
+        trace.add(self.record)
         self.state.step += 1
         return self._loss_vec
 

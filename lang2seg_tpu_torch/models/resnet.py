@@ -39,6 +39,7 @@ CPU run eager.
 from __future__ import annotations
 
 import collections
+import functools
 import weakref
 from typing import Dict, NamedTuple
 
@@ -46,9 +47,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import bn_act_cuda
+from ..device import capture_graph
 from ..ops.bn_act_cuda import bn_act
-from ..utils.trace import count
+from ..utils import trace
 
 STAGE_BLOCKS = {
     "resnet26": (1, 1, 1, 1),   # test-only tiny depth
@@ -131,9 +132,9 @@ class _HeadGraph(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     static_in: torch.Tensor
     static_out: torch.Tensor
-    # the bn_act launches of one pass by shape, which each replay counts
-    # again: it runs the kernels without their wrapper
-    bn_act_shapes: collections.Counter
+    # the counts of the captured pass, which each replay adds: it runs the
+    # kernels without their wrappers
+    record: collections.Counter
 
 
 class _Graphs:
@@ -218,8 +219,9 @@ class ResNetC4(nn.Module):
         """Copies `images` into the input of the graph captured at their
         (shape, dtype, device), capturing it first if need be, replays it
         and returns a copy of its output: an earlier call's result is never
-        overwritten. Counts `backbone.graph_replays`, or
-        `backbone.graph_eager` past `GRAPH_KEYS` keys."""
+        overwritten. Counts `backbone.graph_replays` and the captured
+        pass's launches, or `backbone.graph_eager` past `GRAPH_KEYS`
+        keys."""
         g = _GRAPHS.get(self)
         if g is None:
             g = _GRAPHS[self] = _Graphs(self)
@@ -231,40 +233,31 @@ class ResNetC4(nn.Module):
         hit = g.by_key.get(key)
         if hit is None:
             if len(g.by_key) >= GRAPH_KEYS:
-                count("backbone.graph_eager")
+                trace.count("backbone.graph_eager")
                 return self._head(images)
             hit = g.by_key[key] = self._capture(images, g)
         hit.static_in.copy_(images)
         hit.graph.replay()
-        count("backbone.graph_replays")
-        bn_act_cuda.count_replayed(hit.bn_act_shapes)
+        trace.count("backbone.graph_replays")
+        trace.add(hit.record)
         return hit.static_out.clone()
 
     def _capture(self, images: torch.Tensor, g: _Graphs) -> _HeadGraph:
-        """The head at `images`' key as a CUDA graph in `g`'s pool: an
-        eager pass on a side stream first (cuDNN chooses its algorithms,
-        the kernels' launch state is cached), then the capture, with
-        thread-local errors (the evaluator's staging thread copies and pins
-        memory meanwhile). The capture counts one pass, as the train
-        step's capture does (`engine/train_state.py::MultiStep`)."""
+        """The head at `images`' key as a CUDA graph in `g`'s pool
+        (`device.capture_graph`), after an eager pass on the side stream
+        (cuDNN chooses its algorithms, the kernels' launch state is
+        cached), which counts as the pass it is; the capture counts
+        nothing."""
         with torch.cuda.device(images.device):
             static_in = torch.empty_like(
                 images, memory_format=torch.contiguous_format).copy_(images)
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self._head(static_in)
-            torch.cuda.current_stream().wait_stream(side)
             if g.pool is None:
                 g.pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-            shapes0 = collections.Counter(bn_act_cuda.shapes)
-            with torch.cuda.graph(graph, pool=g.pool, stream=side,
-                                  capture_error_mode="thread_local"):
-                static_out = self._head(static_in)
-        count("backbone.graph_captures")
-        return _HeadGraph(graph, static_in, static_out,
-                          bn_act_cuda.shapes - shapes0)
+            head = functools.partial(self._head, static_in)
+            graph, static_out, record = capture_graph(head, pool=g.pool,
+                                                      warm=head)
+        trace.count("backbone.graph_captures")
+        return _HeadGraph(graph, static_in, static_out, record)
 
     def tail(self, pool5: torch.Tensor) -> torch.Tensor:
         """(R, S, S, 1024) -> spatial_fc7 (R, S, S, 2048)."""

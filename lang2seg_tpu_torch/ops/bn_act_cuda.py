@@ -14,20 +14,15 @@ activation's dtype where the composition rounds it. The backward reads
 the saved output only, as `F.relu`'s does.
 
 No Pallas kernel precedes them: the JAX package leaves BatchNorm, residual
-and ReLU to XLA's fusion. `launches` / `bwd_launches` count the two C
-entries' launches through `bn_act_forward` / `bn_act_backward` (also the
-process counters `bn_act.launches` / `bn_act.bwd_launches`, under the
-spans `l2s.bn_act` / `l2s.bn_act_bwd`); `shapes` and `bwd_shapes` count
-the same launches by `shape_key`. The ResNet head's graph replays
-(`models/resnet.py`) run forward kernels without the wrapper and count
-them in all three through `count_replayed`. `launch_forward` /
-`launch_backward` launch without counting, for tools that compare or time
-the kernels.
+and ReLU to XLA's fusion. `bn_act_forward` / `bn_act_backward` count
+the two C entries' launches in `bn_act.launches` / `bn_act.bwd_launches`
+by `shape_key` (`utils/trace.py`), under the spans `l2s.bn_act` /
+`l2s.bn_act_bwd`. `launch_forward` / `launch_backward` launch without
+counting, for tools that compare or time the kernels.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import weakref
@@ -38,11 +33,6 @@ import torch.nn.functional as F
 
 from ..utils.trace import count, span
 from . import _build
-
-launches = 0
-bwd_launches = 0
-shapes: collections.Counter = collections.Counter()
-bwd_shapes: collections.Counter = collections.Counter()
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _CL = torch.channels_last
@@ -83,8 +73,8 @@ def _mode(other, bn_d) -> int:
 
 
 def shape_key(t: torch.Tensor, mode: int) -> Tuple:
-    """The key of `shapes` / `bwd_shapes` for a launch on the (N, C, H, W)
-    map `t` in `mode` (0 ReLU only, 1 residual, 2 downsample branch)."""
+    """The key a launch on the (N, C, H, W) map `t` in `mode` counts under
+    (0 ReLU only, 1 residual, 2 downsample branch)."""
     return (*t.shape, mode, str(t.dtype).split(".")[-1])
 
 
@@ -192,36 +182,17 @@ def launch_backward(g: torch.Tensor, out: torch.Tensor, bn, bn_d=None,
 
 @span("l2s.bn_act")
 def bn_act_forward(x, bn, other=None, bn_d=None):
-    """`launch_forward`, counted in `launches`, `shapes` and
-    `bn_act.launches`."""
+    """`launch_forward`, counted in `bn_act.launches`."""
     out = launch_forward(x, bn, other, bn_d)
-    global launches
-    launches += 1
-    shapes[shape_key(x, _mode(other, bn_d))] += 1
-    count("bn_act.launches")
+    count("bn_act.launches", key=shape_key(x, _mode(other, bn_d)))
     return out
-
-
-def count_replayed(by_shape: collections.Counter) -> None:
-    """Counts the forward kernels a CUDA graph's replay ran, given by
-    `shape_key` (the wrapper's counts of the pass it captured), where the
-    wrapper counts its launches."""
-    global launches
-    n = sum(by_shape.values())
-    launches += n
-    shapes.update(by_shape)
-    count("bn_act.launches", n)
 
 
 @span("l2s.bn_act_bwd")
 def bn_act_backward(g, out, bn, bn_d, mode, need_x, need_2):
-    """`launch_backward`, counted in `bwd_launches`, `bwd_shapes` and
-    `bn_act.bwd_launches`."""
+    """`launch_backward`, counted in `bn_act.bwd_launches`."""
     grads = launch_backward(g, out, bn, bn_d, mode, need_x, need_2)
-    global bwd_launches
-    bwd_launches += 1
-    bwd_shapes[shape_key(out, mode)] += 1
-    count("bn_act.bwd_launches")
+    count("bn_act.bwd_launches", key=shape_key(out, mode))
     return grads
 
 

@@ -16,11 +16,11 @@ On the card the bf16 forward takes its f32 products on the tensor cores,
 the filter split into a hi and a lo bf16 part. `tile_plan` is how the
 wrapper cuts a map into persistent blocks for both kernels, from the
 tiling each kernel reports (`fused_filter_tiling`); `plans` keeps the plan
-of each kernel's last launch. `launches` and `bwd_launches` count the two
-kernels' launches. The forward reads one map per `exprs_per_map`
-consecutive expressions (an eval dispatch of N images x S expressions
-reads each image's map in place, S = exprs_per_map); the backward takes
-one map an expression (or one map for all of them).
+of each kernel's last launch. Their launches count `gate.launches` and
+`gate.bwd_launches` (`utils/trace.py`). The forward reads one map per
+`exprs_per_map` consecutive expressions (an eval dispatch of N images x
+S expressions reads each image's map in place, S = exprs_per_map); the
+backward takes one map an expression (or one map for all of them).
 """
 
 from __future__ import annotations
@@ -31,11 +31,9 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..utils.trace import span
+from ..utils.trace import count, span
 from . import _build
 
-launches = 0
-bwd_launches = 0
 plans: Dict[str, Dict[str, object]] = {}
 
 
@@ -121,31 +119,21 @@ def fused_dynamic_filter_bwd_plain(net_conv: torch.Tensor, filt: torch.Tensor,
     return d_conv.to(net_conv.dtype), d_filt, d_rfilt
 
 
-def _bind(lib, earlier: bool = False):
+def _bind(lib):
     """Declare the C entries' argument types on a loaded library built from
-    `csrc/fused_filter.cu`: the port's or a variant, or with `earlier` a
-    source from before the wrapper planned the grids, whose forward
-    (`fused_filter_launch`) takes no `blocks` nor `exprs_per_map` and which
-    reports no tiling."""
+    `csrc/fused_filter.cu` (the port's or a variant)."""
     p = ctypes.c_void_p
     i = ctypes.c_int
-    if earlier:
-        lib.fused_filter_launch.argtypes = [
-            p, ctypes.c_longlong, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-            p, p, p]
-        lib.fused_filter_launch.restype = ctypes.c_int
-    else:
-        lib.fused_filter_grouped_launch.argtypes = [
-            p, ctypes.c_longlong, i, p, p, i, i, i, i, i, i, i,
-            ctypes.c_float, i, p, p, p]
-        lib.fused_filter_grouped_launch.restype = ctypes.c_int
+    lib.fused_filter_grouped_launch.argtypes = [
+        p, ctypes.c_longlong, i, p, p, i, i, i, i, i, i, i, ctypes.c_float,
+        i, p, p, p]
+    lib.fused_filter_grouped_launch.restype = ctypes.c_int
     lib.fused_filter_bwd_launch.argtypes = [
         p, ctypes.c_longlong, p, p, p, p, p, i, i, i, i, i, i, i,
         ctypes.c_float, i, p, p, p, p, p, p]
     lib.fused_filter_bwd_launch.restype = ctypes.c_int
-    if not earlier:
-        lib.fused_filter_tiling.argtypes = [i, i, i, p]
-        lib.fused_filter_tiling.restype = ctypes.c_int
+    lib.fused_filter_tiling.argtypes = [i, i, i, p]
+    lib.fused_filter_tiling.restype = ctypes.c_int
     return lib
 
 
@@ -263,8 +251,7 @@ def _launch_forward(lib, blocks, net_conv, filt, rfilt, num_filters, gate,
                     normalize, exprs_per_map=1):
     """Check CUDA inputs and launch `lib`'s forward with `blocks` blocks
     per expression on the current stream, expression e reading map
-    e // exprs_per_map (`blocks` None: an earlier source's entry, which
-    plans its own grid and reads one map an expression)."""
+    e // exprs_per_map."""
     s0 = _check_inputs(net_conv, filt, rfilt, num_filters, gate,
                        "fused_dynamic_filter", exprs_per_map)
     _, h, w, c = net_conv.shape
@@ -280,19 +267,12 @@ def _launch_forward(lib, blocks, net_conv, filt, rfilt, num_filters, gate,
             int(net_conv.dtype == torch.bfloat16), int(gate == "sigmoid"),
             scale)
     out = (gated.data_ptr(), resp.data_ptr(), stream)
-    if blocks is None:
-        if exprs_per_map != 1:
-            raise ValueError("fused_dynamic_filter: an earlier source reads "
-                             "one map an expression")
-        rc = lib.fused_filter_launch(net_conv.data_ptr(), s0, *args, *out)
-    else:
-        rc = lib.fused_filter_grouped_launch(
-            net_conv.data_ptr(), s0, exprs_per_map, *args, blocks, *out)
+    rc = lib.fused_filter_grouped_launch(
+        net_conv.data_ptr(), s0, exprs_per_map, *args, blocks, *out)
     if rc != 0:
         raise RuntimeError(f"fused_filter kernel launch failed: cudaError "
                            f"{rc}")
-    global launches
-    launches += 1
+    count("gate.launches")
     return gated, resp
 
 
@@ -369,8 +349,7 @@ def _launch_backward(lib, blocks, net_conv, filt, rfilt, fused, d_gated,
     if rc != 0:
         raise RuntimeError(f"fused_filter backward kernel launch failed: "
                            f"cudaError {rc}")
-    global bwd_launches
-    bwd_launches += 1
+    count("gate.bwd_launches")
     return d_conv, d_filt, d_rfilt
 
 

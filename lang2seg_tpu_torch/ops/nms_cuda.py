@@ -6,7 +6,7 @@ Replaces the TPU kernel `lang2seg_tpu/ops/nms_pallas.py::
 nms_pallas_batched`; same wire format (see `nms.py`). The kernel is one
 launch with no device scratch: a thread-block cluster per lane walks the
 boxes in tiles of 64 against a frontier of kept boxes in shared memory.
-`launches` counts the kernel's launches.
+Each launch counts `nms.launches` (`utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -16,11 +16,9 @@ import functools
 
 import torch
 
-from ..utils.trace import span
+from ..utils.trace import count, span
 from . import _build
 from .nms import nms_padded
-
-launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,8 +71,7 @@ def _launch(boxes, valid, iou_thresh, max_out, cluster):
                                stream)
     if rc != 0:
         raise RuntimeError(f"nms kernel launch failed: cudaError {rc}")
-    global launches
-    launches += 1
+    count("nms.launches")
     return keep_idx, keep_mask
 
 

@@ -25,28 +25,22 @@ element is summed in the one order (ROI, sample column) of
 
 `band_plan` is how the wrapper's backward cuts the maps: pixels a warp
 (4, or 1 for a launch of few warps), warps a row, channels a slab.
-`launches` and `bwd_launches` count the two C entries' launches through
-`roi_crop_forward` / `roi_crop_backward`; `shapes` and `bwd_shapes` count
-the same launches by `shape_key`. `launch_forward` / `launch_backward`
-launch without counting, for tools that compare or time the kernels.
+`roi_crop_forward` / `roi_crop_backward` count their launches in
+`roi_crop.launches` / `roi_crop.bwd_launches` by `shape_key`
+(`utils/trace.py`). `launch_forward` / `launch_backward` launch without
+counting, for tools that compare or time the kernels.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import Dict, Tuple
 
 import torch
 
-from ..utils.trace import span
+from ..utils.trace import count, span
 from . import _build
-
-launches = 0
-bwd_launches = 0
-shapes: collections.Counter = collections.Counter()
-bwd_shapes: collections.Counter = collections.Counter()
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the backward's pixels of a row a warp (a CTA of one warp): 4, or 1 where
@@ -92,8 +86,8 @@ def band_plan(h: int, w: int, c: int, dtype: torch.dtype, s: int = 7,
 
 def shape_key(e: int, r: int, s: int, h: int, w: int, c: int,
               dtype: torch.dtype) -> Tuple:
-    """The key of `shapes` / `bwd_shapes` for a crop of (E, R, 4) ROIs
-    at S x S samples from (E, H, W, C) maps of `dtype`."""
+    """The key a launch counts under for a crop of (E, R, 4) ROIs at
+    S x S samples from (E, H, W, C) maps of `dtype`."""
     return (e, r, s, h, w, c, str(dtype).split(".")[-1])
 
 
@@ -155,12 +149,11 @@ def launch_forward(feat: torch.Tensor, ys: torch.Tensor,
 @span("l2s.roi_crop_fwd")
 def roi_crop_forward(feat: torch.Tensor, ys: torch.Tensor,
                      xs: torch.Tensor) -> torch.Tensor:
-    """`launch_forward`, counted in `launches` and `shapes`."""
+    """`launch_forward`, counted in `roi_crop.launches`."""
     out = launch_forward(feat, ys, xs)
-    global launches
-    launches += 1
     e, h, w, c = feat.shape
-    shapes[shape_key(e, ys.shape[1], ys.shape[2], h, w, c, feat.dtype)] += 1
+    count("roi_crop.launches", key=shape_key(e, ys.shape[1], ys.shape[2], h,
+                                             w, c, feat.dtype))
     return out
 
 
@@ -197,10 +190,9 @@ def launch_backward(grad: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
 @span("l2s.roi_crop_bwd")
 def roi_crop_backward(grad: torch.Tensor, ys: torch.Tensor,
                       xs: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """`launch_backward`, counted in `bwd_launches` and `bwd_shapes`."""
+    """`launch_backward`, counted in `roi_crop.bwd_launches`."""
     dfeat = launch_backward(grad, ys, xs, h, w)
-    global bwd_launches
-    bwd_launches += 1
     e, r, s, _, c = grad.shape
-    bwd_shapes[shape_key(e, r, s, h, w, c, grad.dtype)] += 1
+    count("roi_crop.bwd_launches",
+          key=shape_key(e, r, s, h, w, c, grad.dtype))
     return dfeat

@@ -13,27 +13,22 @@ slab in shared memory, or the global scan for a map beyond it), the
 backward's bands of rows, and the argmax's code type. The argmax is the
 kernels' own: a bin-local offset of one or two bytes, slab-major
 (`encode_argmax` is its plain version, `decode_argmax` turns it back into
-y * W + x). `launches` and `bwd_launches` count the two C entries'
-launches; `shapes` and `bwd_shapes` count the same launches by
-`shape_key`, whose last field is the kernel the launch ran.
+y * W + x). `roi_pool_forward` / `roi_pool_backward` count their
+launches in `roi_pool.launches` / `roi_pool.bwd_launches` by `shape_key`
+(`utils/trace.py`), whose last field is the kernel the launch ran.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..utils.trace import count
 from . import _build
 from .roi_align import roi_max_pool_argmax_plain, roi_pool_bins
-
-launches = 0
-bwd_launches = 0
-shapes: collections.Counter = collections.Counter()
-bwd_shapes: collections.Counter = collections.Counter()
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # dynamic shared memory a block of the kernels takes at most: the 227 KiB
@@ -184,10 +179,9 @@ def _check_map(feat: torch.Tensor) -> None:
 
 def shape_key(e: int, r: int, pooled: int, h: int, w: int, c: int,
               dtype: torch.dtype, with_argmax: bool, kernel: str) -> Tuple:
-    """The key of `shapes` / `bwd_shapes` for a launch on (E, H, W, C)
-    maps of `dtype` with (E, R, 4) ROIs; its last field is the kernel the
-    launch ran (the forward's `forward_kernel` name, the backward's
-    `slab_plan` route)."""
+    """The key a launch on (E, H, W, C) maps of `dtype` with (E, R, 4)
+    ROIs counts under; its last field is the kernel the launch ran (the
+    forward's `forward_kernel` name, the backward's `slab_plan` route)."""
     return (e, r, pooled, h, w, c, str(dtype).split(".")[-1],
             bool(with_argmax), kernel)
 
@@ -214,10 +208,8 @@ def roi_pool_forward(feat: torch.Tensor, rois: torch.Tensor, pooled: int,
         torch.cuda.current_device() if index is None else index))
     out, codes = launch_forward(feat, rois, pooled, spatial_scale, route,
                                 arg, with_argmax)
-    global launches
-    launches += 1
-    shapes[shape_key(e, r, pooled, h, w, c, feat.dtype, with_argmax,
-                     kernel)] += 1
+    count("roi_pool.launches", key=shape_key(e, r, pooled, h, w, c,
+                                             feat.dtype, with_argmax, kernel))
     return out, codes
 
 
@@ -284,10 +276,8 @@ def roi_pool_backward(grad: torch.Tensor, codes: torch.Tensor,
             dfeat.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"roi_pool backward launch failed: cudaError {rc}")
-    global bwd_launches
-    bwd_launches += 1
-    bwd_shapes[shape_key(e, r, pooled, h, w, c, feat.dtype, True,
-                         plan["backward"]["route"])] += 1
+    count("roi_pool.bwd_launches", key=shape_key(
+        e, r, pooled, h, w, c, feat.dtype, True, plan["backward"]["route"]))
     return dfeat
 
 

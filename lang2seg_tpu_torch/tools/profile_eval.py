@@ -47,7 +47,6 @@ from ..config import Config, flagship_config
 from ..data.synthetic import synthetic_batch, uint8_canvas
 from ..engine.evaluator import Evaluator
 from ..models.network import build_model
-from ..ops import fused_filter, nms_cuda
 from ..utils.metrics import SegEvalAccumulator
 from ..utils.trace import counters
 
@@ -125,14 +124,17 @@ def checked_pass(ev: Evaluator, batches, k: int, staged: bool) -> Dict:
     sentence's selected box and I / U pixel counts (`sentences`, keyed
     "image:sentence" by the image's place in the pass and the sentence's
     slot). The kernels'
-    launch counts are set to 0 before the pass and read after it
-    (`launches`)."""
+    launches over the pass are the counters' change (`launches`)."""
     real, real_drain = ev._dispatch_staged, ev._drain_chunk
     spans, syncs, sentences = [], [], {}
     uid0 = ev._rng_uid
 
+    def launches():
+        c = counters()
+        return c.get("nms.launches", 0), c.get("gate.launches", 0)
+
     def recorded(st):
-        c0 = (nms_cuda.launches, fused_filter.launches)
+        c0 = launches()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -147,8 +149,7 @@ def checked_pass(ev: Evaluator, batches, k: int, staged: bool) -> Dict:
         syncs.extend(str(w.message) for w in caught if
                      "synchronizing CUDA operation" in str(w.message))
         spans.append((len(st["chunk"]), st["s"],
-                      nms_cuda.launches - c0[0],
-                      fused_filter.launches - c0[1], start, end))
+                      *(b - a for a, b in zip(c0, launches())), start, end))
         return rec
 
     def drained(rec, acc):
@@ -167,7 +168,7 @@ def checked_pass(ev: Evaluator, batches, k: int, staged: bool) -> Dict:
     torch.cuda.reset_peak_memory_stats()
     bytes0 = counters().get("eval.h2d_bytes", 0)
     ev._dispatch_staged, ev._drain_chunk = recorded, drained
-    nms_cuda.launches = fused_filter.launches = 0
+    launches0 = launches()
     t0 = time.perf_counter()
     try:
         ev.eval_split(batches, images_per_dispatch=k, stage_uploads=staged,
@@ -178,7 +179,8 @@ def checked_pass(ev: Evaluator, batches, k: int, staged: bool) -> Dict:
     return {"state": _state(acc), "summary": acc.summary(),
             "sentences": sentences,
             "seconds": time.perf_counter() - t0,
-            "launches": (nms_cuda.launches, fused_filter.launches),
+            "launches": tuple(b - a for a, b in zip(launches0,
+                                                    launches())),
             "dispatches": [(n, s, nms, gate, a.elapsed_time(b))
                            for n, s, nms, gate, a, b in spans],
             "host_syncs": syncs,

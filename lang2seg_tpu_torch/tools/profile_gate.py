@@ -1,37 +1,30 @@
 """The fused gate's two kernels on the card, at the main path's shapes.
 
     python -m lang2seg_tpu_torch.tools.profile_gate [--reps 50]
-        [--baseline path/to/an/earlier/fused_filter.cu]
 
 Shapes (`SHAPES`): the forward as served, (16, 40, 64, 1024) bf16 through
 a stride-0 map (all expressions of one image share its C4 map), K=7
 sigmoid gate, normalized response; the forward and the backward as
 trained, the same shape gathered from 2 images (a contiguous map per
 expression). For each kernel and shape: its bound (`gate_bound`), then
-each version checked against the plain version with `chip_smoke.py`'s
+the kernel checked against the plain version with `chip_smoke.py`'s
 tolerances, the response within 1e-5 of its max as for bf16 maps there
-(a version that fails or is out of tolerance is reported, left out of
-the timing, and fails the run at its end), then timed three
-ways, in turns (each version, then each in reverse order): CUDA events
-over back-to-back calls, the device time of back-to-back calls
-(`profile_nms.device_ms`; the L2 is warm, as when the backbone has just
-written the map), and the device time of single calls with the 50 MB L2
-flushed before each (`cold_device_ms`). With `--baseline`, an earlier
-`fused_filter.cu` from before the wrapper planned the forward's grid
-(its `fused_filter_launch` takes no `blocks`; e.g. `git show
-<commit>:lang2seg_tpu_torch/csrc/fused_filter.cu`) is built and timed
-beside the port's; its backward gets the tile count its own wrapper
-gave it (`BASELINE_TILES`). Then each kernel's registers and spills
-(`-Xptxas -v`, from build.log) and the cycles a step of each phase, from
-the build with -DFUSED_FILTER_PHASE_CLOCKS. Prints one JSON line last.
-Needs a CUDA device.
+(a kernel that fails or is out of tolerance is reported, left out of
+the timing, and fails the run at its end), then timed three ways,
+twice: CUDA events over back-to-back calls, the device time of
+back-to-back calls (`profile_nms.device_ms`; the L2 is warm, as when the
+backbone has just written the map), and the device time of single calls
+with the 50 MB L2 flushed before each (`cold_device_ms`). Then each
+kernel's registers and spills (`-Xptxas -v`, from build.log) and the
+cycles a step of each phase, from the build with
+-DFUSED_FILTER_PHASE_CLOCKS. Prints one JSON line last. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import re
 import subprocess
@@ -157,29 +150,6 @@ def cold_device_ms(fn, reps, spin_cycles=40_000_000):
     return sum(a.elapsed_time(b) for a, b in evs) / reps
 
 
-def load_source(path, tag):
-    """An earlier fused_filter.cu built with the port's flags beside the
-    port's own libraries: (library with its C entries declared, path of
-    the compiler's log)."""
-    src = Path(path).read_bytes()
-    flags = _build._flags("fused_filter")
-    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    lib_path = _build.BUILD_DIR / f"{tag}-{key}" / "libfused_filter.so"
-    if not lib_path.exists():
-        lib_path.parent.mkdir(parents=True, exist_ok=True)
-        log = subprocess.run([_build._nvcc(), *flags, "-o", str(lib_path),
-                              str(path)], capture_output=True, check=True)
-        lib_path.with_name("build.log").write_bytes(log.stdout + log.stderr)
-    return (fused_filter._bind(ctypes.CDLL(str(lib_path)), earlier=True),
-            lib_path.with_name("build.log"))
-
-
-def BASELINE_TILES(e, h, w, sms):
-    """Blocks per expression that the earlier wrapper (before the
-    persistent kernels) gave its backward: about two blocks per SM."""
-    return max(1, min(-(-2 * sms // e), h * w))
-
-
 def kernel_registers(log_path):
     """{kernel: (registers, stack frame bytes, spill store bytes, spill
     load bytes)} from an `nvcc -Xptxas -v` log, kernel names demangled
@@ -236,7 +206,6 @@ def phase_cycles(calls):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--baseline", default=None)
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -251,9 +220,6 @@ def main(argv=None):
     libs = {"port": fused_filter._lib()}
     logs = {"port": _build.library_path("fused_filter").with_name(
         "build.log")}
-    if args.baseline:
-        base, logs["baseline"] = load_source(args.baseline, "baseline")
-        libs = {"baseline": base, **libs}
     result = {"device": smi, "sms": sms, "kernels": {},
               "registers": {v: kernel_registers(p) for v, p in logs.items()}}
     wrong = []                 # versions that failed or are out of tolerance
@@ -271,22 +237,15 @@ def main(argv=None):
         kinds = {"forward": (gate_bound, fused_filter._launch_forward, fargs,
                              want_f)}
         if maps == "gathered":
-            kinds["backward"] = (gate_bwd_bound, None, bargs,
-                                 fused_dynamic_filter_bwd_plain(*bargs))
+            kinds["backward"] = (gate_bwd_bound, fused_filter._launch_backward,
+                                 bargs, fused_dynamic_filter_bwd_plain(*bargs))
         for kind, (bound_fn, launch, a, want) in kinds.items():
             bound, by, byts, ops = bound_fn(e, h, w, c, k, 2, nmaps)
             calls = {}
             errs = {}
             for v, lib in libs.items():
-                if kind == "forward":
-                    blocks = (None if v == "baseline"
-                              else plan["forward"]["blocks_per_expr"])
-                    call = (lambda lib=lib, b=blocks: launch(lib, b, *a))
-                else:
-                    tiles = (BASELINE_TILES(e, h, w, sms) if v == "baseline"
-                             else plan["backward"]["blocks_per_expr"])
-                    call = (lambda lib=lib, t=tiles:
-                            fused_filter._launch_backward(lib, t, *a))
+                blocks = plan[kind]["blocks_per_expr"]
+                call = (lambda lib=lib, b=blocks: launch(lib, b, *a))
                 try:
                     got = call()
                     again = call()
@@ -326,8 +285,6 @@ def main(argv=None):
                       for m in ("events", "device", "cold")},
                    "runs": runs}
             row["tile_plan"] = plan[kind]
-            if kind == "backward":
-                row["baseline_blocks_per_expr"] = BASELINE_TILES(e, h, w, sms)
             print(f"[{name} {kind}] bound {bound * 1e3:.2f} us ({by}); "
                   f"device ms {  {v: round(t, 4) for v, t in row['device_ms'].items()} }; "
                   f"cold-L2 ms {  {v: round(t, 4) for v, t in row['cold_ms'].items()} }; "

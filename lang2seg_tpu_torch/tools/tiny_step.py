@@ -34,9 +34,9 @@ from ..config import Config, apply_variant
 from ..data.synthetic import (synthetic_batch, synthetic_detection_batch,
                               to_wire)
 from ..engine.train_state import create_train_state, to_device, train_step
-from ..ops import fused_filter, nms_cuda, roi_pool_cuda
 from ..ops.anchors import shifted_anchors
 from ..ops.targets import anchor_targets, proposal_targets
+from ..utils.trace import counters
 from ..weights import init_params
 
 
@@ -121,14 +121,9 @@ def tiny_inputs(cfg: Config, seed: int = 5, num_gt: int = 4):
     return batch, (at, pt)
 
 
-def launch_counts() -> Tuple[int, int, int]:
-    return (nms_cuda.launches, fused_filter.launches,
-            fused_filter.bwd_launches)
-
-
-def pool_launch_counts() -> Tuple[int, int]:
-    """The ROI pool kernel's launches, forward and backward."""
-    return roi_pool_cuda.launches, roi_pool_cuda.bwd_launches
+# the launch counters `step_on` reads (`utils/trace.py`)
+LAUNCHES = ("nms.launches", "gate.launches", "gate.bwd_launches",
+            "roi_pool.launches", "roi_pool.bwd_launches")
 
 
 def step_on(cfg: Config, state_dict, batch, targets, device
@@ -140,13 +135,13 @@ def step_on(cfg: Config, state_dict, batch, targets, device
     state = create_train_state(cfg, device=device, state_dict=state_dict)
     old = {k: v.detach().float().cpu().clone()
            for k, v in state.model.state_dict().items()}
-    c0 = launch_counts() + pool_launch_counts()
+    c0 = counters()
     targets = tuple(type(t)(*(x.to(device) for x in t)) for t in targets)
     losses = train_step(state, to_device(batch, device),
                         torch.Generator().manual_seed(0), targets)
     losses = {k: float(v) for k, v in losses.items()}
-    launched = tuple(b - a for a, b in zip(
-        c0, launch_counts() + pool_launch_counts()))
+    c1 = counters()
+    launched = tuple(c1.get(n, 0) - c0.get(n, 0) for n in LAUNCHES)
     updates = {k: v.detach().float().cpu() - old[k]
                for k, v in state.model.state_dict().items()}
     return losses, updates, launched

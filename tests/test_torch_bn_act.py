@@ -4,11 +4,7 @@ CPU: its plain version against the composition it replaces
 head and tail that call it against a copy of the bottleneck as it was
 written before the op, bit for bit in outputs and gradients. The kernels
 themselves are compared with the plain version on the card
-(`tests/test_torch_cuda.py`). Last, how `chip_smoke.py` gives the
-kernels' traced graph replays to the shapes its wrappers launched."""
-
-import importlib.util
-import pathlib
+(`tests/test_torch_cuda.py`)."""
 
 import pytest
 import torch
@@ -157,57 +153,3 @@ def test_launches_refuse_cpu_tensors(fn):
     with pytest.raises(ValueError, match="CUDA tensor"):
         getattr(bn_act_cuda, fn)(*args)
 
-
-def _chip_smoke():
-    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-@pytest.mark.parametrize("steps, replays, extra_runs, ok", [
-    (2, 10, 0, True),       # a warm step and a capture, 10 replays traced
-    (3, 4, 0, True),        # a sharded step, a warm step, a capture
-    (2, 10, 1, False),      # one kernel run too many in the trace
-])
-def test_traced_bn_act_runs_go_to_the_wrappers_shapes(steps, replays,
-                                                      extra_runs, ok):
-    """`add_traced_bn_act` splits a trace's runs over the shapes launched
-    since the snapshot in the wrappers' proportions, and refuses a count
-    that does not split into whole steps; `bn_act_launches` adds them to
-    the wrappers' own counts, and launches before the snapshot stay out
-    of the split."""
-    cs = _chip_smoke()
-    step_fwd = {(2, 256, 40, 64, 0, "bfloat16"): 3,
-                (2, 1024, 40, 64, 1, "bfloat16"): 5,
-                (4096, 2048, 7, 7, 2, "bfloat16"): 1}
-    step_bwd = {(4096, 2048, 7, 7, 2, "bfloat16"): 1}
-    saved = (bn_act_cuda.shapes.copy(), bn_act_cuda.bwd_shapes.copy(),
-             bn_act_cuda.launches, bn_act_cuda.bwd_launches)
-    try:
-        cs.reset_bn_act_counts()
-        bn_act_cuda.shapes[(1, 64, 320, 512, 0, "bfloat16")] = 7
-        before = cs.bn_act_shape_snapshot()
-        for _ in range(steps):
-            bn_act_cuda.shapes.update(step_fwd)
-            bn_act_cuda.bwd_shapes.update(step_bwd)
-        traced = {"bn_act": replays * sum(step_fwd.values()) + extra_runs,
-                  "bn_act_bwd": replays}
-        if not ok:
-            with pytest.raises(RuntimeError, match="do not split"):
-                cs.add_traced_bn_act(before, traced, "test")
-            return
-        cs.add_traced_bn_act(before, traced, "test")
-        launched = cs.bn_act_launches()
-        want = {k: (steps + replays) * n for k, n in step_fwd.items()}
-        want[(1, 64, 320, 512, 0, "bfloat16")] = 7
-        assert launched["fwd"] == want
-        assert launched["bwd"] == {k: (steps + replays) * n
-                                   for k, n in step_bwd.items()}
-    finally:
-        bn_act_cuda.shapes.clear()
-        bn_act_cuda.bwd_shapes.clear()
-        bn_act_cuda.shapes.update(saved[0])
-        bn_act_cuda.bwd_shapes.update(saved[1])
-        bn_act_cuda.launches, bn_act_cuda.bwd_launches = saved[2:]

@@ -49,6 +49,7 @@ from lang2seg_tpu_torch.tools.profile_crop import (crop_bound,
                                                    crop_bwd_bound,
                                                    crop_inputs, edge_rois,
                                                    tap_pixels, ulps_at)
+from lang2seg_tpu_torch.utils import trace
 from tests.test_torch_weights import response_config, shared_weights
 
 SCALE = 1.0 / 16
@@ -210,22 +211,23 @@ def test_backward_plain_matches_autograd_of_einsum_pair(dtype, maps):
 def test_cpu_crop_never_touches_the_library(monkeypatch):
     """On CPU tensors the crop, its autograd node and the model's ROI
     features take the plain versions: the library is never loaded and the
-    launch counters stay 0."""
+    launch counters, in total and by shape, do not move."""
     def refuse():
         raise AssertionError("the CPU path loaded the CUDA library")
     monkeypatch.setattr(roi_crop_cuda, "_lib", refuse)
-    monkeypatch.setattr(roi_crop_cuda, "launches", 0)
-    monkeypatch.setattr(roi_crop_cuda, "bwd_launches", 0)
-    monkeypatch.setattr(roi_crop_cuda, "shapes", roi_crop_cuda.shapes.copy())
-    roi_crop_cuda.shapes.clear()
+    names = ("roi_crop.launches", "roi_crop.bwd_launches")
+
+    def counts():
+        c = trace.counters()
+        return [(c.get(n, 0), trace.by_key(n)) for n in names]
+    before = counts()
     feat, rois, _ = _inputs(torch.float32)
     with torch.no_grad():
         crop_and_resize(feat, rois, 7, SCALE)
     leaf = feat.clone().requires_grad_(True)
     roi_crop_pool(leaf, rois, 7, SCALE, True).square().sum().backward()
     assert leaf.grad is not None and bool(leaf.grad.abs().sum() > 0)
-    assert (roi_crop_cuda.launches, roi_crop_cuda.bwd_launches) == (0, 0)
-    assert not roi_crop_cuda.shapes
+    assert counts() == before
 
 
 def test_crop_refuses_rois_with_a_gradient_and_other_devices():

@@ -7,6 +7,7 @@ on a machine without it:
 
 `chip_smoke.py` runs the same comparisons at the flagship shapes."""
 
+import collections
 import copy
 import os
 
@@ -27,8 +28,37 @@ from lang2seg_tpu_torch.tools.profile_bn_act import same_bits
 from lang2seg_tpu_torch.tools.profile_gate import bf16_ulp_distance
 from lang2seg_tpu_torch.tools.profile_nms import edge_cases
 from lang2seg_tpu_torch.tools.profile_roi_pool import roi_pool_inputs
+from lang2seg_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
+
+# launch counters (`utils/trace.py`) read together
+SERVED = ("nms.launches", "gate.launches")
+TRAINED = SERVED + ("gate.bwd_launches",)
+CROPS = ("roi_crop.launches", "roi_crop.bwd_launches")
+BN_ACT = ("bn_act.launches", "bn_act.bwd_launches")
+
+
+def _n(name):
+    """The counter `name` so far."""
+    return trace.counters().get(name, 0)
+
+
+def _counts(names):
+    """The counters `names` so far, by name."""
+    return {name: _n(name) for name in names}
+
+
+def _since(before, after=None):
+    """Each counter's change from the counts `before` to `after` (by
+    default now), in `before`'s order."""
+    after = after or _counts(before)
+    return tuple(after[name] - before[name] for name in before)
+
+
+def _shapes(name):
+    """The counts of `name` by shape so far."""
+    return collections.Counter(trace.by_key(name))
 
 
 @pytest.fixture
@@ -72,9 +102,9 @@ def test_nms_kernel_bit_identical(dev, case):
     """Random draws, and the edge cases: tile edges, max_out at a tile's
     end, mid-tile and above N, an all-invalid lane, 1, 4 and 8 lanes."""
     boxes, valid, thresh, max_out = _nms_case(case, dev)
-    before = nms_cuda.launches
+    before = _n("nms.launches")
     ki, km = nms_cuda.nms_batched(boxes, valid, thresh, max_out)
-    assert nms_cuda.launches == before + 1
+    assert _n("nms.launches") == before + 1
     pi, pm = nms_padded(boxes, valid, thresh, max_out)
     assert torch.equal(ki, pi) and torch.equal(km, pm)
 
@@ -104,10 +134,10 @@ def test_gate_kernel_matches_plain(dev, dtype, k, gate, normalize):
     filt = (torch.tanh(torch.randn((e, c, k), generator=g))
             * (1.0 if normalize else 0.05)).to(dev)
     rfilt = torch.tanh(torch.randn((e, k), generator=g)).to(dev)
-    before = fused_filter.launches
+    before = _n("gate.launches")
     gk, rk = fused_filter.fused_dynamic_filter(conv, filt, rfilt, k, gate,
                                                normalize)
-    assert fused_filter.launches == before + 1
+    assert _n("gate.launches") == before + 1
     gp, rp = fused_dynamic_filter_plain(conv, filt, rfilt, k, gate, normalize)
     # f32 sums in another order: 1e-3 of the response's range; given the
     # kernel's response, the gated map is one rounding of conv * g, so it
@@ -132,10 +162,10 @@ def test_gate_kernel_reads_a_map_per_image(dev, dtype, maps, per_map):
     conv = torch.randn((maps, h, w, c), generator=g).to(dev, dtype)
     filt = torch.tanh(torch.randn((e, c, 7), generator=g)).to(dev)
     rfilt = torch.tanh(torch.randn((e, 7), generator=g)).to(dev)
-    before = fused_filter.launches
+    before = _n("gate.launches")
     gk, rk = fused_filter.fused_dynamic_filter(conv, filt, rfilt, 7,
                                                "sigmoid", True, per_map)
-    assert fused_filter.launches == before + 1
+    assert _n("gate.launches") == before + 1
     gp, rp = fused_dynamic_filter_plain(conv, filt, rfilt, 7, "sigmoid",
                                         True, per_map)
     assert float((rk - rp).abs().max()) <= 1e-3 * float(rp.abs().max())
@@ -182,10 +212,10 @@ def test_gate_bwd_kernel_matches_plain(dev, dtype, k, gate, normalize, c):
     for conv in (img[idx], img[:1].expand(e, h, w, c)):
         _, fused = fused_dynamic_filter_plain(conv, filt, rfilt, k, gate,
                                               normalize)
-        before = fused_filter.bwd_launches
+        before = _n("gate.bwd_launches")
         got = fused_filter.fused_dynamic_filter_bwd(
             conv, filt, rfilt, fused, d_gated, d_resp, k, gate, normalize)
-        assert fused_filter.bwd_launches == before + 1
+        assert _n("gate.bwd_launches") == before + 1
         want = fused_dynamic_filter_bwd_plain(
             conv, filt, rfilt, fused, d_gated, d_resp, k, gate, normalize)
         torch.cuda.synchronize()
@@ -316,12 +346,11 @@ def test_gate_autograd_launches_both_kernels(dev):
     rfilt = torch.tanh(torch.randn((e, 7), generator=g)).to(dev)
     filt.requires_grad_(True)
     rfilt.requires_grad_(True)
-    f0, b0 = fused_filter.launches, fused_filter.bwd_launches
+    before = _counts(("gate.launches", "gate.bwd_launches"))
     gated, resp = fused_filter.fused_dynamic_filter(conv, filt, rfilt, 7,
                                                     "sigmoid", True)
     (gated.float().square().sum() + resp.sum()).backward()
-    assert (fused_filter.launches - f0, fused_filter.bwd_launches - b0) \
-        == (1, 1)
+    assert _since(before) == (1, 1)
     for t in (conv, filt, rfilt):
         assert t.grad is not None and bool(torch.isfinite(t.grad).all())
 
@@ -341,12 +370,12 @@ def test_gate_bwd_takes_a_zero_d_resp(dev, normalize):
     conv.requires_grad_(True)
     filt.requires_grad_(True)
     rfilt.requires_grad_(True)
-    before = fused_filter.bwd_launches
+    before = _n("gate.bwd_launches")
     gated, resp = fused_filter.fused_dynamic_filter(conv, filt, rfilt, k,
                                                     "multiply", normalize)
     d_gated = torch.randn(gated.shape, generator=g).to(dev, torch.bfloat16)
     gated.backward(d_gated)                    # resp takes no gradient
-    assert fused_filter.bwd_launches == before + 1
+    assert _n("gate.bwd_launches") == before + 1
     want = fused_dynamic_filter_bwd_plain(
         conv.detach(), filt.detach(), rfilt.detach(), resp.detach(), d_gated,
         torch.zeros_like(resp), k, "multiply", normalize)
@@ -469,12 +498,9 @@ def test_loader_trainer_step_on_card(dev, tmp_path):
     cfg, info, labels, read = _tiny_refer()
     tr = Trainer(cfg, GtBatchLoader(info, labels, cfg, read_image=read),
                  str(tmp_path), device="cuda")
-    before = (nms_cuda.launches, fused_filter.launches,
-              fused_filter.bwd_launches)
+    before = _counts(TRAINED)
     losses = tr.train(1)
-    after = (nms_cuda.launches, fused_filter.launches,
-             fused_filter.bwd_launches)
-    assert tuple(b - a for a, b in zip(before, after)) == (1, 1, 1)
+    assert _since(before) == (1, 1, 1)
     assert all(np.isfinite(v) for v in losses.values())
     assert os.path.isdir(tmp_path / "ckpt" / "iter_1")
 
@@ -499,11 +525,10 @@ def test_eval_split_bucketed_image_on_card(dev):
     accs = {}
     for d in ("cuda", "cpu"):
         accs[d] = SegEvalAccumulator()
-        before = (nms_cuda.launches, fused_filter.launches)
+        before = _counts(SERVED)
         Evaluator(build_model(cfg, device=d, state_dict=sd), cfg,
                   device=d).eval_split(batches, acc=accs[d])
-        launched = (nms_cuda.launches - before[0],
-                    fused_filter.launches - before[1])
+        launched = _since(before)
         assert launched == ((1, 1) if d == "cuda" else (0, 0))
     assert accs["cuda"].num_sent == accs["cpu"].num_sent == 9
     assert accs["cuda"].det_correct == accs["cpu"].det_correct
@@ -535,10 +560,9 @@ def test_eval_split_chunks_on_card(dev):
         calls, real = [], ev._dispatch_staged
 
         def counted(st, real=real, calls=calls):
-            c0 = (nms_cuda.launches, fused_filter.launches)
+            c0 = _counts(SERVED)
             rec = real(st)
-            calls.append((nms_cuda.launches - c0[0],
-                          fused_filter.launches - c0[1]))
+            calls.append(_since(c0))
             return rec
 
         ev._dispatch_staged = counted
@@ -560,9 +584,9 @@ def test_nms_kernel_at_the_pretrain_shape(dev):
     from lang2seg_tpu_torch.tools.profile_nms import rpn_draw
     boxes = rpn_draw(2, 12000, 5, dev)
     valid = torch.ones((2, 12000), dtype=torch.bool, device=dev)
-    before = nms_cuda.launches
+    before = _n("nms.launches")
     ki, km = nms_cuda.nms_batched(boxes, valid, 0.7, 2000)
-    assert nms_cuda.launches == before + 1
+    assert _n("nms.launches") == before + 1
     pi, pm = nms_padded(boxes, valid, 0.7, 2000)
     assert torch.equal(ki, pi) and torch.equal(km, pm)
 
@@ -609,13 +633,10 @@ def test_pretrain_step_from_the_coco_loader_on_card(dev, tmp_path):
     loader = CocoDetectionLoader(coco, str(tmp_path), cfg, read_image=read)
     state = create_train_state(cfg, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
-    before = (nms_cuda.launches, fused_filter.launches,
-              fused_filter.bwd_launches)
+    before = _counts(TRAINED)
     losses = train_step(state, to_device(to_wire(cfg, loader.get_batch()),
                                          "cuda"), g)
-    after = (nms_cuda.launches, fused_filter.launches,
-             fused_filter.bwd_launches)
-    assert tuple(b - a for a, b in zip(before, after)) == (1, 0, 0)
+    assert _since(before) == (1, 0, 0)
     assert "loss_mask" in losses and "loss_response" not in losses
     assert all(np.isfinite(float(v)) for v in losses.values())
 
@@ -635,12 +656,9 @@ def test_prepro_in_memory_feeds_a_response_step_on_card(dev, tmp_path):
     cfg.model.vocab_size = len(info["word_to_ix"])
     tr = Trainer(cfg, GtBatchLoader(info, labels, cfg, read_image=read),
                  device="cuda")
-    before = (nms_cuda.launches, fused_filter.launches,
-              fused_filter.bwd_launches)
+    before = _counts(TRAINED)
     losses = tr.train(1)
-    after = (nms_cuda.launches, fused_filter.launches,
-             fused_filter.bwd_launches)
-    assert tuple(b - a for a, b in zip(before, after)) == (1, 1, 1)
+    assert _since(before) == (1, 1, 1)
     assert all(np.isfinite(v) for v in losses.values())
 
 
@@ -682,14 +700,13 @@ def test_comprehension_card_vs_cpu(dev):
     for d in ("cuda", "cpu"):
         ev = ComprehensionEvaluator(build_model(cfg, device=d, state_dict=sd),
                                     cfg, device=d)
-        before = (nms_cuda.launches, fused_filter.launches)
+        before = _counts(SERVED)
         scores[d] = ev.score_boxes(
             torch.from_numpy(b["images"]).to(d),
             torch.from_numpy(b["labels"]).to(d),
             torch.from_numpy(np.broadcast_to(cands[None], (e,) + cands.shape)
                              .copy()).to(d)).cpu()
-        launched = (nms_cuda.launches - before[0],
-                    fused_filter.launches - before[1])
+        launched = _since(before)
         assert launched == ((0, 1) if d == "cuda" else (0, 0))
         assert ev.eval_split([b])["n"] == 9
     assert float((scores["cuda"] - scores["cpu"]).abs().max()) <= 1e-4
@@ -863,15 +880,15 @@ def test_roi_pool_kernels_large_maps(dev, dtype, h, w, routes):
     assert plan["backward"]["route"] == routes[2]
     feat, rois, grad = roi_pool_inputs(2, 64, h, w, 48, "gathered", dev,
                                        dtype, seed=h)
-    roi_pool_cuda.shapes.clear()
-    roi_pool_cuda.bwd_shapes.clear()
+    s0 = _shapes("roi_pool.launches"), _shapes("roi_pool.bwd_launches")
     _check_roi_pool(feat, rois, grad)
-    assert dict(roi_pool_cuda.shapes) == {roi_pool_cuda.shape_key(
+    assert _shapes("roi_pool.launches") - s0[0] == {roi_pool_cuda.shape_key(
         2, 64, 7, h, w, 48, dtype, True, routes[1]): 1,
         roi_pool_cuda.shape_key(2, 64, 7, h, w, 48, dtype, False,
                                 routes[1]): 1}
-    assert dict(roi_pool_cuda.bwd_shapes) == {roi_pool_cuda.shape_key(
-        2, 64, 7, h, w, 48, dtype, True, routes[2]): 1}
+    assert _shapes("roi_pool.bwd_launches") - s0[1] == {
+        roi_pool_cuda.shape_key(2, 64, 7, h, w, 48, dtype, True,
+                                routes[2]): 1}
 
 
 def test_roi_pool_codes_match_their_plain_version(dev):
@@ -893,10 +910,9 @@ def test_roi_max_pool_autograd_launches_both_kernels(dev):
     ROIs."""
     feat, rois, _ = roi_pool_inputs(2, 16, 20, 30, 32, "gathered", dev)
     feat.requires_grad_(True)
-    f0, b0 = roi_pool_cuda.launches, roi_pool_cuda.bwd_launches
+    before = _counts(("roi_pool.launches", "roi_pool.bwd_launches"))
     roi_max_pool(feat, rois, 7, 1 / 16).float().square().sum().backward()
-    assert (roi_pool_cuda.launches - f0,
-            roi_pool_cuda.bwd_launches - b0) == (1, 1)
+    assert _since(before) == (1, 1)
     want = roi_max_pool_bwd_plain(
         feat.detach(), rois, 2 * roi_max_pool_plain(
             feat.detach(), rois, 7, 1 / 16).float(), 7, 1 / 16)
@@ -909,10 +925,10 @@ def test_roi_max_pool_serving_writes_no_argmax(dev, maps):
     without an argmax (its launch counted under that shape key) and gives
     the plain version's output bit for bit."""
     feat, rois, _ = roi_pool_inputs(3, 40, 20, 30, 64, maps, dev)
-    roi_pool_cuda.shapes.clear()
+    s0 = _shapes("roi_pool.launches")
     with torch.no_grad():
         out = roi_max_pool(feat, rois, 7, 1 / 16)
-    assert dict(roi_pool_cuda.shapes) == {roi_pool_cuda.shape_key(
+    assert _shapes("roi_pool.launches") - s0 == {roi_pool_cuda.shape_key(
         3, 40, 7, 20, 30, 64, feat.dtype, False, "slab"): 1}
     assert out.grad_fn is None
     assert torch.equal(out, roi_max_pool_plain(feat, rois, 7, 1 / 16))
@@ -966,9 +982,10 @@ def test_graphed_steps_equal_eager_steps(dev, deterministic):
     replays; K = 3, two calls, an LR decay after step 2) against 6 eager
     train_steps from the same weights and generator seed, at the tiny f32
     config under deterministic algorithms: parameters, momentum, the
-    generator and every loss bit for bit. The wrappers count the warm
-    step's and the capture's calls; the second call's three replays run
-    NMS three times in its profiler trace."""
+    generator and every loss bit for bit. The counters count the kernels
+    the card ran: the first call's warm step and two replays (the capture
+    none), and the second call's three replays, each kernel three times
+    as its profiler trace runs them."""
     from lang2seg_tpu_torch.data.synthetic import synthetic_batch, to_wire
     from lang2seg_tpu_torch.engine.train_state import (
         create_train_state, make_multi_train_step, stack_batches, to_device,
@@ -987,15 +1004,16 @@ def test_graphed_steps_equal_eager_steps(dev, deterministic):
     from lang2seg_tpu_torch.tools.profile_eval import kernel_launches
     multi = make_multi_train_step(graphed, gg)
     assert multi.graphed
-    nms_cuda.launches = 0
+    c0 = _counts(TRAINED)
     got = [multi(to_device(stack_batches(batches[:3]), dev))]
+    c1 = _counts(TRAINED)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         got.append(multi(to_device(stack_batches(batches[3:]), dev)))
         torch.cuda.synchronize()
-    assert nms_cuda.launches == 2
     traced = kernel_launches(prof)
-    assert (traced["nms"], traced["fused_filter"],
-            traced["fused_filter_bwd"]) == (3, 3, 3)
+    assert _since(c0, c1) == _since(c1) == (
+        traced["nms"], traced["fused_filter"], traced["fused_filter_bwd"]) \
+        == (3, 3, 3)
     for j, w in enumerate(want):
         for k, v in w.items():
             assert torch.equal(got[j // 3][k][j % 3], v), (j, k)
@@ -1220,15 +1238,16 @@ def test_roi_crop_autograd_launches_both_kernels(dev):
     from lang2seg_tpu_torch.tools.profile_crop import crop_inputs
     feat, rois, grad = crop_inputs(2, 16, 20, 30, 64, "gathered", dev)
     ys, xs = (t.contiguous() for t in _sample_coords(rois, 7, 1 / 16))
-    before = (roi_crop_cuda.launches, roi_crop_cuda.bwd_launches)
+    before = _counts(CROPS)
     key = roi_crop_cuda.shape_key(2, 16, 7, 20, 30, 64, torch.bfloat16)
-    shapes = (roi_crop_cuda.shapes[key], roi_crop_cuda.bwd_shapes[key])
+    shapes = (_shapes("roi_crop.launches")[key],
+              _shapes("roi_crop.bwd_launches")[key])
     leaf = feat.detach().requires_grad_(True)
     out = roi_crop_pool(leaf, rois, 7, 1 / 16)
     out.backward(grad)
-    assert (roi_crop_cuda.launches, roi_crop_cuda.bwd_launches) == \
-        (before[0] + 1, before[1] + 1)
-    assert (roi_crop_cuda.shapes[key], roi_crop_cuda.bwd_shapes[key]) == \
+    assert _since(before) == (1, 1)
+    assert (_shapes("roi_crop.launches")[key],
+            _shapes("roi_crop.bwd_launches")[key]) == \
         (shapes[0] + 1, shapes[1] + 1)
     assert torch.equal(out, crop_gather_plain(feat, ys, xs))
     assert torch.equal(leaf.grad, crop_bwd_coords_plain(grad, ys, xs, 20,
@@ -1236,8 +1255,7 @@ def test_roi_crop_autograd_launches_both_kernels(dev):
     with torch.no_grad():
         served = roi_crop_pool(leaf, rois, 7, 1 / 16)
     assert served.grad_fn is None and torch.equal(served, out)
-    assert (roi_crop_cuda.launches, roi_crop_cuda.bwd_launches) == \
-        (before[0] + 2, before[1] + 1)
+    assert _since(before) == (2, 1)
 
 
 def test_roi_crop_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -1246,7 +1264,7 @@ def test_roi_crop_wrappers_refuse_what_the_kernels_do_not_take(dev):
     any launch."""
     feat = torch.zeros((2, 8, 12, 64), device=dev, dtype=torch.bfloat16)
     ys = torch.zeros((2, 3, 7), device=dev)
-    before = roi_crop_cuda.launches
+    before = _n("roi_crop.launches")
     for bad in (feat[..., :12], feat[:, :, ::2]):
         with pytest.raises(ValueError):
             roi_crop_cuda.roi_crop_forward(bad, ys, ys)
@@ -1254,15 +1272,15 @@ def test_roi_crop_wrappers_refuse_what_the_kernels_do_not_take(dev):
                  (torch.zeros((2, 3, 17), device=dev),) * 2):
         with pytest.raises(ValueError):
             roi_crop_cuda.roi_crop_forward(feat, y, x)
-    assert roi_crop_cuda.launches == before
+    assert _n("roi_crop.launches") == before
 
 
 def test_graphed_step_replays_the_crop_kernels(dev, deterministic):
     """The tiny f32 step as a CUDA graph (K = 2, two calls) against 4
     eager steps, bit for bit, with the crop kernels inside the graph: the
-    wrappers count the warm step's and the capture's calls, and the
-    second call's two replays run the crop forward and backward twice
-    each in its profiler trace."""
+    first call counts its warm step and one replay (the capture nothing),
+    the second its two replays, each kernel as often as its profiler trace
+    runs it."""
     from torch.profiler import ProfilerActivity, profile
 
     from lang2seg_tpu_torch.data.synthetic import synthetic_batch, to_wire
@@ -1280,15 +1298,15 @@ def test_graphed_step_replays_the_crop_kernels(dev, deterministic):
     gg = torch.Generator(device=dev).manual_seed(3)
     want = [train_step(eager, to_device(b, dev), ge) for b in batches]
     multi = make_multi_train_step(graphed, gg)
-    before = (roi_crop_cuda.launches, roi_crop_cuda.bwd_launches)
+    c0 = _counts(CROPS)
     got = [multi(to_device(stack_batches(batches[:2]), dev))]
+    c1 = _counts(CROPS)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         got.append(multi(to_device(stack_batches(batches[2:]), dev)))
         torch.cuda.synchronize()
-    assert (roi_crop_cuda.launches - before[0],
-            roi_crop_cuda.bwd_launches - before[1]) == (2, 2)
     traced = kernel_launches(prof)
-    assert (traced["roi_crop"], traced["roi_crop_bwd"]) == (2, 2)
+    assert _since(c0, c1) == _since(c1) == (
+        traced["roi_crop"], traced["roi_crop_bwd"]) == (2, 2)
     for j, w in enumerate(want):
         for k, v in w.items():
             assert torch.equal(got[j // 2][k][j % 2], v), (j, k)
@@ -1352,13 +1370,12 @@ def test_bn_act_kernels_match_plain(dev, case):
         x, other = (t.clone().requires_grad_(True) for t in (x0, o0))
         kw = {"relu": {}, "residual": {"residual": other},
               "down": {"down": (other, bn_d)}}[variant]
-        before = (bn_act_cuda.launches, bn_act_cuda.bwd_launches)
+        before = _counts(BN_ACT)
         out = op(x, bn, **kw)
         out.backward(up)
         torch.cuda.synchronize()
         if op is bn_act_cuda.bn_act:
-            assert (bn_act_cuda.launches - before[0],
-                    bn_act_cuda.bwd_launches - before[1]) == (1, 1)
+            assert _since(before) == (1, 1)
             assert out.is_contiguous(memory_format=torch.channels_last)
         results.append([out.detach(), x.grad] + (
             [] if variant == "relu" else [other.grad]))
@@ -1379,12 +1396,11 @@ def test_bn_act_gradients_only_where_needed(dev, dtype):
     xp = x0.clone().requires_grad_(True)
     bn_act_cuda.bn_act_plain(xp, bn, residual=o0).sum().backward()
     assert same_bits(x.grad, xp.grad)
-    before = (bn_act_cuda.launches, bn_act_cuda.bwd_launches)
+    before = _counts(BN_ACT)
     with torch.no_grad():
         out = bn_act_cuda.bn_act(x, bn, residual=o0)
     assert out.grad_fn is None
-    assert (bn_act_cuda.launches - before[0],
-            bn_act_cuda.bwd_launches - before[1]) == (1, 0)
+    assert _since(before) == (1, 0)
 
 
 def test_bn_act_refuses_what_the_kernel_does_not_take(dev):
@@ -1411,10 +1427,10 @@ def test_bn_act_counts_by_shape_and_rechecks_new_buffers(dev):
     (x, o), (bn, _) = _bn_act_case(2, 64, 5, 6, torch.bfloat16, dev, 6)
     key = bn_act_cuda.shape_key(x, 1)
     assert key == (2, 64, 5, 6, 1, "bfloat16")
-    before = bn_act_cuda.shapes[key]
+    before = _shapes("bn_act.launches")[key]
     with torch.no_grad():
         first = bn_act_cuda.bn_act(x, bn, residual=o)
-        assert bn_act_cuda.shapes[key] == before + 1
+        assert _shapes("bn_act.launches")[key] == before + 1
         bn.running_var = bn.running_var * 4 + 1
         got = bn_act_cuda.bn_act(x, bn, residual=o)
         assert same_bits(got, bn_act_cuda.bn_act_plain(x, bn, residual=o))

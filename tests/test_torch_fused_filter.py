@@ -25,6 +25,7 @@ from lang2seg_tpu_torch.models.dynamic_filter import (DynamicFilterGen,
                                                       spatial_masks_7)
 from lang2seg_tpu_torch.ops import fused_filter
 from lang2seg_tpu_torch.ops.fused_filter import fused_dynamic_filter_plain
+from lang2seg_tpu_torch.utils import trace
 
 CASES = [(7, "sigmoid"), (7, "multiply"), (1, "sigmoid"), (1, "multiply")]
 
@@ -160,11 +161,11 @@ def test_wrapper_takes_plain_path_on_cpu(rng):
     net_conv, filt, rfilt = _inputs(rng, 7)
     args = (torch.from_numpy(net_conv), torch.from_numpy(filt),
             torch.from_numpy(rfilt))
-    before = fused_filter.launches
+    before = trace.counters().get("gate.launches", 0)
     g1, r1 = fused_filter.fused_dynamic_filter(*args, 7, "sigmoid", True)
     g2, r2 = fused_dynamic_filter_plain(*args, 7, "sigmoid", True)
     assert torch.equal(g1, g2) and torch.equal(r1, r2)
-    assert fused_filter.launches == before
+    assert trace.counters().get("gate.launches", 0) == before
     with pytest.raises(ValueError):
         fused_filter.fused_dynamic_filter(*(a.to("meta") for a in args))
 

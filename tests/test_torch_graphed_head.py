@@ -1,6 +1,7 @@
 """The ResNet-C4 head replayed as a CUDA graph (`models/resnet.py::
 ResNetC4.head`): which calls take it, what a replay must find unchanged,
-and on the card that a replay gives the eager pass's bits and a fresh
+how a capture's counts reach the counters (`device.capture_graph`), and
+on the card that a replay gives the eager pass's bits and a fresh
 tensor, follows in-place weight updates, captures again after a re-bind
 and runs eager past the cap. The `cuda` cases skip without a card; the
 file imports nothing of JAX:
@@ -9,13 +10,16 @@ file imports nothing of JAX:
 """
 
 import collections
+import contextlib
 
 import pytest
 import torch
 
+from lang2seg_tpu_torch.device import capture_graph
 from lang2seg_tpu_torch.models import resnet
 from lang2seg_tpu_torch.models.resnet import ResNetC4
 from lang2seg_tpu_torch.ops import bn_act_cuda
+from lang2seg_tpu_torch.ops.bn_act_cuda import bn_act_plain
 from lang2seg_tpu_torch.tools.profile_bn_act import same_bits, unfused
 from lang2seg_tpu_torch.utils import trace
 
@@ -121,16 +125,57 @@ def test_reads_change_on_rebind_not_in_place():
     assert g.reads_now(net) != r2
 
 
-def test_count_replayed_counts_where_the_wrapper_does():
-    """A replay's bn_act kernels, given by shape, go where the wrapper
-    counts its launches: `launches`, `shapes` and `bn_act.launches`."""
-    key = (1, 64, 8, 8, 1, "bfloat16")
-    before = (bn_act_cuda.launches, bn_act_cuda.shapes[key],
-              trace.counters().get("bn_act.launches", 0))
-    bn_act_cuda.count_replayed(collections.Counter({key: 3}))
-    assert (bn_act_cuda.launches, bn_act_cuda.shapes[key],
-            trace.counters()["bn_act.launches"]) == \
-        tuple(b + 3 for b in before)
+class _NoGraph:
+    """Stands in for a CUDA graph, a stream and their contexts on the CPU:
+    the "captured" callable simply runs."""
+
+    def register_generator_state(self, g):
+        pass
+
+    def wait_stream(self, other):
+        pass
+
+
+def _bn_pass(x, bn):
+    """Two counted bn_act launches on x's shape: ReLU only, and with a
+    residual."""
+    return bn_act_cuda.bn_act_forward(bn_act_cuda.bn_act_forward(x, bn), bn,
+                                      x)
+
+
+def test_capture_records_its_pass_and_a_replay_adds_it(monkeypatch):
+    """`device.capture_graph` (both graphs' capture): the warm pass counts
+    as it runs, the captured pass goes to the record and not to the
+    counters, and the record added once, as a replay adds it, raises
+    `bn_act.launches` and its count by shape by that pass."""
+    nothing = contextlib.nullcontext
+    for name, value in (("CUDAGraph", _NoGraph), ("Stream", _NoGraph),
+                        ("current_stream", _NoGraph),
+                        ("stream", lambda s: nothing()),
+                        ("graph", lambda *a, **k: nothing())):
+        monkeypatch.setattr(torch.cuda, name, value)
+    monkeypatch.setattr(
+        bn_act_cuda, "launch_forward", lambda x, bn, other=None, bn_d=None:
+        bn_act_plain(x, bn, other))
+    x = torch.randn((1, 12, 8, 8), generator=torch.Generator().manual_seed(
+        0)).contiguous(memory_format=torch.channels_last)
+    bn = resnet.FrozenBatchNorm(12)
+    keys = [bn_act_cuda.shape_key(x, mode) for mode in (0, 1)]
+
+    def snap():
+        by = trace.by_key("bn_act.launches")
+        return (trace.counters().get("bn_act.launches", 0),
+                [by.get(k, 0) for k in keys])
+    n0, by0 = snap()
+    graph, out, record = capture_graph(lambda: _bn_pass(x, bn),
+                                       warm=lambda: _bn_pass(x, bn))
+    n1, by1 = snap()
+    assert isinstance(graph, _NoGraph)
+    assert torch.equal(out, bn_act_plain(bn_act_plain(x, bn), bn, x))
+    assert record == {("bn_act.launches", k): 1 for k in keys}
+    assert (n1, by1) == (n0 + 2, [b + 1 for b in by0])     # the warm pass
+    trace.add(record)
+    assert snap() == (n1 + 2, [b + 1 for b in by1])
 
 
 # ---- on the card ----
@@ -144,8 +189,9 @@ def dev():
 @pytest.mark.parametrize("n", [1, 2, 4])
 def test_replay_equals_eager(dev, n):
     """The first call captures and the next replays; both give the eager
-    pass's bits, shape, strides and dtype. The capture counts one pass of
-    bn_act launches, as the eager warm pass before it and each replay."""
+    pass's bits, shape, strides and dtype. The warm pass before the
+    capture and each replay count one pass of bn_act launches, the capture
+    none."""
     net, x = _net(dev), _images(dev, n)
     with torch.no_grad():
         c0 = _counts()
@@ -163,7 +209,7 @@ def test_replay_equals_eager(dev, n):
     assert _delta(before) == {"backbone.graph_captures": 1,
                               "backbone.graph_replays": 2,
                               "backbone.graph_eager": 0,
-                              "bn_act.launches": 4 * per_pass}
+                              "bn_act.launches": 3 * per_pass}
 
 
 @pytest.mark.cuda
@@ -270,12 +316,14 @@ def test_bn_act_shapes_count_replays(dev):
     """A replay adds its pass's bn_act launches by shape, as the wrappers
     count them in an eager pass."""
     net, x = _net(dev), _images(dev, 1)
+    def shapes():
+        return collections.Counter(trace.by_key("bn_act.launches"))
     with torch.no_grad():
-        s0 = bn_act_cuda.shapes.copy()
+        s0 = shapes()
         net._head(x)
-        per_pass = bn_act_cuda.shapes - s0
+        per_pass = shapes() - s0
         net.head(x)
-        s1 = bn_act_cuda.shapes.copy()
+        s1 = shapes()
         net.head(x)
-        replayed = bn_act_cuda.shapes - s1
+        replayed = shapes() - s1
     assert replayed == per_pass and sum(per_pass.values()) > 0

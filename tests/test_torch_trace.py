@@ -12,6 +12,7 @@ events: the idle split, where a launch goes, and the launches a span;
 and `benchmark/trace.py::summarize` still reads what it read before the
 program had spans."""
 
+import threading
 import time
 from types import SimpleNamespace
 
@@ -405,6 +406,51 @@ def test_counters_reader_and_delta():
     assert bspans.delta({"a": 2}, {"a": 5, "b": 1}) == {"a": 3, "b": 1}
     trace.count("test.counter", 3)
     assert bspans.counters()["test.counter"] >= 3
+
+
+def _recorded_counts(case):
+    """(totals and keyed counts of `test.rec` before, after) around one
+    case of a recording, and the record."""
+    def snap():
+        return (trace.counters().get("test.rec", 0),
+                trace.by_key("test.rec"))
+    before = snap()
+    with trace.recording() as record:
+        trace.count("test.rec", 2, key=("a", 1))
+        trace.count("test.rec", key=("b", 2))
+        if case == "other_thread":
+            worker = threading.Thread(
+                target=lambda: trace.count("test.rec", 5, key=("c", 3)))
+            worker.start()
+            worker.join()
+    inside = snap()
+    if case == "add":
+        trace.add(record, times=3)
+    return before, inside, snap(), record
+
+
+@pytest.mark.parametrize("case", ["recorded", "add", "other_thread"])
+def test_recording_keeps_counts_out_of_the_totals(case):
+    """Counts made inside `recording()` on its thread go to its record
+    and not to the totals; `add(record, times=k)` adds k x the record to
+    the totals and to each key's count; a count made on another thread
+    meanwhile goes to the totals."""
+    before, inside, after, record = _recorded_counts(case)
+    assert record == {("test.rec", ("a", 1)): 2, ("test.rec", ("b", 2)): 1}
+    total, keyed = before
+
+    def plus(*added):
+        out = dict(keyed)
+        for key, n in added:
+            out[key] = out.get(key, 0) + n
+        return out
+    if case == "recorded":
+        assert inside == after == before
+    elif case == "add":
+        assert inside == before
+        assert after == (total + 9, plus((("a", 1), 6), (("b", 2), 3)))
+    else:
+        assert inside == after == (total + 5, plus((("c", 3), 5)))
 
 
 def test_traced_run_reduces_the_programs_spans(setup):
