@@ -311,6 +311,14 @@ Phases, each fatal on failure (nothing is caught):
      1024) and the eval shape (4 images): bit for bit, host and device ms
      a call, the runtime calls a call (at most 6 graphed), the first
      call's seconds and the graph pool's bytes.
+  34. the conditioning with its language half (bi-LSTM and filter
+     heads) replayed as a CUDA graph against its eager pass
+     (`tools/profile_condition.py`) at the serving shape (16 expressions
+     on one map) and each eval mix dispatch shape (1, 2 or 4 maps of 4, 8
+     or 16 expressions): the filters, gated map and response bit for bit,
+     host and device ms a call, the runtime calls a call (at most 12
+     graphed), the first call's seconds, the pool's bytes; one capture a
+     label shape, no eager call, and the head graph's counters unchanged.
 Then one `{"kernels": [...]}` line (one NMS entry and one gate entry per
 shape, its launches from the runs of that shape's path: serving in phases
 5, 14 and 24 and the bucket-16 images of phases 12, 16 and 20, training in
@@ -408,6 +416,7 @@ from lang2seg_tpu_torch.tools.profile_roi_pool import (  # noqa: E402
     compare_shape as compare_pool_shape, phase_clocks as pool_phase_clocks)
 from lang2seg_tpu_torch.tools import learn_synthetic  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_bn_act  # noqa: E402
+from lang2seg_tpu_torch.tools import profile_condition  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_crop  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_eval  # noqa: E402
 from lang2seg_tpu_torch.tools import profile_head  # noqa: E402
@@ -3643,6 +3652,50 @@ def graphed_head(dev):
     del model
 
 
+# ---------------------------------------------------------------- phase 34
+
+def graphed_condition(dev):
+    """Phase 34: the flagship model's conditioning, its language half as a
+    CUDA graph, against the eager pass at the serving shape and every eval
+    mix dispatch shape (`profile_condition.compare`): the same bits, at
+    most 12 runtime calls a graphed call, one capture a label shape and
+    no eager fallback, the head graph's counters untouched."""
+    model = build_model(flagship_config(), device="cuda", seed=0)
+    names = [f"{part}.graph_{what}" for part in ("backbone", "condition")
+             for what in ("captures", "replays", "eager")]
+    before = trace.counters()
+    rows = []
+    for name, maps, per_map in profile_condition.SHAPES:
+        res = profile_condition.compare(model, maps, per_map, dev)
+        log(f"[graphed-condition] {name} ({maps} maps x {per_map}): bits "
+            f"equal={res['bits_equal']}; host ms a call eager "
+            f"{res['eager_host_ms']:.3f} / graphed "
+            f"{res['graphed_host_ms']:.3f}, device ms "
+            f"{res['eager_device_ms']:.3f} / {res['graphed_device_ms']:.3f}"
+            f", runtime calls {res['eager_runtime_calls']} / "
+            f"{res['graphed_runtime_calls']}; first call "
+            f"{res['first_call_s']:.3f} s, pool {res['pool_bytes']} bytes")
+        check(res["bits_equal"], f"the graphed conditioning at {name} "
+              f"differs from the eager pass")
+        check(res["graphed_runtime_calls"] <= 12, f"a graphed conditioning "
+              f"call at {name} made {res['graphed_runtime_calls']} runtime "
+              f"calls")
+        rows.append({"shape": name, **res})
+    after = trace.counters()
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in names}
+    log(f"[graphed-condition] counters: {delta}")
+    check(delta["backbone.graph_captures"] == delta[
+        "backbone.graph_replays"] == delta["backbone.graph_eager"] == 0,
+        "phase 34 moved the head graph's counters")
+    label_shapes = {maps * per_map
+                    for _, maps, per_map in profile_condition.SHAPES}
+    check(delta["condition.graph_captures"] == len(label_shapes)
+          and delta["condition.graph_eager"] == 0,
+          "phase 34: not one capture a label shape, or an eager fallback")
+    record["graphed_condition"] = {"shapes": rows, "counters": delta}
+    del model
+
+
 def main():
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
         dp_rank_worker(int(sys.argv[2]), sys.argv[3])
@@ -3708,6 +3761,7 @@ def main():
     crop_kernels = crop_launches(crop_checked, crop_regs, dev, main_path)
     bn_act_kernels = check_bn_act(dev, bn_act_launches(main_path))
     graphed_head(dev)
+    graphed_condition(dev)
     for kr in kernels:
         kr["launches"] = sum(runs[path].get(counter, 0)
                              for path, counter in kr["launched_by"])

@@ -29,10 +29,15 @@ multi-label BCE on the un-gated map cropped at each expression's GT box,
 `predict_attribute_scores`). A batch with `expr_uid` draws its anchor
 and ROI subsamples per example (`ops/targets.py::example_uniforms`), as
 the JAX package folds the uid into its sampling key.
+
+At inference on the card the ResNet head (`models/resnet.py`) and the
+language half of the conditioning (`_filters`: labels to the dynamic
+filters) replay as CUDA graphs, one an input shape.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -40,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
-from ..device import device_constant, resolve_device
+from ..device import GraphedPasses, device_constant, resolve_device
 from ..ops.anchors import shifted_anchors
 from ..ops.proposals import proposal_layer, proposal_top_layer
 from ..ops.roi_align import roi_crop_pool, roi_max_pool
@@ -65,6 +70,16 @@ from .vgg import VGG16
 # takes one call
 TAIL_CROPS = 40960
 TAIL_PIECE = 8192
+
+# the most label shapes (E, T) a Lang2Seg keeps a captured language half
+# for; past it, calls run eager. Eight hold serving's E = 16, eval's
+# dispatches of 1, 2 or 4 images of buckets 4 / 8 / 16 (E = 4, 8, 16, 32,
+# 64) and a validation's E = 1
+CONDITION_GRAPH_KEYS = 8
+
+# a Lang2Seg -> the `GraphedPasses` of its language half (kept off the
+# module: a deep copy or a pickle of the model carries no graph)
+_LANGUAGE_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def _in_pieces(fn, x: torch.Tensor, piece: int) -> torch.Tensor:
@@ -197,8 +212,40 @@ class Lang2Seg(nn.Module):
         net_conv: (E // G, h, w, C), read by G = exprs_per_map consecutive
         expressions each; labels: (E, T); `generator` draws the
         word-dropout mask in train mode."""
+        filt, rfilt = self._filters(labels, generator)
+        return self.filter_gen.gate_map(net_conv, filt, rfilt,
+                                        exprs_per_map)
+
+    def _filters(self, labels: torch.Tensor,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The language half of `_condition`: labels (E, T) -> the filters
+        (E, C, K) and the response filters (E, K), f32. With the labels on
+        the card, no gradient recorded, the encoder in eval mode and no
+        capture under way, a CUDA graph's replay, one a label shape
+        (`device.GraphedPasses`: the eager pass's bits, fresh tensors,
+        in-place weight updates seen, `condition.graph_*` counted); the
+        eager pass otherwise (training, the CPU, a call inside another
+        capture). The gate stays outside: its output is the largest
+        tensor of the request."""
+        if labels.is_cuda and not torch.is_grad_enabled() and \
+                not self.rnn_encoder.training and \
+                not torch.cuda.is_current_stream_capturing():
+            g = _LANGUAGE_GRAPHS.get(self)
+            if g is None:
+                g = _LANGUAGE_GRAPHS[self] = GraphedPasses(
+                    [self.rnn_encoder, *self.filter_gen.children()],
+                    "condition")
+            return g.run(self._language, (labels,), g.addresses(),
+                         CONDITION_GRAPH_KEYS)
+        return self._language(labels, generator)
+
+    def _language(self, labels: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The eager pass of `_filters`."""
         _, hidden, _ = self.rnn_encoder(labels, generator)
-        return self.filter_gen(net_conv, hidden, exprs_per_map)
+        return self.filter_gen.filters(hidden)
 
     @span("l2s.roi_tail")
     def _roi_features(self, gated: torch.Tensor, rois: torch.Tensor,

@@ -38,18 +38,14 @@ CPU run eager.
 
 from __future__ import annotations
 
-import collections
-import functools
 import weakref
-from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import capture_graph
+from ..device import GraphedPasses
 from ..ops.bn_act_cuda import bn_act
-from ..utils import trace
 
 STAGE_BLOCKS = {
     "resnet26": (1, 1, 1, 1),   # test-only tiny depth
@@ -128,43 +124,19 @@ def _stage(inplanes: int, planes: int, blocks: int, stride: int):
 GRAPH_KEYS = 4
 
 
-class _HeadGraph(NamedTuple):
-    graph: "torch.cuda.CUDAGraph"
-    static_in: torch.Tensor
-    static_out: torch.Tensor
-    # the counts of the captured pass, which each replay adds: it runs the
-    # kernels without their wrappers
-    record: collections.Counter
-
-
-class _Graphs:
-    """A ResNetC4's captured heads by input key, in one memory pool (they
-    replay on one stream, one at a time), and what they read: the
-    BatchNorm pass, the compute dtype and the address of every parameter
-    and buffer of conv1 .. layer3."""
+class _Graphs(GraphedPasses):
+    """A ResNetC4's captured heads by input key (`device.GraphedPasses`),
+    and what they read: the BatchNorm pass, the compute dtype and the
+    address of every parameter and buffer of conv1 .. layer3."""
 
     def __init__(self, net: "ResNetC4"):
-        mods = [net.conv1, net.bn1, net.layer1, net.layer2, net.layer3]
-        slots = [(d, k) for mod in mods for m in mod.modules()
-                 for d in (m._parameters, m._buffers)
-                 for k, t in d.items() if t is not None]
-        self.dicts, self.names = zip(*slots)
-        self.by_key: Dict[tuple, _HeadGraph] = {}
-        self.reads = None
-        self.pool = None
+        super().__init__([net.conv1, net.bn1, net.layer1, net.layer2,
+                          net.layer3], "backbone")
 
     def reads_now(self, net: "ResNetC4") -> tuple:
         """What a replay must find unchanged (~50 us on the host for
         ResNet-101's 470 tensors)."""
-        return (bn_act, net.dtype, tuple(map(
-            torch.Tensor.data_ptr, map(dict.__getitem__, self.dicts,
-                                       self.names))))
-
-    def drop(self) -> None:
-        for key in self.by_key:
-            torch.cuda.synchronize(key[2])   # no replay still running
-        self.by_key.clear()
-        self.pool = None
+        return (bn_act, net.dtype, self.addresses())
 
 
 # a ResNetC4 -> its `_Graphs` (kept off the module: a deep copy or a
@@ -216,48 +188,16 @@ class ResNetC4(nn.Module):
         return x.permute(0, 2, 3, 1)
 
     def _graphed_head(self, images: torch.Tensor) -> torch.Tensor:
-        """Copies `images` into the input of the graph captured at their
-        (shape, dtype, device), capturing it first if need be, replays it
-        and returns a copy of its output: an earlier call's result is never
+        """The head by the graph captured at the images' (shape, dtype,
+        device), capturing it first if need be (`GraphedPasses.run`): a
+        copy of its output, so an earlier call's result is never
         overwritten. Counts `backbone.graph_replays` and the captured
         pass's launches, or `backbone.graph_eager` past `GRAPH_KEYS`
         keys."""
         g = _GRAPHS.get(self)
         if g is None:
             g = _GRAPHS[self] = _Graphs(self)
-        reads = g.reads_now(self)
-        if reads != g.reads:
-            g.drop()
-            g.reads = reads
-        key = (images.shape, images.dtype, images.device)
-        hit = g.by_key.get(key)
-        if hit is None:
-            if len(g.by_key) >= GRAPH_KEYS:
-                trace.count("backbone.graph_eager")
-                return self._head(images)
-            hit = g.by_key[key] = self._capture(images, g)
-        hit.static_in.copy_(images)
-        hit.graph.replay()
-        trace.count("backbone.graph_replays")
-        trace.add(hit.record)
-        return hit.static_out.clone()
-
-    def _capture(self, images: torch.Tensor, g: _Graphs) -> _HeadGraph:
-        """The head at `images`' key as a CUDA graph in `g`'s pool
-        (`device.capture_graph`), after an eager pass on the side stream
-        (cuDNN chooses its algorithms, the kernels' launch state is
-        cached), which counts as the pass it is; the capture counts
-        nothing."""
-        with torch.cuda.device(images.device):
-            static_in = torch.empty_like(
-                images, memory_format=torch.contiguous_format).copy_(images)
-            if g.pool is None:
-                g.pool = torch.cuda.graph_pool_handle()
-            head = functools.partial(self._head, static_in)
-            graph, static_out, record = capture_graph(head, pool=g.pool,
-                                                      warm=head)
-        trace.count("backbone.graph_captures")
-        return _HeadGraph(graph, static_in, static_out, record)
+        return g.run(self._head, (images,), g.reads_now(self), GRAPH_KEYS)
 
     def tail(self, pool5: torch.Tensor) -> torch.Tensor:
         """(R, S, S, 1024) -> spatial_fc7 (R, S, S, 2048)."""

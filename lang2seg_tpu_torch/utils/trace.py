@@ -40,8 +40,12 @@ counts by key:
                           the card)
   backbone.graph_eager    such calls that ran eager instead: past the cap
                           on captured shapes
+  condition.graph_captures, condition.graph_replays, condition.graph_eager
+                          the same for the language half of the
+                          conditioning, a graph a label shape
+                          (`models/network.py::Lang2Seg._filters`)
 
-The head graph's hit share is replays / (replays + eager).
+A graph's hit share is replays / (replays + eager).
 
 A launch counter counts the kernels the device ran. A CUDA graph's
 capture runs none: it counts inside `recording()`, whose record the
